@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``coreth_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout, on a machine with a card:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device — the card's name and power limit (nvidia-smi) and torch's view;
+2. build  — ``make -C native`` and one ``nvcc`` per kernel source, all
+   started together; build seconds;
+3. K1     — the transfer-window kernel against its plain PyTorch version on
+   the card, at main-path shapes (128 blocks x 128 txs, ~9.4k window
+   locals), on a window with token slot amounts, an insolvent block, a
+   nonce-mismatch block and out-of-bounds pad gids: tables and fetch rows
+   must be equal exactly (tolerance 0: integer results);
+4. K2     — the secp256k1 recovery kernel against its plain version on 4096
+   signatures made with the port's ``sign`` plus malformed rows (r or s out
+   of range, recid 2/3, x >= p): the 102-byte rows must be equal exactly,
+   and the addresses recovered through the kernel must equal the native
+   C++ ``recover_addresses_batch``;
+5. main   — the benchmark's transfer shape (1024 keys, 128 txs/block, every
+   other recipient fresh, TEST_CHAIN_CONFIG, gap 10), cut to 256 blocks,
+   built by the port's sequential chain builder and replayed through
+   ``ReplayEngine(device="cuda", window=128)``: every block must take the
+   device path, the final root must equal the last header's, and both
+   kernels' launch counters must rise during the replay.
+
+Then one JSON line with every kernel's numbers, the nvidia-smi line, and
+last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+nonzero; without a card, or without the package beside this script, it
+exits nonzero before printing any result.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+SEED = 20261017
+GWEI = 10**9
+H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
+# 32-bit integer multiply-adds: 64 per SM per clock (half the FP32 lanes),
+# 132 SMs at the 1.98 GHz boost clock
+H100_IMAD_PER_S = 64 * 132 * 1.98e9
+H100_INT32_OPS_PER_S = 2 * H100_IMAD_PER_S
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def max_abs_err(got, want) -> int:
+    """Largest absolute difference over paired integer tensors."""
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def once_ms(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return 1000 * (time.perf_counter() - t0)
+
+
+# ------------------------------------------------------------ K1 inputs
+
+def random_window(rng, K: int, pad: int, B: int, cap: int, scap: int,
+                  n_acct: int, n_slot: int, L: int, SL: int,
+                  t_pad: int, s_pad: int):
+    """A random transfer window in the engine's packed layout (numpy):
+    (balances, nonces, slot_vals, acct_gids, slot_gids, txds, t_idxs,
+    s_idxs).  Senders are funded and nonces follow the sequence, except:
+    block 1 has an insolvent sender, block 2 a nonce mismatch.  Token
+    slot amounts are nonzero; acct/slot gids past the touched set are the
+    out-of-bounds pad (``cap`` / ``scap``)."""
+    from coreth_tpu_torch.ops import u256
+    from coreth_tpu_torch.replay.engine import TXD_COLS
+    big = [int(v) << 96 for v in rng.integers(1, 1 << 60, size=cap)]
+    balances = u256.pack_np(big)
+    nonces = rng.integers(0, 1000, size=cap).astype(np.int32)
+    slot_vals = u256.pack_np(
+        [int(v) << 100 for v in rng.integers(1, 1 << 60, size=scap)])
+    rows = rng.choice(cap, size=n_acct, replace=False).astype(np.int32)
+    acct_gids = np.full(L, cap, dtype=np.int32)
+    acct_gids[:n_acct] = rows
+    srows = rng.choice(scap, size=n_slot, replace=False).astype(np.int32)
+    slot_gids = np.full(SL, scap, dtype=np.int32)
+    slot_gids[:n_slot] = srows
+    local_nonce = nonces[rows].astype(np.int64)
+    txds = np.zeros((K, pad, TXD_COLS), dtype=np.int32)
+    t_idxs = np.zeros((K, t_pad), dtype=np.int32)
+    s_idxs = np.zeros((K, s_pad), dtype=np.int32)
+    for k in range(K):
+        n_senders = max(1, min(B // 2, n_acct // 4))
+        senders = rng.integers(0, n_senders, size=B)
+        recips = rng.integers(0, n_acct, size=B)
+        coinbase = int(rng.integers(0, n_acct))
+        offsets = np.zeros(B, dtype=np.int64)
+        seen = {}
+        for i, s in enumerate(senders):
+            offsets[i] = seen.get(int(s), 0)
+            seen[int(s)] = offsets[i] + 1
+        values = [int(v) for v in rng.integers(0, 1 << 40, size=B)]
+        fees = [21000 * int(p) for p in rng.integers(1, 1 << 38, size=B)]
+        required = [21000 * (1 << 40) + v for v in values]
+        if k == 1:
+            required[0] = 1 << 250           # insolvent
+        tx_nonce = local_nonce[senders] + offsets
+        if k == 2:
+            tx_nonce[B // 2] += 1            # nonce mismatch
+        fs = rng.integers(0, n_slot, size=B)
+        ts = rng.integers(0, n_slot, size=B)
+        amounts = [int(v) for v in rng.integers(0, 1 << 50, size=B)]
+        txd = txds[k]
+        txd[:B, 0] = senders
+        txd[:B, 1] = recips
+        txd[:B, 2] = tx_nonce
+        txd[:B, 3] = offsets
+        txd[:B, 4] = 1
+        txd[:, 5] = coinbase
+        txd[:B, 6:22] = u256.pack_np(values)
+        txd[:B, 22:38] = u256.pack_np(fees)
+        txd[:B, 38:54] = u256.pack_np(required)
+        txd[:B, 54] = fs
+        txd[:B, 55] = ts
+        txd[:B, 56:72] = u256.pack_np(amounts)
+        for s in seen:
+            local_nonce[s] += seen[s]
+        touched = sorted(set(senders.tolist()) | set(recips.tolist())
+                         | {coinbase})[:t_pad]
+        t_idxs[k, :len(touched)] = touched
+        stouched = sorted(set(fs.tolist()) | set(ts.tolist()))[:s_pad]
+        s_idxs[k, :len(stouched)] = stouched
+    return (balances, nonces, slot_vals, acct_gids, slot_gids, txds,
+            t_idxs, s_idxs)
+
+
+# ------------------------------------------------------------ K2 inputs
+
+def signature_batch(n: int, seed: int):
+    """n signatures made with the port's ``sign`` plus malformed rows:
+    r = 0, s = n (out of range), recid 2 and 3 (x = r + n), and x >= p
+    crafted straight into the kernel input.  Returns the packed
+    (hashes, rs, ss, recids) and the kernel inputs."""
+    import random
+    from coreth_tpu_torch.crypto import native
+    from coreth_tpu_torch.crypto.secp256k1 import N, sign
+    from coreth_tpu_torch.ops.secp import P
+    rnd = random.Random(seed)
+    hashes, rs, ss, recids = [], [], [], []
+    for _ in range(n):
+        h = rnd.randbytes(32)
+        r, s, v = sign(h, rnd.randrange(1, N))
+        hashes.append(h)
+        rs.append(r)
+        ss.append(s)
+        recids.append(v)
+    # malformed rows overwrite the tail
+    rs[-1] = 0
+    ss[-2] = N
+    recids[-3] = 2
+    recids[-4] = 3
+    rs[-5] = N - 1
+    packed = (b"".join(hashes),
+              b"".join(r.to_bytes(32, "big") for r in rs),
+              b"".join(s.to_bytes(32, "big") for s in ss),
+              bytes(recids))
+    xs, u1, u2, _ok = native.recover_prep(*packed)
+    x = np.frombuffer(xs, dtype=np.uint8).reshape(n, 33).copy()
+    x[-6] = np.frombuffer((P + 12345).to_bytes(33, "little"), np.uint8)
+    x[-7] = np.frombuffer((2**256 - 1).to_bytes(33, "little"), np.uint8)
+    parity = np.frombuffer(packed[3], np.uint8).astype(np.int32) & 1
+    u1w = np.frombuffer(u1, "<u4").reshape(n, 8).astype(np.int32)
+    u2w = np.frombuffer(u2, "<u4").reshape(n, 8).astype(np.int32)
+    return packed, (x, parity, u1w, u2w)
+
+
+def ladder_imads(u1w: np.ndarray, u2w: np.ndarray) -> int:
+    """32-bit multiply-adds the recovery kernel does on these inputs:
+    128 per field multiply (64 word products, lo and hi halves); per row
+    the two exponentiations, 7 multiplies per doubling, and 11 per ladder
+    step that adds (a set bit of u1 or u2, after the first)."""
+    from coreth_tpu_torch.ops.secp import P
+    pow_muls = 512 + bin((P + 1) // 4).count("1") + bin(P - 2).count("1")
+    fixed = 4 + 6 + pow_muls + 7 * 256      # y^2 check, G+R entry
+    bits = np.unpackbits(
+        (u1w.view(np.uint32) | u2w.view(np.uint32)).view(np.uint8),
+        axis=1).sum(axis=1)
+    adds = np.maximum(bits.astype(np.int64) - 1, 0)
+    return int(128 * (fixed * u1w.shape[0] + 11 * adds.sum()))
+
+
+# ------------------------------------------------------------ main path
+
+def build_chain(n_blocks: int, txs: int, n_keys: int):
+    from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
+    from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
+    from coreth_tpu_torch.mpt import NativeSecureTrie
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.types import DynamicFeeTx, sign_tx
+    keys = [0xC0FFEE + i for i in range(n_keys)]
+    addrs = [priv_to_address(k) for k in keys]
+    genesis = Genesis(config=CFG, gas_limit=8_000_000,
+                      alloc={a: GenesisAccount(balance=10**27)
+                             for a in addrs})
+    trie = NativeSecureTrie()
+    gblock = genesis.to_block(trie)
+    nonces = [0] * n_keys
+
+    def gen(i, bg):
+        for j in range(txs):
+            n = i * txs + j
+            k = n % n_keys
+            if j % 2 == 0:
+                # fresh recipient: the account table grows all chain
+                to = b"\xf0" + n.to_bytes(4, "big") * 4 + b"\xf0" * 3
+            else:
+                to = bytes([0x10 + (j % 199)]) * 20
+            bg.add_tx(sign_tx(DynamicFeeTx(
+                chain_id_=CFG.chain_id, nonce=nonces[k],
+                gas_tip_cap_=GWEI, gas_fee_cap_=2000 * GWEI, gas=21_000,
+                to=to, value=10**12 + j), keys[k], CFG.chain_id))
+            nonces[k] += 1
+
+    blocks, _ = generate_chain(CFG, gblock, trie, n_blocks, gen, gap=10)
+    return genesis, blocks
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    try:
+        import coreth_tpu_torch  # noqa: F401
+    except ImportError:
+        print("chip_smoke: the coreth_tpu_torch package is not beside this "
+              "script; run it from a checkout", file=sys.stderr)
+        return 2
+    from coreth_tpu_torch import kernels, nativebuild
+    from coreth_tpu_torch.crypto import native, secp_device
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.types import Block
+
+    dev = torch.device("cuda")
+    # ---- 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "torch_name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 2. build: native library and both kernels, all at once
+    t0 = time.monotonic()
+    native_box = {}
+
+    def build_native():
+        native_box["path"] = nativebuild.ensure_built()
+        native_box["seconds"] = round(time.monotonic() - t0, 3)
+
+    th = threading.Thread(target=build_native)
+    th.start()
+    took = kernels.build()
+    th.join()
+    if native_box.get("path") is None or native.load() is None:
+        raise RuntimeError("make -C native failed")
+    ptxas = {}
+    for name in kernels.SOURCES:
+        with open(kernels.log_path(name)) as f:
+            ptxas[name] = [ln.strip() for ln in f
+                           if "registers" in ln or "spill" in ln][-4:]
+    emit({"phase": "build", "seconds": round(time.monotonic() - t0, 3),
+          "nvcc_seconds": took, "native_seconds": native_box["seconds"],
+          "ptxas": ptxas})
+
+    rng = np.random.default_rng(SEED)
+
+    # ---- 3. K1 against its plain version, main-path shapes
+    K, pad, B = 128, 128, 128
+    cap, scap, L, SL = 32768, 1024, 16384, 64
+    win = random_window(rng, K, pad, B, cap, scap, n_acct=9400, n_slot=40,
+                        L=L, SL=SL, t_pad=512, s_pad=64)
+    args = [torch.from_numpy(a).to(dev) for a in win]
+    got = E._transfer_window(*args)
+    want = E._transfer_window_plain(*args)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("balances", "nonces", "slot_vals",
+                                      "fetches")):
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            raise AssertionError(f"K1 {what} differ from the plain "
+                                 f"version at {bad}")
+    oks = got[3][:, -1, 0].cpu().numpy()
+    if oks[1] != 0 or oks[2] != 0 or oks.sum() != K - 2:
+        raise AssertionError(f"K1 ok flags unexpected: {oks[:4]}")
+    k1_ms = cuda_ms(lambda: E._transfer_window(*args))
+    k1_plain_ms = once_ms(lambda: E._transfer_window_plain(*args))
+    k1_bytes = sum(a.nbytes for a in win) + sum(
+        t.numel() * 4 for t in got)
+    k1_ops = K * B * 400     # ~400 int32 ops per tx: limb sums + chains
+    k1_bound = 1000 * max(k1_bytes / H100_BYTES_PER_S,
+                          k1_ops / H100_INT32_OPS_PER_S)
+    k1 = {"name": "transfer_window", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/transfer_window.cu",
+          "replaces": "coreth_tpu/replay/engine.py:245",
+          "max_abs_err": max_abs_err(got, want), "ms": round(k1_ms, 4),
+          "plain_ms": round(k1_plain_ms, 3),
+          "bound_ms": round(k1_bound, 5),
+          "bound_by": "bytes" if k1_bytes / H100_BYTES_PER_S
+          >= k1_ops / H100_INT32_OPS_PER_S else "operations",
+          "library_ms": None}
+    emit({"phase": "k1", "equal": True, "K": K, "pad": pad, "L": L,
+          "ok_flags_0_4": oks[:4].tolist(), **k1})
+
+    # ---- 4. K2 against its plain version, 4096 signatures
+    n_sig = 4096
+    packed, kin = signature_batch(n_sig, SEED)
+    dargs = [torch.from_numpy(a).to(dev) for a in kin]
+    rows = S.recover_kernel(*dargs)
+    rows_plain = S.recover_kernel_plain(*dargs)
+    torch.cuda.synchronize()
+    if not torch.equal(rows, rows_plain):
+        bad = (rows != rows_plain).any(dim=1).nonzero()[:5].flatten()
+        raise AssertionError(f"K2 rows differ from the plain version at "
+                             f"{bad.tolist()}")
+    addrs, okb = secp_device.complete_recover(secp_device.issue_recover(
+        *packed, dev))
+    addrs_n, okb_n = native.recover_addresses_batch(*packed)
+    if okb != okb_n or any(
+            okb[i] and addrs[20 * i:20 * i + 20] != addrs_n[20 * i:20 * i + 20]
+            for i in range(n_sig)):
+        raise AssertionError("K2 addresses differ from the native batch")
+    k2_ms = cuda_ms(lambda: S.recover_kernel(*dargs))
+    k2_plain_ms = once_ms(lambda: S.recover_kernel_plain(*dargs))
+    k2_bytes = sum(a.nbytes for a in kin) + n_sig * 102
+    k2_imads = ladder_imads(kin[2], kin[3])
+    k2_bound = 1000 * max(k2_bytes / H100_BYTES_PER_S,
+                          k2_imads / H100_IMAD_PER_S)
+    k2 = {"name": "secp_recover", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/secp_recover.cu",
+          "replaces": "coreth_tpu/ops/secp.py:384",
+          "max_abs_err": max_abs_err([rows], [rows_plain]),
+          "ms": round(k2_ms, 4),
+          "plain_ms": round(k2_plain_ms, 1),
+          "bound_ms": round(k2_bound, 5),
+          "bound_by": "operations" if k2_imads / H100_IMAD_PER_S
+          >= k2_bytes / H100_BYTES_PER_S else "bytes",
+          "library_ms": None}
+    emit({"phase": "k2", "equal": True, "rows": n_sig,
+          "valid_sigs": sum(okb), "imads": k2_imads, **k2})
+
+    # ---- 5. the main path
+    n_blocks, txs, n_keys = 256, 128, 1024
+    t0 = time.monotonic()
+    genesis, blocks = build_chain(n_blocks, txs, n_keys)
+    t_build = time.monotonic() - t0
+    wire = [b.encode() for b in blocks]
+    fresh = [Block.decode(w) for w in wire]      # no cached senders
+    from coreth_tpu_torch.mpt import NativeSecureTrie
+    trie = NativeSecureTrie()
+    gblock = genesis.to_block(trie)
+    need = n_keys + n_blocks * txs // 2 + 1024
+    capacity = 1 << max(14, (need - 1).bit_length())
+    eng = E.ReplayEngine(genesis.config, trie, parent_header=gblock.header,
+                         batch_pad=txs, capacity=capacity, window=128,
+                         device="cuda")
+    E.LAUNCHES = 0
+    S.LAUNCHES = 0
+    t0 = time.monotonic()
+    eng.replay_block(fresh[0])
+    t1 = time.monotonic()
+    root = eng.replay(fresh[1:])
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t1
+    launches = {"transfer_window": E.LAUNCHES, "secp_recover": S.LAUNCHES}
+    eng.close()
+    if root != blocks[-1].header.root:
+        raise AssertionError("main path: final root differs from the header")
+    if eng.stats.blocks_device != n_blocks:
+        raise AssertionError(f"main path: {eng.stats.blocks_device} of "
+                             f"{n_blocks} blocks on the device path")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"main path: a kernel never launched: "
+                             f"{launches}")
+    replayed = sum(len(b.transactions) for b in fresh[1:])
+    emit({"phase": "main", "blocks": n_blocks, "txs_per_block": txs,
+          "keys": n_keys, "chain_build_s": round(t_build, 2),
+          "first_block_s": round(t1 - t0, 4),
+          "replay_s": round(dt, 4), "txs_per_s": round(replayed / dt, 1),
+          "root_matches_header": True, "launches": launches,
+          "stats": eng.stats.row(), "card": smi})
+
+    k1["launches"] = launches["transfer_window"]
+    k2["launches"] = launches["secp_recover"]
+    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,130 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source under ``coreth_tpu_torch/csrc/`` compiles with ``nvcc`` into
+its own shared library with a plain C interface, loaded through
+ctypes: no PyTorch headers, so a build takes seconds.  Libraries go to
+``csrc/build/`` (listed in ``.gitignore``) at first use, and rebuild
+when their source is newer.  Stale sources build in parallel, one
+``nvcc`` each, under a file lock shared by every process of the
+checkout.  Importing this module builds nothing and needs no CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+from coreth_tpu_torch.nativebuild import BUILD_DIR, BuildLock
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+SOURCES = {
+    "transfer_window": "transfer_window.cu",
+    "secp_recover": "secp_recover.cu",
+}
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def log_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"{name}.log")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _stale(name: str) -> bool:
+    src = os.path.join(CSRC, SOURCES[name])
+    try:
+        return os.path.getmtime(lib_path(name)) < os.path.getmtime(src)
+    except OSError:
+        return True
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Build the stale kernels in parallel; returns {name: seconds}
+    (0.0 for one already fresh).  Raises with nvcc's output on failure.
+    ``-Xptxas -v`` (registers, spills) goes to ``csrc/build/<name>.log``."""
+    names = list(SOURCES if names is None else names)
+    took = {n: 0.0 for n in names}
+    with BuildLock("kernels"):
+        todo = [n for n in names if _stale(n)]
+        if not todo:
+            return took
+        nvcc = _nvcc()
+        procs = {}
+        t0 = time.monotonic()
+        for n in todo:
+            tmp = lib_path(n) + f".{os.getpid()}.tmp"
+            cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-shared",
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
+                   os.path.join(CSRC, SOURCES[n])]
+            log = open(log_path(n), "w")
+            procs[n] = (subprocess.Popen(cmd, stdout=log,
+                                         stderr=subprocess.STDOUT),
+                        log, tmp)
+        failed = []
+        for n, (proc, log, tmp) in procs.items():
+            rc = proc.wait()
+            log.close()
+            took[n] = time.monotonic() - t0
+            if rc != 0:
+                failed.append(n)
+                continue
+            os.replace(tmp, lib_path(n))
+        if failed:
+            msgs = []
+            for n in failed:
+                with open(log_path(n)) as f:
+                    msgs.append(f"--- {n} ---\n{f.read()}")
+            raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+    return took
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> None:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if name == "transfer_window":
+        lib.transfer_window_launch.argtypes = [
+            P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I,
+            P, P, P, P, P, P, P, P, P, P]
+        lib.transfer_window_launch.restype = I
+    elif name == "secp_recover":
+        lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
+        lib.secp_recover_launch.restype = I
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building it first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(lib_path(name))
+            _declare(name, lib)
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a nonzero cudaGetLastError() from a launch."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")

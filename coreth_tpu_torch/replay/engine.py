@@ -1,0 +1,862 @@
+"""Batched block-replay engine — the value-transfer slice of the port.
+
+Port of reference ``replay/engine.py``, transfer path only:
+
+1. **Classify** (host): a block is device-replayable when every tx is a
+   pure value transfer (``to`` set, empty calldata, no access list,
+   21k gas, a callee with no code and no multicoin flag, not a
+   precompile or prohibited address).
+2. **Recover senders** (``_SenderPipeline``): look-ahead segments; on
+   the card every segment of at least ``DEVICE_RECOVER_MIN`` signatures
+   runs the hand-written secp256k1 kernel, smaller ones the native C++
+   batch in a worker thread.
+3. **Execute** (device): one launch of the hand-written transfer-window
+   kernel per window of blocks (``_transfer_window``): per-sender debits
+   and required balance, per-recipient credits plus the coinbase fee as
+   segment sums over 16x16-bit limbs (ops/u256), with the nonce-sequence
+   and solvency checks.  The solvency check ignores same-block credits,
+   so ok implies the sequential result.
+4. **Commit** (host-native): one deduped account fold per window in the
+   C++ trie, root checked against the header (replay/commit.py).
+
+A block that does not classify, or whose device ``ok`` flag is 0, or
+that fails a consensus check raises ``ReplayError`` with ``.block``
+set: the host execution path (the reference's ``Processor`` fallback)
+is not ported yet, and the engine refuses loudly instead.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from coreth_tpu_torch import default_device, kernels
+from coreth_tpu_torch.consensus.engine import ConsensusError, DummyEngine
+from coreth_tpu_torch.crypto import keccak256, native
+from coreth_tpu_torch.crypto import secp_device
+from coreth_tpu_torch.crypto.secp256k1 import N as SECP_N
+from coreth_tpu_torch.evm.precompiles import (
+    is_prohibited, special_call_targets,
+)
+from coreth_tpu_torch.mpt import NativeSecureTrie
+from coreth_tpu_torch.ops import u256
+from coreth_tpu_torch.params import ChainConfig
+from coreth_tpu_torch.params import protocol as P
+from coreth_tpu_torch.types import (
+    Block, LatestSigner, Receipt, StateAccount,
+)
+from coreth_tpu_torch.types.account import EMPTY_CODE_HASH, EMPTY_ROOT_HASH
+
+
+class ReplayError(Exception):
+    """A block the engine cannot replay; ``.block`` is that block (None
+    when the failure is not one block's, e.g. a window root mismatch)."""
+
+    block: Optional[Block] = None
+
+
+def _block_error(msg: str, block: Block) -> ReplayError:
+    err = ReplayError(f"block {block.number}: {msg}")
+    err.block = block
+    return err
+
+
+_NOT_PORTED = ("the host execution path (Processor fallback) is not "
+               "ported yet")
+
+
+@dataclass
+class ReplayStats:
+    blocks_device: int = 0
+    txs: int = 0
+    t_classify: float = 0.0
+    t_sender: float = 0.0
+    t_device: float = 0.0
+    t_trie: float = 0.0
+    # windows whose fetch download was started at issue time
+    reads_prefetched: int = 0
+    # where batched sender recovery ran: the device ladder vs the
+    # native host batch
+    sigs_device: int = 0
+    sigs_host: int = 0
+
+    def row(self) -> dict:
+        return dict(self.__dict__)
+
+
+# Packed tx-batch column layout — one host->device transfer per window:
+#   0 sender_idx | 1 recip_idx | 2 tx_nonce | 3 nonce_offset | 4 mask
+#   5 coinbase_idx (broadcast) | 6:22 value16 | 22:38 fee16
+#   38:54 required16 | 54 from_slot | 55 to_slot | 56:72 amount16
+# Native transfers carry amount16 = 0 / slots = 0 (the reserved dummy).
+TXD_COLS = 72
+# the kernel's uint32 limb sums take 2 * pad adds of < 2^16
+MAX_PAD = 1 << 14
+
+
+def pack_txd(batch: dict, B: int, pad: int) -> np.ndarray:
+    txd = np.zeros((pad, TXD_COLS), dtype=np.int32)
+    txd[:B, 0] = batch["senders"]
+    txd[:B, 1] = batch["recips"]
+    txd[:B, 2] = batch["nonces"]
+    txd[:B, 3] = batch["offsets"]
+    txd[:B, 4] = 1
+    txd[:, 5] = batch["coinbase"]
+    txd[:B, 6:22] = u256.pack_np(batch["values"])
+    txd[:B, 22:38] = u256.pack_np(batch["fees"])
+    txd[:B, 38:54] = u256.pack_np(batch["required"])
+    txd[:B, 54] = batch["from_slots"]
+    txd[:B, 55] = batch["to_slots"]
+    txd[:B, 56:72] = u256.pack_np(batch["amounts"])
+    return txd
+
+
+def txd_cols(txd):
+    """Column views of a packed tx batch — the one decoder of the
+    pack_txd layout.  Returns (senders, recips, values16, fees16,
+    required16, tx_nonce, nonce_offset, mask, coinbase, from_slots,
+    to_slots, amount16)."""
+    return (txd[:, 0], txd[:, 1], txd[:, 6:22], txd[:, 22:38],
+            txd[:, 38:54], txd[:, 2], txd[:, 3], txd[:, 4] != 0,
+            txd[0, 5], txd[:, 54], txd[:, 55], txd[:, 56:72])
+
+
+# ------------------------------------------------ plain transfer window
+# The plain PyTorch version of K1, in the reference's structure.  Index
+# semantics follow jnp: a gather clamps an out-of-range index, a segment
+# sum or scatter drops it; the engine only ever produces in-range local
+# indices, and pads global ids with ``capacity`` (gather 0, drop).
+
+def _seg_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    ok = (idx >= 0) & (idx < n)
+    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=torch.int32,
+                      device=vals.device)
+    return out.index_add_(0, idx[ok].long(), vals[ok])
+
+
+def _gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return arr[idx.long().clamp(0, arr.shape[0] - 1)]
+
+
+def _transfer_step_plain(balances, nonces, sender_idx, recip_idx, value16,
+                         fee16, required16, tx_nonce, nonce_offset, mask,
+                         coinbase_idx: int, num_accounts: int):
+    """One block of pure transfers (reference _transfer_step)."""
+    mask_i = mask.to(torch.int32)[:, None]
+    debit = u256.add(value16, fee16) * mask_i
+    required = required16 * mask_i
+    credit = value16 * mask_i
+    expected = _gather(nonces, sender_idx) + nonce_offset
+    nonce_ok = torch.all(torch.where(mask, tx_nonce == expected, True))
+    debit_tot = u256.normalize(_seg_sum(debit, sender_idx, num_accounts))
+    required_tot = u256.normalize(
+        _seg_sum(required, sender_idx, num_accounts))
+    credit_tot = u256.normalize(_seg_sum(credit, recip_idx, num_accounts))
+    # an int32 sum, as jnp's (torch would widen to int64)
+    fee_total = u256.normalize((fee16 * mask_i).sum(0, dtype=torch.int32))
+    if 0 <= coinbase_idx < num_accounts:
+        credit_tot[coinbase_idx] += fee_total
+    credit_tot = u256.normalize(credit_tot)
+    send_counts = _seg_sum(mask_i, sender_idx, num_accounts)[:, 0]
+    solvent = u256.gte(balances, required_tot)
+    ok = nonce_ok & torch.all(solvent | (send_counts == 0))
+    new_balances = u256.sub(u256.add(balances, credit_tot), debit_tot)
+    return new_balances, nonces + send_counts, ok
+
+
+def _slot_step_plain(slot_vals, from_slot, to_slot, amount16, mask,
+                     num_slots: int):
+    """Batched ERC-20 mapping-slot debits/credits (reference _slot_step)."""
+    amt = amount16 * mask.to(torch.int32)[:, None]
+    debit_tot = u256.normalize(_seg_sum(amt, from_slot, num_slots))
+    credit_tot = u256.normalize(_seg_sum(amt, to_slot, num_slots))
+    ok = torch.all(u256.gte(slot_vals, debit_tot))
+    return u256.sub(u256.add(slot_vals, credit_tot), debit_tot), ok
+
+
+def _gather_fetch(balances, nonces, slot_vals, ok, t_idx, s_idx):
+    """[t_pad+s_pad+1, 17] fetch rows: touched (balance, nonce) rows,
+    touched storage-slot rows, and the ok flag."""
+    g = torch.cat([_gather(balances, t_idx),
+                   _gather(nonces, t_idx)[:, None]], dim=1)
+    s = torch.cat([_gather(slot_vals, s_idx),
+                   torch.zeros((s_idx.shape[0], 1), dtype=torch.int32,
+                               device=slot_vals.device)], dim=1)
+    ok_row = torch.zeros((1, u256.LIMBS + 1), dtype=torch.int32,
+                         device=balances.device)
+    ok_row[0, 0] = ok.to(torch.int32)
+    return torch.cat([g, s, ok_row], dim=0)
+
+
+def _transfer_window_plain(balances, nonces, slot_vals, acct_gids,
+                           slot_gids, txds, t_idxs, s_idxs):
+    """Plain PyTorch version of the transfer-window kernel (reference
+    _transfer_window): gather the window-local rows, run the blocks in
+    order, scatter back.  Returns new tables and the fetch tensor."""
+    cap, scap = balances.shape[0], slot_vals.shape[0]
+    av = (acct_gids >= 0) & (acct_gids < cap)
+    sv_ok = (slot_gids >= 0) & (slot_gids < scap)
+    ag = acct_gids.long().clamp(0, cap - 1)
+    sg = slot_gids.long().clamp(0, scap - 1)
+    lb = torch.where(av[:, None], balances[ag], 0)
+    ln = torch.where(av, nonces[ag], 0)
+    ls = torch.where(sv_ok[:, None], slot_vals[sg], 0)
+    L, SL = acct_gids.shape[0], slot_gids.shape[0]
+    fetches = []
+    for k in range(txds.shape[0]):
+        (senders, recips, values, fees, required, tx_nonce, offsets, mask,
+         coinbase, from_slots, to_slots, amounts) = txd_cols(txds[k])
+        lb, ln, ok = _transfer_step_plain(
+            lb, ln, senders, recips, values, fees, required, tx_nonce,
+            offsets, mask, int(coinbase), L)
+        ls, ok_slots = _slot_step_plain(ls, from_slots, to_slots, amounts,
+                                        mask, SL)
+        fetches.append(_gather_fetch(lb, ln, ls, ok & ok_slots, t_idxs[k],
+                                     s_idxs[k]))
+    nb, nn, nsv = balances.clone(), nonces.clone(), slot_vals.clone()
+    nb[ag[av]] = lb[av]
+    nn[ag[av]] = ln[av]
+    nsv[sg[sv_ok]] = ls[sv_ok]
+    return nb, nn, nsv, torch.stack(fetches)
+
+
+LAUNCHES = 0
+
+
+def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
+                     txds, t_idxs, s_idxs):
+    """One window of blocks: the CUDA kernel (``csrc/transfer_window.cu``)
+    for CUDA tensors, asynchronous on the current stream; the plain
+    version for CPU tensors.  The input tables are not modified."""
+    args = (balances, nonces, slot_vals, acct_gids, slot_gids, txds,
+            t_idxs, s_idxs)
+    dev = balances.device
+    for t in args:
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError("_transfer_window: every input must be int32 "
+                             f"on {dev}, got {t.dtype} on {t.device}")
+    K, pad, cols = txds.shape
+    L, SL = acct_gids.shape[0], slot_gids.shape[0]
+    if (cols != TXD_COLS or balances.shape[1:] != (u256.LIMBS,)
+            or slot_vals.shape[1:] != (u256.LIMBS,)
+            or nonces.shape != balances.shape[:1]
+            or t_idxs.shape[0] != K or s_idxs.shape[0] != K):
+        raise ValueError("_transfer_window: malformed shapes")
+    if dev.type == "cpu":
+        return _transfer_window_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"_transfer_window: unsupported device {dev}")
+    if pad > MAX_PAD or L < 1 or SL < 1:
+        raise ValueError(f"_transfer_window: pad {pad} > {MAX_PAD} or "
+                         "an empty local table")
+    global LAUNCHES
+    lib = kernels.load("transfer_window")
+    (acct_gids, slot_gids, txds, t_idxs, s_idxs) = (
+        t.contiguous() for t in (acct_gids, slot_gids, txds, t_idxs,
+                                 s_idxs))
+    nb, nn, nsv = balances.clone(), nonces.clone(), slot_vals.clone()
+    i32 = dict(dtype=torch.int32, device=dev)
+    lb = torch.empty((L, u256.LIMBS), **i32)
+    ln = torch.empty((L,), **i32)
+    ls = torch.empty((SL, u256.LIMBS), **i32)
+    acc = torch.empty((L, 3 * u256.LIMBS), **i32)
+    cnt = torch.empty((L,), **i32)
+    stamp = torch.empty((L,), **i32)
+    sacc = torch.empty((SL, 2 * u256.LIMBS), **i32)
+    sstamp = torch.empty((SL,), **i32)
+    t_pad, s_pad = t_idxs.shape[1], s_idxs.shape[1]
+    fetches = torch.empty((K, t_pad + s_pad + 1, u256.LIMBS + 1), **i32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.transfer_window_launch(
+        nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), nb.shape[0],
+        nsv.shape[0], acct_gids.data_ptr(), L, slot_gids.data_ptr(), SL,
+        txds.data_ptr(), K, pad, t_idxs.data_ptr(), t_pad,
+        s_idxs.data_ptr(), s_pad, lb.data_ptr(), ln.data_ptr(),
+        ls.data_ptr(), acc.data_ptr(), cnt.data_ptr(), stamp.data_ptr(),
+        sacc.data_ptr(), sstamp.data_ptr(), fetches.data_ptr(), stream)
+    kernels.check(rc, "transfer_window")
+    LAUNCHES += 1
+    return nb, nn, nsv, fetches
+
+
+def _scatter_drop(arr: torch.Tensor, idx: torch.Tensor,
+                  val: torch.Tensor) -> None:
+    """In-place ``arr[idx] = val``, dropping out-of-range rows."""
+    ok = (idx >= 0) & (idx < arr.shape[0])
+    arr[idx[ok].long()] = val[ok]
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy -> device through a pinned host buffer, without blocking."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if device.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class DeviceState:
+    """Account- and storage-slot-indexed device tables (the flat-state /
+    snapshot analog, resident in device memory).  Slot index 0 is a
+    reserved dummy that native-transfer and padding rows target with
+    amount 0.  ``row_of``/``slot_row_of`` carry the gid -> device-row
+    indirection (identity here: one device)."""
+
+    def __init__(self, capacity: int = 1 << 14,
+                 slot_capacity: int = 1 << 14, device="cuda"):
+        self.device = torch.device(device)
+        self.index: Dict[bytes, int] = {}
+        self.addrs: List[bytes] = []
+        self.capacity = capacity
+        self.row_of: List[int] = []
+        self.balances = torch.zeros((capacity, u256.LIMBS),
+                                    dtype=torch.int32, device=self.device)
+        self.nonces = torch.zeros((capacity,), dtype=torch.int32,
+                                  device=self.device)
+        # host-side metadata that gates device replay and fills the
+        # non-device account fields at the trie fold
+        self.has_code: List[bool] = []
+        self.multicoin: List[bool] = []
+        self.code_hashes: List[bytes] = []
+        self.roots: List[bytes] = []
+        self.addr_hashes: List[bytes] = []
+        self._staged: List[Tuple[int, int, int]] = []
+        # token slots: only the reserved dummy (row 0) until the token
+        # path is ported; the window kernel takes the table regardless
+        self.slot_capacity = slot_capacity
+        self.slot_row_of: List[int] = [0]
+        self.slot_vals = torch.zeros((slot_capacity, u256.LIMBS),
+                                     dtype=torch.int32, device=self.device)
+
+    @classmethod
+    def from_arrays(cls, balances: np.ndarray, nonces: np.ndarray,
+                    slot_vals: np.ndarray, index_meta: dict,
+                    device="cuda") -> "DeviceState":
+        """Tables carried over from another engine (e.g. the JAX
+        reference's ``np.asarray(ref.state.balances)`` and friends) plus
+        its host index lists: ``addrs``, ``row_of``, ``has_code``,
+        ``multicoin``, ``code_hashes``, ``roots``, ``slot_row_of``."""
+        st = cls(balances.shape[0], slot_vals.shape[0], device)
+        st.balances = _upload(balances.astype(np.int32), st.device)
+        st.nonces = _upload(nonces.astype(np.int32), st.device)
+        st.slot_vals = _upload(slot_vals.astype(np.int32), st.device)
+        st.addrs = list(index_meta["addrs"])
+        st.index = {a: i for i, a in enumerate(st.addrs)}
+        st.addr_hashes = [keccak256(a) for a in st.addrs]
+        for key in ("row_of", "has_code", "multicoin", "code_hashes",
+                    "roots", "slot_row_of"):
+            setattr(st, key, list(index_meta[key]))
+        return st
+
+    def _grow(self, need: int) -> None:
+        while self.capacity < need:
+            self.capacity *= 2
+        bal = torch.zeros((self.capacity, u256.LIMBS), dtype=torch.int32,
+                          device=self.device)
+        non = torch.zeros((self.capacity,), dtype=torch.int32,
+                          device=self.device)
+        bal[:self.balances.shape[0]] = self.balances
+        non[:self.nonces.shape[0]] = self.nonces
+        self.balances, self.nonces = bal, non
+
+    def ensure(self, addr: bytes, account: Optional[StateAccount]) -> int:
+        idx = self.index.get(addr)
+        if idx is not None:
+            return idx
+        idx = len(self.addrs)
+        self.index[addr] = idx
+        self.addrs.append(addr)
+        self.addr_hashes.append(keccak256(addr))
+        row = len(self.row_of)
+        if row >= self.capacity:
+            self._grow(row + 1)
+        self.row_of.append(row)
+        if account is None:
+            self.has_code.append(False)
+            self.multicoin.append(False)
+            self.code_hashes.append(EMPTY_CODE_HASH)
+            self.roots.append(EMPTY_ROOT_HASH)
+        else:
+            self.has_code.append(account.code_hash != EMPTY_CODE_HASH)
+            self.multicoin.append(account.is_multi_coin)
+            self.code_hashes.append(account.code_hash)
+            self.roots.append(account.root)
+            if account.balance or account.nonce:
+                # staged: one scatter per window, not one per account
+                self._staged.append((idx, account.balance, account.nonce))
+        return idx
+
+    def flush_staged(self) -> None:
+        """Write the staged initial values of newly seen accounts."""
+        if not self._staged:
+            return
+        idx = np.asarray([self.row_of[s[0]] for s in self._staged],
+                         dtype=np.int64)
+        bal = u256.pack_np([s[1] for s in self._staged])
+        non = np.asarray([s[2] for s in self._staged], dtype=np.int32)
+        didx = _upload(idx, self.device)
+        _scatter_drop(self.balances, didx, _upload(bal, self.device))
+        _scatter_drop(self.nonces, didx, _upload(non, self.device))
+        self._staged = []
+
+
+class _SenderPipeline:
+    """Segmented, look-ahead sender recovery for replay().
+
+    The input is cut into segments of up to ``MAX_CHUNK`` signatures, and
+    ``AHEAD`` segments stay issued past the replay cursor: device
+    segments launch into the same stream as the window kernels (so a
+    window's senders recover on the card while the previous window
+    executes); host segments run whole in the engine's worker thread
+    (the ctypes C++ batch releases the GIL).  ``ensure(i)`` blocks only
+    until block i's segment is applied."""
+
+    AHEAD = 3
+
+    def __init__(self, engine: "ReplayEngine", blocks: List[Block]):
+        self.engine = engine
+        self.block_seg: List[int] = []
+        self.segments: List[List[Block]] = []
+        cur: List[Block] = []
+        count = 0
+        for b in blocks:
+            self.block_seg.append(len(self.segments))
+            cur.append(b)
+            count += len(b.transactions)
+            if count >= secp_device.MAX_CHUNK:
+                self.segments.append(cur)
+                cur, count = [], 0
+        if cur:
+            self.segments.append(cur)
+        self.issued: List[dict] = []
+        self.done = 0
+
+    def _issue(self, s: int) -> None:
+        eng = self.engine
+        t0 = time.monotonic()
+        todo, hashes, rs, ss, recids = eng._pack_sigs(self.segments[s])
+        h = {"todo": todo, "kind": "empty"}
+        n = len(recids)
+        if n and eng._device_recover(n):
+            eng.stats.sigs_device += n
+            h["kind"] = "device"
+            h["ctxs"] = secp_device.issue_recover(hashes, rs, ss, recids,
+                                                  eng.device)
+        elif n:
+            eng.stats.sigs_host += n
+            h["kind"] = "host"
+            h["fut"] = eng._recover_pool_get().submit(
+                native.recover_addresses_batch, hashes, rs, ss, recids)
+        self.issued.append(h)
+        eng.stats.t_sender += time.monotonic() - t0
+
+    def _complete(self, s: int) -> None:
+        eng = self.engine
+        h = self.issued[s]
+        t0 = time.monotonic()
+        if h["kind"] == "host":
+            out, ok = h["fut"].result()
+        elif h["kind"] == "device":
+            out, ok = secp_device.complete_recover(h["ctxs"])
+        else:
+            out = ok = None
+        if out is not None:
+            eng._apply_recovered(h["todo"], out, ok)
+        eng.stats.t_sender += time.monotonic() - t0
+
+    def ensure(self, block_idx: int) -> None:
+        s = self.block_seg[block_idx]
+        last = min(s + self.AHEAD, len(self.segments) - 1)
+        while len(self.issued) <= last:
+            self._issue(len(self.issued))
+        while self.done <= s:
+            self._complete(self.done)
+            self.done += 1
+
+
+class ReplayEngine:
+    """Windowed replay of value-transfer blocks over a state trie.
+
+    ``trie`` holds the state at the parent of the first block to replay
+    (its hash is the starting root) and is advanced by every window's
+    fold.  ``device`` defaults to ``"cuda"`` and raises without a card;
+    ``device="cpu"`` runs the kernels' plain versions."""
+
+    # Below this many signatures a segment recovers on the native C++
+    # batch instead of the device ladder.
+    DEVICE_RECOVER_MIN = 1024
+
+    def __init__(self, config: ChainConfig, trie: NativeSecureTrie,
+                 parent_header=None, batch_pad: int = 1024,
+                 capacity: int = 1 << 14, window: int = 16,
+                 slot_capacity: Optional[int] = None, device=None):
+        self.device = default_device(device)
+        self.config = config
+        self.trie = trie
+        self.root = trie.hash()
+        self.state = DeviceState(capacity, slot_capacity or capacity,
+                                 self.device)
+        self.signer = LatestSigner(config.chain_id)
+        self.engine = DummyEngine()
+        self.stats = ReplayStats()
+        self.batch_pad = batch_pad
+        self.window = window
+        self.parent_header = parent_header
+        # the device ladder recovers senders when the engine runs on the
+        # card (the whole share: no host/device split); on the CPU the
+        # native batch does, unless a caller opts the plain ladder in
+        self.recover_device = self.device.type == "cuda"
+        from coreth_tpu_torch.replay.commit import CommitPipeline
+        self.commit_pipe = CommitPipeline(self)
+        self._recover_pool: Optional[ThreadPoolExecutor] = None
+
+    def close(self) -> None:
+        """Stop the recovery worker thread."""
+        if self._recover_pool is not None:
+            self._recover_pool.shutdown(wait=True)
+            self._recover_pool = None
+
+    # ---------------------------------------------------------------- index
+    def _account(self, addr: bytes) -> int:
+        idx = self.state.index.get(addr)
+        if idx is not None:
+            return idx
+        raw = self.trie.get(addr)
+        account = StateAccount.from_rlp(raw) if raw is not None else None
+        return self.state.ensure(addr, account)
+
+    # -------------------------------------------------------------- senders
+    def _pack_sigs(self, blocks):
+        """Collect + pack uncached signatures for batched recovery; a
+        malformed signature skips its tx (signer.sender rejects it)."""
+        todo, hashes, rs, ss, recids = [], [], [], [], []
+        for b in blocks:
+            for tx in b.transactions:
+                if tx.cached_sender() is not None:
+                    continue
+                try:
+                    r, s, recid = tx.inner.raw_signature()
+                    h = self.signer.sig_hash(tx)
+                    rb, sb = r.to_bytes(32, "big"), s.to_bytes(32, "big")
+                except (ValueError, OverflowError):
+                    continue
+                rs.append(rb)
+                ss.append(sb)
+                recids.append(recid if 0 <= recid <= 3 else 255)
+                hashes.append(h)
+                todo.append(tx)
+        return todo, b"".join(hashes), b"".join(rs), b"".join(ss), \
+            bytes(recids)
+
+    def _apply_recovered(self, todo, out, ok) -> None:
+        half_n = SECP_N // 2
+        for i, tx in enumerate(todo):
+            if ok[i]:
+                # signer.sender re-validates chain id + low-s before
+                # trusting the cache; prime it only
+                r, s, recid = tx.inner.raw_signature()
+                if recid in (0, 1) and 0 < s <= half_n:
+                    tx.set_sender(out[i * 20:(i + 1) * 20])
+
+    def _device_recover(self, n: int) -> bool:
+        return self.recover_device and n >= self.DEVICE_RECOVER_MIN
+
+    def _recover_pool_get(self) -> ThreadPoolExecutor:
+        if self._recover_pool is None:
+            self._recover_pool = ThreadPoolExecutor(max_workers=1)
+        return self._recover_pool
+
+    def warm_senders(self, blocks) -> None:
+        """Synchronous batched sender recovery over a block or a list."""
+        if isinstance(blocks, Block):
+            blocks = [blocks]
+        t0 = time.monotonic()
+        todo, hashes, rs, ss, recids = self._pack_sigs(blocks)
+        n = len(recids)
+        if n and self._device_recover(n):
+            self.stats.sigs_device += n
+            out, ok = secp_device.complete_recover(secp_device.issue_recover(
+                hashes, rs, ss, recids, self.device))
+        elif n:
+            self.stats.sigs_host += n
+            out, ok = native.recover_addresses_batch(hashes, rs, ss, recids)
+        if n:
+            self._apply_recovered(todo, out, ok)
+        self.stats.t_sender += time.monotonic() - t0
+
+    # ------------------------------------------------------------- classify
+    def _classify(self, block: Block) -> Optional[dict]:
+        """Batch inputs if every tx is a plain value transfer, else None."""
+        if block.ext_data():
+            return None
+        base_fee = block.base_fee
+        rules = self.config.rules(block.number, block.time)
+        avoid = special_call_targets(rules)
+        senders, recips, values, fees, required, nonces, offsets = \
+            [], [], [], [], [], [], []
+        gas_used = []
+        seen_count: Dict[bytes, int] = {}
+        state = self.state
+        has_code, multicoin = state.has_code, state.multicoin
+        acct_index = state.index
+        account = self._account
+        sender_of = self.signer.sender
+        for tx in block.transactions:
+            if tx.to is None or tx.access_list or tx.data:
+                return None
+            if tx.to in avoid or is_prohibited(tx.to):
+                return None
+            try:
+                sender = sender_of(tx)
+            except ValueError:
+                return None
+            s_idx = acct_index.get(sender)
+            if s_idx is None:
+                s_idx = account(sender)
+            r_idx = acct_index.get(tx.to)
+            if r_idx is None:
+                r_idx = account(tx.to)
+            if has_code[s_idx] or multicoin[s_idx]:
+                return None
+            gas_fee_cap = tx.gas_fee_cap
+            if base_fee is not None:
+                tip = tx.gas_tip_cap
+                if gas_fee_cap < base_fee or gas_fee_cap < tip:
+                    return None
+                price = min(base_fee + tip, gas_fee_cap)
+            else:
+                price = tx.gas_price
+            if tx.gas != P.TX_GAS:
+                return None
+            if has_code[r_idx] or multicoin[r_idx]:
+                return None
+            senders.append(s_idx)
+            recips.append(r_idx)
+            values.append(tx.value)
+            gas_used.append(P.TX_GAS)
+            fees.append(P.TX_GAS * price)
+            # buyGas requirement (cap-based for typed txs)
+            required.append(tx.gas * gas_fee_cap + tx.value)
+            nonces.append(tx.nonce)
+            prev = seen_count.get(sender, 0)
+            offsets.append(prev)
+            seen_count[sender] = prev + 1
+        coinbase_idx = self._account(block.header.coinbase)
+        n = len(senders)
+        return dict(senders=senders, recips=recips, values=values,
+                    fees=fees, required=required, nonces=nonces,
+                    offsets=offsets, coinbase=coinbase_idx,
+                    from_slots=[0] * n, to_slots=[0] * n,
+                    amounts=[0] * n, gas_used=gas_used)
+
+    # ---------------------------------------------------------------- replay
+    def _prepare_window(self, items: List[Tuple[Block, dict]]):
+        """Pack a run of classified blocks into stacked device inputs,
+        over window-local index spaces (the kernel's cost scales with
+        the window's touched set, not the table capacity).  The window
+        pads to the next power of two of its length with all-masked
+        batches."""
+        self.state.flush_staged()
+        K = 1
+        while K < len(items):
+            K *= 2
+        pad = self.batch_pad
+        t_pad = 256
+        s_pad = 8
+        touched_lists = []
+        acct_local: Dict[int, int] = {}
+        slot_local: Dict[int, int] = {0: 0}  # local slot 0 = the dummy
+
+        def a_loc(g: int) -> int:
+            l = acct_local.get(g)
+            if l is None:
+                l = len(acct_local)
+                acct_local[g] = l
+            return l
+
+        local_batches = []
+        for block, batch in items:
+            B = len(block.transactions)
+            while pad < B:
+                pad *= 2
+            lb = dict(batch)
+            lb["senders"] = [a_loc(g) for g in batch["senders"]]
+            lb["recips"] = [a_loc(g) for g in batch["recips"]]
+            lb["coinbase"] = a_loc(batch["coinbase"])
+            local_batches.append(lb)
+            touched = sorted(set(batch["senders"]) | set(batch["recips"])
+                             | {batch["coinbase"]})
+            touched_lists.append(touched)
+            while t_pad < len(touched):
+                t_pad *= 2
+        L = 256
+        while L < len(acct_local):
+            L *= 2
+        SL = 8
+        cap = self.state.capacity
+        scap = self.state.slot_capacity
+        acct_gids = np.full(L, cap, dtype=np.int32)
+        for g, l in acct_local.items():
+            acct_gids[l] = self.state.row_of[g]
+        slot_gids = np.full(SL, scap, dtype=np.int32)
+        for g, l in slot_local.items():
+            slot_gids[l] = self.state.slot_row_of[g]
+        txds = np.zeros((K, pad, TXD_COLS), dtype=np.int32)
+        t_idxs = np.zeros((K, t_pad), dtype=np.int32)
+        s_idxs = np.zeros((K, s_pad), dtype=np.int32)
+        for k, (block, batch) in enumerate(items):
+            txds[k] = pack_txd(local_batches[k], len(block.transactions),
+                               pad)
+            t_idxs[k, :len(touched_lists[k])] = \
+                [acct_local[g] for g in touched_lists[k]]
+        return txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists
+
+    def _issue_window_run(self, items: List[Tuple[Block, dict]]) -> dict:
+        """One kernel launch for a whole run of transfer blocks: upload
+        the stacked batches, launch, and start the fetch tensor's copy
+        back into pinned memory (an event marks its arrival)."""
+        t0 = time.monotonic()
+        (txds, t_idxs, s_idxs, acct_gids, slot_gids,
+         touched_lists) = self._prepare_window(items)
+        st = self.state
+        ups = [_upload(a, self.device)
+               for a in (acct_gids, slot_gids, txds, t_idxs, s_idxs)]
+        st.balances, st.nonces, st.slot_vals, fetches = _transfer_window(
+            st.balances, st.nonces, st.slot_vals, *ups)
+        event = None
+        if self.device.type == "cuda":
+            host = torch.empty(fetches.shape, dtype=torch.int32,
+                               pin_memory=True)
+            host.copy_(fetches, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self.stats.reads_prefetched += 1
+        else:
+            host = fetches
+        self.stats.t_device += time.monotonic() - t0
+        return dict(items=items, fetches=host, event=event,
+                    touched_lists=touched_lists, keep=(ups, fetches))
+
+    def _complete_window_run(self, win: dict) -> None:
+        """Validate a window from its fetched rows, stage every block,
+        and fold the window once.  A block whose ok flag is 0, or that
+        fails validation, raises ReplayError after the valid prefix
+        before it is folded (so ``root`` is that prefix's)."""
+        t0 = time.monotonic()
+        if win["event"] is not None:
+            win["event"].synchronize()   # the rows are in pinned memory
+        arr = win["fetches"].numpy()
+        self.stats.t_device += time.monotonic() - t0
+        for k, (block, batch) in enumerate(win["items"]):
+            if arr[k, -1, 0] != 1:
+                self.commit_pipe.flush()
+                raise _block_error(
+                    "device execution rejected the block (nonce or "
+                    f"solvency check failed); {_NOT_PORTED}", block)
+            try:
+                self._validate_and_advance(block, batch, arr[k],
+                                           win["touched_lists"][k])
+            except ReplayError:
+                self.commit_pipe.flush()
+                raise
+        # ONE deduped fold + root check for the whole window
+        self.commit_pipe.flush()
+
+    def _validate_and_advance(self, block: Block, batch: dict,
+                              fetched: np.ndarray,
+                              touched: List[int]) -> None:
+        """Host-side consensus checks + staged commit for one block."""
+        gas_list = batch["gas_used"]
+        cums = []
+        cum = 0
+        for g in gas_list:
+            cum += g
+            cums.append(cum)
+        if cum != block.header.gas_used:
+            raise _block_error(f"gas used mismatch; {_NOT_PORTED}", block)
+        n = len(block.transactions)
+        rec_root, bloom = native.receipt_root(
+            cums, bytes(tx.tx_type for tx in block.transactions),
+            bytes(n), b"")
+        if rec_root != block.header.receipt_hash:
+            raise _block_error(f"receipt root mismatch; {_NOT_PORTED}",
+                               block)
+        if bloom != block.header.bloom:
+            raise _block_error(f"bloom mismatch; {_NOT_PORTED}", block)
+        if self.config.is_apricot_phase4(block.time):
+            try:
+                self.engine.verify_block_fee(
+                    block.base_fee, block.header.block_gas_cost,
+                    block.transactions,
+                    [Receipt(gas_used=g) for g in gas_list])
+            except ConsensusError as exc:
+                raise _block_error(f"block fee: {exc}", block) from exc
+        t0 = time.monotonic()
+        balances = u256.to_ints(fetched[:len(touched), :u256.LIMBS])
+        nonces = fetched[:len(touched), u256.LIMBS]
+        addrs = self.state.addrs
+        self.commit_pipe.stage(block.header, {
+            addrs[idx]: (balances[i], int(nonces[i]))
+            for i, idx in enumerate(touched)})
+        self.stats.t_trie += time.monotonic() - t0
+        self.parent_header = block.header
+        self.stats.blocks_device += 1
+        self.stats.txs += n
+
+    def _refuse(self, block: Block) -> ReplayError:
+        return _block_error(
+            f"not a value-transfer block; {_NOT_PORTED}", block)
+
+    def replay_block(self, block: Block) -> bytes:
+        """Process one block synchronously."""
+        self.warm_senders(block)
+        t0 = time.monotonic()
+        batch = self._classify(block)
+        self.stats.t_classify += time.monotonic() - t0
+        if batch is None:
+            raise self._refuse(block)
+        self._complete_window_run(self._issue_window_run([(block, batch)]))
+        return self.root
+
+    def replay(self, blocks: List[Block],
+               window: Optional[int] = None) -> bytes:
+        """Windowed, pipelined replay: window k+1 is classified (host)
+        and launched (device) before window k is validated and folded,
+        so the card runs while the host folds; sender recovery runs in
+        look-ahead segments alongside."""
+        window = window or self.window
+        n = len(blocks)
+        pipe = _SenderPipeline(self, blocks)
+        i = 0
+        pending: Optional[dict] = None
+        while i < n or pending is not None:
+            run: List[Tuple[Block, dict]] = []
+            refused = None
+            while i < n and len(run) < window:
+                pipe.ensure(i)
+                t0 = time.monotonic()
+                batch = self._classify(blocks[i])
+                self.stats.t_classify += time.monotonic() - t0
+                if batch is None:
+                    refused = blocks[i]
+                    break
+                run.append((blocks[i], batch))
+                i += 1
+            win = self._issue_window_run(run) if run else None
+            if pending is not None:
+                self._complete_window_run(pending)
+            pending = win
+            if refused is not None:
+                if pending is not None:
+                    self._complete_window_run(pending)
+                raise self._refuse(refused)
+        return self.root
+
+    def commit(self) -> bytes:
+        """Fold anything staged; returns the state root."""
+        self.commit_pipe.flush()
+        return self.trie.hash()

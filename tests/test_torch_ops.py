@@ -1,0 +1,145 @@
+"""Port parity of the kernels' plain versions against the JAX reference.
+
+Inputs come from ``np.random.default_rng(seed)`` (or the port's signer)
+and go through the JAX function on the CPU and the port's plain PyTorch
+version; every result is an integer, so the tolerance is 0.
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from coreth_tpu.ops import secp as jsecp
+from coreth_tpu.ops import u256 as ju256
+from coreth_tpu.replay import engine as jengine
+from coreth_tpu_torch.crypto import native, secp_device
+from coreth_tpu_torch.ops import secp as tsecp
+from coreth_tpu_torch.ops import u256 as tu256
+from coreth_tpu_torch.replay import engine as tengine
+
+
+# ---------------------------------------------------------------- u256
+
+def _rand_ints(rng, n, bits=256):
+    return [int.from_bytes(rng.bytes(bits // 8), "little") for _ in range(n)]
+
+
+def test_u256_roundtrip():
+    vals = [0, 1, 0xFFFF, 2**255 + 12345, 2**256 - 1, 10**24]
+    assert tu256.to_ints(tu256.from_ints(vals)) == vals
+    assert np.array_equal(tu256.pack_np(vals), ju256.pack_np(vals))
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_u256_add_sub_gte_match_jax(seed):
+    rng = np.random.default_rng(seed)
+    a_vals = _rand_ints(rng, 64) + [2**256 - 1, 0, 5]
+    b_vals = _rand_ints(rng, 64) + [1, 0, 5]
+    a_np, b_np = tu256.pack_np(a_vals), tu256.pack_np(b_vals)
+    a, b = torch.from_numpy(a_np), torch.from_numpy(b_np)
+    add = tu256.add(a, b)
+    assert np.array_equal(add.numpy(), np.asarray(ju256.add(a_np, b_np)))
+    assert tu256.to_ints(add) == [(x + y) % 2**256
+                                  for x, y in zip(a_vals, b_vals)]
+    sub = tu256.sub(a, b)    # wraps mod 2^256 where a < b
+    assert np.array_equal(sub.numpy(), np.asarray(ju256.sub(a_np, b_np)))
+    assert tu256.to_ints(sub) == [(x - y) % 2**256
+                                  for x, y in zip(a_vals, b_vals)]
+    gte = tu256.gte(a, b)
+    assert gte.tolist() == np.asarray(ju256.gte(a_np, b_np)).tolist()
+    assert gte.tolist() == [x >= y for x, y in zip(a_vals, b_vals)]
+    k = torch.from_numpy(rng.integers(0, 1 << 15, size=len(a_vals))
+                         .astype(np.int32))
+    assert np.array_equal(tu256.mul_small(a, k).numpy(),
+                          np.asarray(ju256.mul_small(a_np, k.numpy())))
+    assert tu256.is_zero(tu256.sub(a, a)).all()
+
+
+def test_u256_segment_headroom():
+    # sum 4096 maxed values then normalize — no overflow in int32 limbs
+    vals = tu256.from_ints([2**256 - 1] * 4096)
+    norm = tu256.normalize(vals.sum(0, dtype=torch.int32)[None, :])
+    assert tu256.to_ints(norm)[0] == (4096 * (2**256 - 1)) % 2**256
+
+
+# -------------------------------------------------------- K1 (window)
+
+def _window(seed, K=8, pad=32, B=24):
+    rng = np.random.default_rng(seed)
+    return chip_smoke.random_window(
+        rng, K, pad, B, cap=512, scap=64, n_acct=200, n_slot=10, L=256,
+        SL=16, t_pad=64, s_pad=16)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_transfer_window_plain_matches_jax(seed):
+    win = _window(seed)
+    want = jengine._transfer_window(*win)
+    got = tengine._transfer_window_plain(
+        *(torch.from_numpy(a) for a in win))
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    ok = got[3][:, -1, 0].tolist()
+    # the window covers an insolvent block and a nonce mismatch; the
+    # later blocks still run on top of the failed ones
+    assert ok[1] == 0 and ok[2] == 0 and ok[0] == 1
+    # token slot amounts moved some slot values
+    assert not np.array_equal(got[2].numpy(), win[2])
+
+
+def test_transfer_window_wrapper_dispatch():
+    win = [torch.from_numpy(a) for a in _window(3, K=2)]
+    launches = tengine.LAUNCHES
+    got = tengine._transfer_window(*win)       # CPU tensors: plain
+    want = tengine._transfer_window_plain(*win)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tengine.LAUNCHES == launches
+    with pytest.raises(ValueError):
+        tengine._transfer_window(*(t.to("meta") for t in win))
+    with pytest.raises(ValueError):
+        tengine._transfer_window(win[0].long(), *win[1:])
+
+
+# ---------------------------------------------------------- K2 (ladder)
+
+@pytest.fixture(scope="module")
+def sig_batch():
+    return chip_smoke.signature_batch(64, 11)
+
+
+def test_recover_plain_matches_jax(sig_batch):
+    _packed, kin = sig_batch
+    want = np.asarray(jsecp.recover_kernel(*kin))
+    got = tsecp.recover_kernel_plain(*(torch.from_numpy(a) for a in kin))
+    assert np.array_equal(got.numpy(), want)
+    # the malformed rows are in there: x >= p and non-residues
+    assert got[:, 101].numpy().min() == 0
+
+
+def test_issue_complete_recover_matches_native(sig_batch):
+    packed, _kin = sig_batch
+    launches = tsecp.LAUNCHES
+    addrs, ok = secp_device.complete_recover(
+        secp_device.issue_recover(*packed, torch.device("cpu")))
+    want_addrs, want_ok = native.recover_addresses_batch(*packed)
+    assert ok == want_ok
+    assert 0 < sum(ok) < len(ok)        # valid and malformed rows
+    for i in range(len(ok)):
+        if ok[i]:
+            assert addrs[20 * i:20 * i + 20] == want_addrs[20 * i:20 * i + 20]
+    assert tsecp.LAUNCHES == launches   # the CPU ran the plain version
+
+
+def test_recover_wrapper_rejects_bad_input(sig_batch):
+    _packed, kin = sig_batch
+    args = [torch.from_numpy(a) for a in kin]
+    with pytest.raises(ValueError):
+        tsecp.recover_kernel(*(t.to("meta") for t in args))
+    with pytest.raises(ValueError):
+        tsecp.recover_kernel(args[0], args[1].long(), args[2], args[3])
