@@ -25,7 +25,25 @@ Phases, each printing one JSON line:
    built by the port's sequential chain builder and replayed through
    ``ReplayEngine(device="cuda", window=128)``: every block must take the
    device path, the final root must equal the last header's, and both
-   kernels' launch counters must rise during the replay.
+   kernels' launch counters must rise during the replay;
+6. k3     — the keccak-256 launch entry against its plain version on 4096
+   messages of 0..271 bytes plus the 135/136-byte padding edges
+   (tolerance 0), and against the native C++ ``coreth_keccak256``;
+7. k4     — the 256-bit ALU launch entry, every op, against its plain
+   version on 4096 random operand rows plus every pair of edge operands
+   (0, 1, 2^255, 2^256 - 1 = -1 signed, shift edges): tolerance 0;
+8. k5     — the step machine at main-path shapes (batch 256): ERC-20
+   ``transfer()`` lanes with the storage cache seeded and unseeded (miss
+   rows), lanes that REVERT (insufficient balance), run out of gas, hit
+   INVALID or escape HOST: packed rows and step counts equal to the plain
+   version's (tolerance 0);
+9. machine — the benchmark's ERC-20 shape (1024 keys, 256 txs/block, every
+   third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
+   cut from 256 to 32 blocks because the chain is built with pure-Python
+   signing within the script's run-time budget, replayed through
+   ``ReplayEngine(device="cuda")``: every block on the machine path, OCC
+   rounds > 0, the final root equal to the last header's, and the step
+   machine's launch counter rising during the replay.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -217,6 +235,41 @@ def ladder_imads(u1w: np.ndarray, u2w: np.ndarray) -> int:
     return int(128 * (fixed * u1w.shape[0] + 11 * adds.sum()))
 
 
+# ------------------------------------------------------------ K4 inputs
+
+ALU_EDGES = [0, 1, 2, 30, 31, 32, 255, 256, (1 << 255) - 1, 1 << 255,
+             (1 << 255) + 1, (1 << 256) - 2, (1 << 256) - 1]
+
+
+def alu_operands(rng, n: int):
+    """(a, b, c) as (n + edges^2 rows, 16) int32 limb arrays: random
+    256-, 64- and 8-bit values and powers of two, then every pair of
+    edge values (0, 1, 2^255, 2^256 - 1 = -1 signed, shift edges) in
+    (a, b) with c cycling through the edges."""
+    from coreth_tpu_torch.ops import u256
+
+    def rand(k):
+        kinds = rng.integers(0, 4, size=k)
+        out = []
+        for kind in kinds:
+            if kind == 0:
+                out.append(int.from_bytes(rng.bytes(32), "big"))
+            elif kind == 1:
+                out.append(int.from_bytes(rng.bytes(8), "big"))
+            elif kind == 2:
+                out.append(int(rng.integers(0, 256)))
+            else:
+                out.append(1 << int(rng.integers(0, 256)))
+        return out
+    a, b, c = rand(n), rand(n), rand(n)
+    for i, x in enumerate(ALU_EDGES):
+        for j, y in enumerate(ALU_EDGES):
+            a.append(x)
+            b.append(y)
+            c.append(ALU_EDGES[(i + j) % len(ALU_EDGES)])
+    return u256.pack_np(a), u256.pack_np(b), u256.pack_np(c)
+
+
 # ------------------------------------------------------------ main path
 
 def build_chain(n_blocks: int, txs: int, n_keys: int):
@@ -251,6 +304,307 @@ def build_chain(n_blocks: int, txs: int, n_keys: int):
 
     blocks, _ = generate_chain(CFG, gblock, trie, n_blocks, gen, gap=10)
     return genesis, blocks
+
+
+def alu_ops(op: str, a: list, b: list, c: list) -> int:
+    """32-bit integer operations ``u256x_eval`` does for ``op`` on these
+    rows (csrc/u256x.cuh): 24 for add/sub (8 words x add, carry,
+    store), 32 for a compare, shift, BYTE or SIGNEXTEND, 144 for MUL
+    (36 word products x lo, hi and two adds), 256 for the wide product,
+    and 40 per dividend bit for the bit-serial divisions (a 256-bit
+    shift, compare and subtract); EXP is one squaring per exponent bit
+    plus a multiply per set bit."""
+    if op in ("add", "sub"):
+        return 24 * len(a)
+    if op == "mul":
+        return 144 * len(a)
+    if op in ("mul_wide_lo", "mul_wide_hi"):
+        return 256 * len(a)
+    if op in ("div", "mod"):
+        return 40 * sum(x.bit_length() for x in a)
+    if op in ("sdiv", "smod"):
+        return 40 * sum(min(x, (1 << 256) - x).bit_length() for x in a)
+    if op == "addmod":
+        return 40 * sum((x + y).bit_length() for x, y in zip(a, b))
+    if op == "mulmod":
+        return sum(256 + 40 * (x * y).bit_length() for x, y in zip(a, b))
+    if op == "exp":
+        return sum(144 * (y.bit_length() + bin(y).count("1")) for y in b)
+    if op == "bit_length":
+        return 16 * len(a)
+    return 32 * len(a)
+
+
+# 64-bit operations of one keccak-f[1600] round (theta 55, rho+pi 24,
+# chi 75, iota 1), each counted as two 32-bit operations, plus the 17
+# lane XORs of absorbing a block
+KECCAK_OPS_PER_BLOCK = 2 * (24 * 155 + 17)
+
+
+# ------------------------------------------------------------ K5 inputs
+
+def machine_lanes(rng, n: int):
+    """n ERC-20 ``transfer()`` lanes of the main path's shape, with the
+    outcomes the replay meets: the storage cache seeded (both balance
+    slots) on even lanes and unseeded (miss rows) on odd ones; every
+    16th lane sends more than its balance (REVERT) and every 16th + 6
+    gets too little gas (ERR); the last three run INVALID, a stack underflow
+    and a memory-cap HOST escape.  Returns (TxSpecs, their committed
+    storage resolver)."""
+    from coreth_tpu_torch.evm.device.adapter import TxSpec
+    from coreth_tpu_torch.workloads.erc20 import (
+        TOKEN_RUNTIME, balance_slot, transfer_calldata)
+    from coreth_tpu_torch.state import normalize_state_key
+    token = bytes([0x77]) * 20
+    committed = {}
+    txs = []
+    for i in range(n):
+        sender = (0x1000 + i).to_bytes(2, "big") * 10
+        to = (0x3000 + int(rng.integers(0, 4096))).to_bytes(2, "big") * 10
+        # the machine reports (and looks up) normalized slot keys
+        s_key = normalize_state_key(balance_slot(sender))
+        t_key = normalize_state_key(balance_slot(to))
+        bal = int(rng.integers(10**6, 10**12))
+        committed[s_key] = bal
+        committed.setdefault(t_key, int(rng.integers(0, 10**9)))
+        amount = bal + 1 if i % 16 == 0 else int(rng.integers(1, 10**6))
+        gas = 10_000 if i % 16 == 6 else 100_000
+        storage = {}
+        if i % 2 == 0:
+            storage = {k: (committed[k], committed[k])
+                       for k in (s_key, t_key)}
+        txs.append(TxSpec(code=TOKEN_RUNTIME,
+                          calldata=transfer_calldata(to, amount), gas=gas,
+                          value=0, caller=sender, address=token,
+                          origin=sender, gas_price=25 * GWEI,
+                          storage=storage))
+    for k, code in enumerate(("6001fe", "01", "6001620186a05200")):
+        txs[n - 1 - k].code = bytes.fromhex(code)
+        txs[n - 1 - k].storage = {}
+
+    def resolve(addr, key):
+        return committed.get(key, 0)
+    return txs, resolve
+
+
+# ------------------------------------------------------------ machine
+
+def build_erc20_chain(n_blocks: int, txs: int, n_keys: int):
+    """The benchmark's ERC-20 chain (bench.py gen_erc20 and _genesis):
+    every third recipient the next key, the rest a rotating pool of
+    1999 holders; 100k gas per call, fee cap 2000 gwei."""
+    from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
+    from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import DynamicFeeTx, sign_tx
+    from coreth_tpu_torch.workloads.erc20 import (
+        token_genesis_account, transfer_calldata)
+    token = bytes([0x77]) * 20
+    keys = [0xC0FFEE + i for i in range(n_keys)]
+    addrs = [priv_to_address(k) for k in keys]
+    alloc = {a: GenesisAccount(balance=10**27) for a in addrs}
+    alloc[token] = token_genesis_account({a: 10**24 for a in addrs})
+    genesis = Genesis(config=CFG, gas_limit=8_000_000, alloc=alloc)
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    nonces = [0] * n_keys
+
+    def gen(i, bg):
+        for j in range(txs):
+            k = (i * txs + j) % n_keys
+            if j % 3 == 0:
+                to = addrs[(k + 1) % n_keys]
+            else:
+                to = (0x5000 + (i * 7 + j) % 1999).to_bytes(2, "big") * 10
+            bg.add_tx(sign_tx(DynamicFeeTx(
+                chain_id_=CFG.chain_id, nonce=nonces[k],
+                gas_tip_cap_=GWEI, gas_fee_cap_=2000 * GWEI, gas=100_000,
+                to=token, value=0, data=transfer_calldata(to, 10 + j)),
+                keys[k], CFG.chain_id))
+            nonces[k] += 1
+
+    blocks, _ = generate_chain(CFG, gblock, store, n_blocks, gen, gap=10)
+    return genesis, blocks
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    32-bit integer operations over the int32 rate."""
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    t_ops = n_ops / H100_INT32_OPS_PER_S
+    return 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_k3(dev, rng):
+    import torch
+    from coreth_tpu_torch.crypto import native
+    from coreth_tpu_torch.ops import keccak as K
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 272, 4090)]
+    msgs += [rng.bytes(n) for n in (135, 136, 135, 136, 0, 271)]
+    blocks, nblocks = K.pack_blocks(msgs)
+    b = torch.from_numpy(blocks).to(dev)
+    nb = torch.from_numpy(nblocks).to(dev)
+    got = K.keccak256_blocks(b, nb)
+    want = K.keccak256_blocks_plain(b, nb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
+        raise AssertionError(f"K3 digests differ from the plain version "
+                             f"at {bad}")
+    if K.digests(got) != [native.keccak256_native(m) for m in msgs]:
+        raise AssertionError("K3 digests differ from coreth_keccak256")
+    ms = cuda_ms(lambda: K.keccak256_blocks(b, nb))
+    plain_ms = once_ms(lambda: K.keccak256_blocks_plain(b, nb))
+    n_bytes = blocks.nbytes + nblocks.nbytes + got.numel() * 4
+    bound_ms, bound_by = bound(n_bytes,
+                               KECCAK_OPS_PER_BLOCK * int(nblocks.sum()))
+    k3 = {"name": "keccak256_blocks", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/keccak256_blocks.cu",
+          "replaces": "coreth_tpu/ops/keccak.py:186",
+          "max_abs_err": max_abs_err([got], [want]), "ms": round(ms, 4),
+          "plain_ms": round(plain_ms, 2), "bound_ms": round(bound_ms, 5),
+          "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "k3", "equal": True, "messages": len(msgs),
+          "blocks_absorbed": int(nblocks.sum()), "native_equal": True,
+          **k3})
+    return k3
+
+
+def phase_k4(dev, rng):
+    import torch
+    from coreth_tpu_torch.ops import u256, u256x
+    rows = alu_operands(rng, 4096)
+    a, b, c = (torch.from_numpy(x).to(dev) for x in rows)
+    ints = [u256.to_ints(x) for x in rows]
+    errs, ms, plain_ms, n_ops = [], 0.0, 0.0, 0
+    for op in u256x.OPS:
+        got = u256x.eval_ops(op, a, b, c)
+        want = u256x.eval_plain(op, a, b, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"K4 {op} differs from the plain version "
+                                 f"at rows {bad}")
+        errs.append(max_abs_err([got], [want]))
+        ms += cuda_ms(lambda: u256x.eval_ops(op, a, b, c), reps=5)
+        plain_ms += once_ms(lambda: u256x.eval_plain(op, a, b, c))
+        n_ops += alu_ops(op, *ints)
+    n_bytes = len(u256x.OPS) * 4 * rows[0].nbytes
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    k4 = {"name": "u256x_eval", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/u256x_eval.cu",
+          "replaces": "coreth_tpu/ops/u256x.py:30",
+          "max_abs_err": max(errs), "ms": round(ms, 4),
+          "plain_ms": round(plain_ms, 1), "bound_ms": round(bound_ms, 5),
+          "bound_by": bound_by, "library_ms": None}
+    emit({"phase": "k4", "equal": True, "rows": int(a.shape[0]),
+          "ops": len(u256x.OPS), "int32_ops": n_ops,
+          "ms_is": "one launch of every op, summed", **k4})
+    return k4
+
+
+def phase_k5(dev, rng):
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device.adapter import (
+        BlockEnv, MachineRunner, PackedOut)
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    txs, resolve = machine_lanes(rng, 256)
+    env = BlockEnv(coinbase=b"\x01" + b"\x00" * 19, timestamp=3000,
+                   number=5, gas_limit=15_000_000, chain_id=CFG.chain_id,
+                   base_fee=25 * GWEI)
+    runner = MachineRunner("durango", env, resolve, device=dev)
+    p = runner._params(txs)
+    inputs = runner.pack(txs, p)
+    packed, steps = M.run_machine(p, inputs)
+    plain = M.run_plain(p, inputs)
+    torch.cuda.synchronize()
+    for what, g, w in (("packed rows", packed, plain["packed"]),
+                       ("step counts", steps, plain["steps"])):
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            raise AssertionError(f"K5 {what} differ from the plain version "
+                                 f"at {bad}")
+    out = PackedOut(packed.cpu().numpy(), p)
+    statuses = {int(v): int((out.status == v).sum())
+                for v in np.unique(out.status)}
+    misses = int(((out.sflag & M.F_MISS) != 0).any(axis=1).sum())
+    need = {M.STOP, M.REVERT, M.ERR, M.HOST}
+    if not need <= set(statuses) or misses == 0:
+        raise AssertionError(f"K5 lanes do not cover the outcomes: "
+                             f"{statuses}, {misses} miss rows")
+    ms = cuda_ms(lambda: M.run_machine(p, inputs))
+    plain_ms = once_ms(lambda: M.run_plain(p, inputs))
+    n_bytes = sum(t.numel() * t.element_size() for t in inputs.values()
+                  if isinstance(t, torch.Tensor)) \
+        + packed.numel() * 4 + steps.numel() * 4
+    n_steps = int(steps.sum())
+    bound_ms, bound_by = bound(n_bytes, n_steps * M.OPS_PER_STEP)
+    k5 = {"name": "step_machine", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/step_machine.cu",
+          "replaces": "coreth_tpu/evm/device/machine.py:884",
+          "max_abs_err": max_abs_err([packed, steps],
+                                     [plain["packed"], plain["steps"]]),
+          "ms": round(ms, 4), "plain_ms": round(plain_ms, 1),
+          "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
+          "library_ms": None}
+    emit({"phase": "k5", "equal": True, "batch": p.batch,
+          "code_cap": p.code_cap, "scache_cap": p.scache_cap,
+          "width": p.width, "statuses": statuses, "miss_rows": misses,
+          "lane_steps": n_steps, "max_lane_steps": int(steps.max()),
+          **k5})
+    return k5
+
+
+def phase_machine(dev, smi, n_blocks: int = 32, txs: int = 256,
+                  n_keys: int = 1024):
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.ops import keccak as K
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.ops import u256x
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    t0 = time.monotonic()
+    genesis, blocks = build_erc20_chain(n_blocks, txs, n_keys)
+    t_build = time.monotonic() - t0
+    fresh = [Block.decode(b.encode()) for b in blocks]   # no cached senders
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         batch_pad=txs, window=16, device=dev)
+    E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
+    t0 = time.monotonic()
+    root = eng.replay(fresh)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = {"step_machine": M.LAUNCHES, "secp_recover": S.LAUNCHES,
+                "transfer_window": E.LAUNCHES,
+                "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
+    eng.close()
+    mc = eng.machine_counters()
+    if root != blocks[-1].header.root:
+        raise AssertionError("machine path: final root differs from the "
+                             "header")
+    if mc["blocks"] != n_blocks:
+        raise AssertionError(f"machine path: {mc['blocks']} of {n_blocks} "
+                             "blocks on the machine path")
+    if mc["rounds"] < 1:
+        raise AssertionError("machine path: no OCC round was exercised")
+    if launches["step_machine"] < 1:
+        raise AssertionError(f"machine path: the step machine never "
+                             f"launched: {launches}")
+    emit({"phase": "machine", "blocks": n_blocks, "txs_per_block": txs,
+          "keys": n_keys, "chain_build_s": round(t_build, 2),
+          "replay_s": round(dt, 4),
+          "txs_per_s": round(n_blocks * txs / dt, 1),
+          "root_matches_header": True, "launches": launches,
+          "k5_launches_per_block": launches["step_machine"] / n_blocks,
+          "machine": mc, "stats": eng.stats.row(), "card": smi})
+    return launches
 
 
 def main() -> int:
@@ -428,9 +782,19 @@ def main() -> int:
           "root_matches_header": True, "launches": launches,
           "stats": eng.stats.row(), "card": smi})
 
+    # ---- 6.-8. K3, K4, K5 against their plain versions
+    k3 = phase_k3(dev, rng)
+    k4 = phase_k4(dev, rng)
+    k5 = phase_k5(dev, rng)
+
+    # ---- 9. the machine path
+    m_launches = phase_machine(dev, smi)
+
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    k5["launches"] = m_launches["step_machine"]
+    k3["launches"] = k4["launches"] = "in K5"
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

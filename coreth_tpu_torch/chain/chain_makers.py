@@ -1,49 +1,62 @@
-"""Deterministic value-transfer chain generation.
+"""Deterministic chain generation: value transfers and contract calls.
 
 The port's counterpart of reference core/chain_makers.go (BlockGen :47,
-GenerateChain :245), cut to plain value transfers: ``BlockGen.add_tx``
-applies each tx sequentially with Python ints under the reference's
-state-transition rules (nonce and fee-cap pre-checks, buyGas against
-gas * fee_cap + value, the value transfer with EIP-158's no-op for a
-zero-value call to a missing account, the unused-gas refund at the
-effective price, the coinbase fee, per-tx deletion of touched empty
-accounts) and raises on any tx that is not a plain transfer.
+GenerateChain :245).  ``BlockGen.add_tx`` applies each tx sequentially
+with Python ints under the reference's state-transition rules (nonce
+and fee-cap pre-checks, buyGas against gas * fee_cap + value, intrinsic
+gas, the value transfer with EIP-158's no-op for a zero-value call to a
+missing account, the unused-gas refund at the effective price with no
+SSTORE refund from ApricotPhase1 on, the coinbase fee, per-tx deletion
+of touched empty accounts).  A call into contract code executes on the
+repo's native host session (``evm/hostexec``, native/evm.cc): the
+builder shares no code with the device step machine or its plain
+version, so chains built here are an independent reference for the
+replay engine.  Receipts carry the calls' logs and the bloom.
 
-Beside building chains, this is the independent sequential reference
-that the replay engine's results are held against: it shares no code
-with ``replay/``.
+Contract creation, access lists, and calls the native session cannot
+take (a host-only opcode, a precompile callee) raise ``InvalidTransfer``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple, Union
 
 from coreth_tpu_torch.consensus import calc_base_fee
 from coreth_tpu_torch.consensus.engine import DummyEngine
+from coreth_tpu_torch.evm.device import machine as M
+from coreth_tpu_torch.evm.device.tables import fork_key
+from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
+from coreth_tpu_torch.evm.hostexec.eligibility import (
+    COINBASE_WARM_FORKS, native_eligible,
+)
 from coreth_tpu_torch.evm.precompiles import (
     BLACKHOLE_ADDR, is_prohibited, special_call_targets,
 )
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
+from coreth_tpu_torch.processor.state_transition import intrinsic_gas
+from coreth_tpu_torch.state import StateStore, as_store
 from coreth_tpu_torch.types import (
-    Block, Header, LatestSigner, Receipt, StateAccount, Transaction,
+    Block, Header, LatestSigner, Log, Receipt, StateAccount, Transaction,
 )
 from coreth_tpu_torch.types.account import EMPTY_CODE_HASH
 
 
 class InvalidTransfer(ValueError):
-    """The tx is not a valid plain value transfer at this point."""
+    """The tx is not valid (or not supported) at this point."""
 
 
 class _State:
-    """Account overlay over a trie: reads fall through, writes fold into
-    the trie once per block (``commit``)."""
+    """Account and storage overlay over a StateStore: reads fall
+    through, writes fold into the tries once per block (``commit``)."""
 
-    def __init__(self, trie: NativeSecureTrie):
-        self.trie = trie
+    def __init__(self, store: StateStore):
+        self.store = store
+        self.trie = store.trie
         self.accounts: Dict[bytes, Optional[StateAccount]] = {}
         self.dirty: Set[bytes] = set()
+        self.slots: Dict[Tuple[bytes, bytes], int] = {}
 
     def get(self, addr: bytes) -> Optional[StateAccount]:
         if addr not in self.accounts:
@@ -61,6 +74,15 @@ class _State:
         self.dirty.add(addr)
         return acct
 
+    def code(self, acct: Optional[StateAccount]) -> bytes:
+        if acct is None or acct.code_hash == EMPTY_CODE_HASH:
+            return b""
+        return self.store.code(acct.code_hash)
+
+    def slot(self, addr: bytes, key: bytes) -> int:
+        v = self.slots.get((addr, key))
+        return v if v is not None else self.store.storage_value(addr, key)
+
     def finalise(self, touched: Set[bytes]) -> None:
         """EIP-158: delete touched accounts that ended up empty."""
         for addr in touched:
@@ -71,6 +93,11 @@ class _State:
                 self.accounts[addr] = None
 
     def commit(self) -> bytes:
+        for (addr, key), v in self.slots.items():
+            self.store.set_storage(addr, key, v)
+        for addr in {a for a, _k in self.slots}:
+            self.obj(addr).root = self.store.storage_trie(addr).hash()
+        self.slots.clear()
         for addr in sorted(self.dirty):
             a = self.accounts[addr]
             if a is None:
@@ -82,11 +109,56 @@ class _State:
         return self.trie.hash()
 
 
+class _Calls:
+    """The chain's native host session, opened at the first contract
+    call (one per fork), with code resolved from the chain builder's state."""
+
+    def __init__(self, config: ChainConfig, state: _State):
+        self.config = config
+        self.state = state
+        self.sessions: Dict[str, object] = {}
+
+    def session(self, rules, header: Header):
+        fork = fork_key(rules)
+        if fork is None:
+            raise InvalidTransfer("contract calls need ApricotPhase2+")
+        be = self.sessions.get(fork)
+        if be is None:
+            st = self.state
+            avoid = special_call_targets(rules)
+
+            def slot(contract: bytes, key: bytes) -> bytes:
+                return st.slot(contract, key).to_bytes(32, "big")
+
+            def code(addr: bytes) -> Optional[bytes]:
+                if addr in avoid or is_prohibited(addr):
+                    return None      # precompile callee: host only
+                acct = st.get(addr)
+                c = st.code(acct)
+                if c:
+                    return c if native_eligible(c, fork)[0] else None
+                if acct is not None and acct.nonce == 0 \
+                        and acct.balance == 0:
+                    return None      # existing-but-empty: EIP-158 touch
+                return b""
+
+            be = self.sessions[fork] = HostExecBackend(
+                fork, self.config.chain_id, slot, code)
+        be.set_env(header.coinbase, header.time, header.number,
+                   header.gas_limit, header.base_fee or 0)
+        return be, fork
+
+    def close(self) -> None:
+        for be in self.sessions.values():
+            be.close()
+        self.sessions.clear()
+
+
 class BlockGen:
     """Per-block generation context (chain_makers.go:47)."""
 
     def __init__(self, index: int, parent: Block, state: _State,
-                 config: ChainConfig, gap: int):
+                 config: ChainConfig, gap: int, calls: _Calls):
         self.index = index
         self.parent = parent
         self.state = state
@@ -97,20 +169,23 @@ class BlockGen:
         self.gas_pool = self.header.gas_limit
         self.signer = LatestSigner(config.chain_id)
         self.used_gas = 0
+        self._calls = calls
 
     @property
     def base_fee(self):
         return self.header.base_fee
 
     def add_tx(self, tx: Transaction) -> None:
-        """Apply a plain value transfer now; raises InvalidTransfer on
-        anything else or on a tx the reference would reject."""
+        """Apply a value transfer or a contract call now; raises
+        InvalidTransfer on a tx the reference would reject or this
+        builder does not support."""
         hdr = self.header
         rules = self.config.rules(hdr.number, hdr.time)
-        if tx.to is None or tx.data or tx.access_list:
-            raise InvalidTransfer("not a plain value transfer")
+        if tx.to is None or tx.access_list:
+            raise InvalidTransfer("contract creation and access lists are "
+                                  "not supported")
         if tx.to in special_call_targets(rules) or is_prohibited(tx.to):
-            raise InvalidTransfer("transfer to a precompile address")
+            raise InvalidTransfer("call to a precompile address")
         sender = self.signer.sender(tx)
         st = self.state
         src = st.get(sender)
@@ -119,9 +194,6 @@ class BlockGen:
             raise InvalidTransfer(f"nonce {tx.nonce} != state {nonce}")
         if src is not None and src.code_hash != EMPTY_CODE_HASH:
             raise InvalidTransfer("sender is not an EOA")
-        dst = st.get(tx.to)
-        if dst is not None and dst.code_hash != EMPTY_CODE_HASH:
-            raise InvalidTransfer("recipient has code")
         base_fee = hdr.base_fee
         price = tx.gas_price
         if base_fee is not None:
@@ -137,21 +209,31 @@ class BlockGen:
             raise InvalidTransfer("insufficient funds for gas*price+value")
         if self.gas_pool < tx.gas:
             raise InvalidTransfer("block gas limit reached")
-        if tx.gas < P.TX_GAS:
+        intrinsic = intrinsic_gas(tx.data, rules)
+        if tx.gas < intrinsic:
             raise InvalidTransfer("intrinsic gas too low")
+        dst = st.get(tx.to)
+        code = st.code(dst)
         touched = {sender}
         acct = st.obj(sender)
         acct.balance -= tx.gas * price   # >= tx.value, by the check above
         acct.nonce += 1
-        # CALL: a zero-value call to a missing account is a no-op
-        # (EIP-158); otherwise the recipient is created and credited
-        if dst is not None or tx.value != 0 or not rules.is_eip158:
-            acct.balance -= tx.value
-            st.obj(tx.to).balance += tx.value
-            touched.add(tx.to)
-        # refund of the unused gas, then the fee to the coinbase
-        gas_used = P.TX_GAS
-        acct.balance += (tx.gas - gas_used) * price
+        status, logs = 1, []
+        if code:
+            gas_left, status, logs = self._call(tx, sender, price,
+                                                intrinsic, rules, touched)
+        else:
+            gas_left = tx.gas - intrinsic
+            # a zero-value call to a missing account is a no-op
+            # (EIP-158); otherwise the recipient is created and credited
+            if dst is not None or tx.value != 0 or not rules.is_eip158:
+                acct.balance -= tx.value
+                st.obj(tx.to).balance += tx.value
+                touched.add(tx.to)
+        gas_used = tx.gas - gas_left
+        # refund of the unused gas (no refund counter from AP1 on), then
+        # the fee to the coinbase
+        acct.balance += gas_left * price
         st.obj(hdr.coinbase).balance += gas_used * price
         touched.add(hdr.coinbase)
         st.finalise(touched)
@@ -159,10 +241,40 @@ class BlockGen:
         self.used_gas += gas_used
         self.txs.append(tx)
         self.receipts.append(Receipt(
-            tx_type=tx.tx_type, status=1,
-            cumulative_gas_used=self.used_gas, gas_used=gas_used,
-            tx_hash=tx.hash(), effective_gas_price=price,
+            tx_type=tx.tx_type, status=status,
+            cumulative_gas_used=self.used_gas, logs=logs,
+            gas_used=gas_used, tx_hash=tx.hash(),
+            effective_gas_price=price,
             transaction_index=len(self.txs) - 1))
+
+    def _call(self, tx, sender, price, intrinsic, rules, touched):
+        """The root call into contract code on the native session:
+        (gas_left, receipt status, logs).  The value moves inside the
+        call's snapshot: a revert or error returns it."""
+        st = self.state
+        be, fork = self._calls.session(rules, self.header)
+        warm = [sender, tx.to]
+        if fork in COINBASE_WARM_FORKS:
+            warm.append(self.header.coinbase)      # EIP-3651
+        res = be.call(sender, tx.to, tx.value, price, tx.data,
+                      tx.gas - intrinsic, warm_addrs=warm)
+        if res.needs_host:
+            raise InvalidTransfer(
+                f"call needs the host interpreter (reason "
+                f"{res.host_reason}), which is not ported")
+        touched.add(tx.to)
+        if res.status != M.STOP:
+            return res.gas_left, 0, []
+        be.commit()    # sequential carry: the next call reads these
+        if tx.value:
+            st.obj(sender).balance -= tx.value
+            st.obj(tx.to).balance += tx.value
+        for (contract, key), v in res.writes.items():
+            st.slots[(contract, key)] = int.from_bytes(v, "big")
+        logs = [Log(address=addr, topics=list(topics), data=data,
+                    block_number=self.header.number)
+                for addr, topics, data in res.logs]
+        return res.gas_left, 1, logs
 
 
 def _make_header(config: ChainConfig, parent: Block, gap: int) -> Header:
@@ -194,27 +306,33 @@ _EMPTY_PREDICATE_RESULTS = b"\x00" * 4
 
 
 def generate_chain(config: ChainConfig, parent: Block,
-                   trie: NativeSecureTrie, n: int,
+                   state: Union[StateStore, NativeSecureTrie], n: int,
                    gen: Optional[Callable[[int, BlockGen], None]],
                    gap: int = 10,
                    ) -> Tuple[List[Block], List[List[Receipt]]]:
-    """GenerateChain: ``trie`` holds the state at ``parent.root`` and is
+    """GenerateChain: ``state`` (a StateStore, or a bare account trie
+    for transfer-only chains) holds the state at ``parent.root`` and is
     advanced block by block.  Returns (blocks, receipts)."""
     engine = DummyEngine()
-    state = _State(trie)
+    st = _State(as_store(state))
+    calls = _Calls(config, st)
     blocks: List[Block] = []
     all_receipts: List[List[Receipt]] = []
-    for i in range(n):
-        bg = BlockGen(i, parent, state, config, gap)
-        if gen is not None:
-            gen(i, bg)
-        bg.header.gas_used = bg.used_gas
-        if config.is_durango(bg.header.time):
-            bg.header.extra = bg.header.extra + _EMPTY_PREDICATE_RESULTS
-        root = state.commit()
-        block = engine.finalize_and_assemble(
-            config, bg.header, parent.header, root, bg.txs, bg.receipts)
-        blocks.append(block)
-        all_receipts.append(bg.receipts)
-        parent = block
+    try:
+        for i in range(n):
+            bg = BlockGen(i, parent, st, config, gap, calls)
+            if gen is not None:
+                gen(i, bg)
+            bg.header.gas_used = bg.used_gas
+            if config.is_durango(bg.header.time):
+                bg.header.extra = bg.header.extra + _EMPTY_PREDICATE_RESULTS
+            root = st.commit()
+            block = engine.finalize_and_assemble(
+                config, bg.header, parent.header, root, bg.txs,
+                bg.receipts)
+            blocks.append(block)
+            all_receipts.append(bg.receipts)
+            parent = block
+    finally:
+        calls.close()
     return blocks, all_receipts

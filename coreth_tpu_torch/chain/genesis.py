@@ -1,24 +1,29 @@
 """Genesis specification -> genesis block + initial state.
 
-A cut of reference core/genesis.go (ToBlock :246) to funded accounts:
-the genesis state goes straight into a ``NativeSecureTrie``.
+A cut of reference core/genesis.go (ToBlock :246) to funded accounts
+and contracts: balances, nonces, runtime code and storage go straight
+into a ``StateStore`` (account trie, storage tries, code store).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
+from coreth_tpu_torch.state import StateStore, normalize_state_key
 from coreth_tpu_torch.types import Block, Header, StateAccount
 
 
 @dataclass
 class GenesisAccount:
     balance: int = 0
+    code: bytes = b""
     nonce: int = 0
+    # 32-byte slot key -> 32-byte value
+    storage: Dict[bytes, bytes] = field(default_factory=dict)
 
 
 @dataclass
@@ -36,15 +41,30 @@ class Genesis:
     gas_used: int = 0
     parent_hash: bytes = b"\x00" * 32
 
-    def to_block(self, trie: Optional[NativeSecureTrie] = None) -> Block:
-        """ToBlock: writes the genesis state into ``trie`` (a fresh one
-        when None) and returns the genesis block.  Every alloc entry is
-        written, empty ones included (genesis commits without EIP-158
-        deletion)."""
-        trie = trie if trie is not None else NativeSecureTrie()
+    def to_block(self, state: Union[StateStore, NativeSecureTrie,
+                                    None] = None) -> Block:
+        """ToBlock: writes the genesis state into ``state`` (a
+        ``StateStore``, or a bare account trie when no account has code
+        or storage; a fresh trie when None) and returns the genesis
+        block.  Every alloc entry is written, empty ones included
+        (genesis commits without EIP-158 deletion)."""
+        if isinstance(state, StateStore):
+            store, trie = state, state.trie
+        else:
+            store, trie = None, state if state is not None \
+                else NativeSecureTrie()
         for addr, account in self.alloc.items():
-            trie.update(addr, StateAccount(nonce=account.nonce,
-                                           balance=account.balance).rlp())
+            acct = StateAccount(nonce=account.nonce, balance=account.balance)
+            if account.code or account.storage:
+                if store is None:
+                    raise ValueError("genesis has code or storage: pass a "
+                                     "StateStore")
+                acct.code_hash = store.put_code(account.code)
+                for key, value in account.storage.items():
+                    store.set_storage(addr, normalize_state_key(key),
+                                      int.from_bytes(value, "big"))
+                acct.root = store.storage_trie(addr).hash()
+            trie.update(addr, acct.rlp())
         gas_limit = self.gas_limit or P.GENESIS_GAS_LIMIT
         base_fee = self.base_fee
         if self.config.is_apricot_phase3(0) and base_fee is None:

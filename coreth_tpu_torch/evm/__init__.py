@@ -1,1 +1,1 @@
-"""EVM facts the transfer classifier needs (no interpreter in this slice)."""
+"""EVM host tables, bytecode analysis and the device step machine."""

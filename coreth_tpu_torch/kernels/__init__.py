@@ -26,6 +26,9 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(
 SOURCES = {
     "transfer_window": "transfer_window.cu",
     "secp_recover": "secp_recover.cu",
+    "keccak256_blocks": "keccak256_blocks.cu",
+    "u256x_eval": "u256x_eval.cu",
+    "step_machine": "step_machine.cu",
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -53,9 +56,14 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
-    src = os.path.join(CSRC, SOURCES[name])
+    """The library is missing or older than its source or any header
+    of ``csrc/`` (the sources share the device-function headers)."""
+    deps = [os.path.join(CSRC, SOURCES[name])] + [
+        os.path.join(CSRC, fn) for fn in os.listdir(CSRC)
+        if fn.endswith(".cuh")]
     try:
-        return os.path.getmtime(lib_path(name)) < os.path.getmtime(src)
+        built = os.path.getmtime(lib_path(name))
+        return any(built < os.path.getmtime(d) for d in deps)
     except OSError:
         return True
 
@@ -110,6 +118,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "secp_recover":
         lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
         lib.secp_recover_launch.restype = I
+    elif name == "keccak256_blocks":
+        lib.keccak256_blocks_launch.argtypes = [P, P, P, I, I, P]
+        lib.keccak256_blocks_launch.restype = I
+    elif name == "u256x_eval":
+        lib.u256x_eval_launch.argtypes = [I, P, P, P, P, I, P]
+        lib.u256x_eval_launch.restype = I
+    elif name == "step_machine":
+        lib.step_machine_launch.argtypes = [P] * 24
+        lib.step_machine_launch.restype = I
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,14 +1,15 @@
 """Window-batched trie commit — state-root folding off the critical path.
 
-Port of reference ``replay/commit.py``, native backend only, cut to the
-account trie: value transfers write no contract storage (the token path
-that does is a later slice).  Finished blocks STAGE their account states,
-deduped to the last value per address across the whole window;
-``flush()`` — once per window, after the next window's device launch is
-already queued — folds the deduped set in one fold-and-root call, then
-checks the root against the last staged block's header.  Intermediate
-per-block roots are never materialized; the window root must equal the
-chain's.
+Port of reference ``replay/commit.py``, native backend only.  Finished
+blocks STAGE their effects: contract storage writes deduped to the last
+value per (contract, slot), account states to the last value per
+address, across the whole window.  ``flush()`` — once per window, after
+the next window's device launch is already queued on the transfer path,
+once per block on the machine path — folds each contract's writes into
+its storage trie in one fold-and-root call, puts the new storage roots
+into the account fold, folds the accounts, then checks the root against
+the last staged block's header.  Intermediate per-block roots are never
+materialized; the window root must equal the chain's.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
+from coreth_tpu_torch.crypto import keccak256
 from coreth_tpu_torch.types.account import EMPTY_CODE_HASH, EMPTY_ROOT_HASH
 
 
@@ -24,6 +26,8 @@ class CommitPipeline:
 
     def __init__(self, engine):
         self.e = engine
+        # last-value-per-(contract, slot): values are ints (0 => delete)
+        self.writes: Dict[Tuple[bytes, bytes], int] = {}
         # last-value-per-address: addr -> (balance, nonce)
         self.accounts: Dict[bytes, Tuple[int, int]] = {}
         self.expected_root: Optional[bytes] = None
@@ -32,17 +36,52 @@ class CommitPipeline:
         self.fold_s = 0.0
         self.fold_calls = 0
         self.fold_blocks = 0
+        # slot-key keccak memo: slots recur across windows
+        self._key_hash: Dict[bytes, bytes] = {}
 
-    def stage(self, header, accounts: Dict[bytes, Tuple[int, int]]) -> None:
-        """Queue one finished block's account states; later stages of
-        the same account overwrite earlier ones (window dedup)."""
+    def stage(self, header, accounts: Dict[bytes, Tuple[int, int]],
+              writes: Optional[Dict[Tuple[bytes, bytes], int]] = None
+              ) -> None:
+        """Queue one finished block's account states and storage writes;
+        later stages of the same account or slot overwrite earlier ones
+        (window dedup)."""
         self.accounts.update(accounts)
+        if writes:
+            self.writes.update(writes)
         self.expected_root = header.root
         self.expected_number = header.number
         self.staged_blocks += 1
 
     def pending(self) -> bool:
         return self.staged_blocks > 0
+
+    def account_view(self, addr: bytes) -> Optional[Tuple[int, int]]:
+        """(balance, nonce) staged but not yet folded, else None."""
+        return self.accounts.get(addr)
+
+    def base_value(self, contract: bytes, key: bytes) -> Optional[int]:
+        """Staged-but-unfolded storage value, else None."""
+        return self.writes.get((contract, key))
+
+    def _hash_key(self, key: bytes) -> bytes:
+        h = self._key_hash.get(key)
+        if h is None:
+            h = self._key_hash[key] = keccak256(key)
+        return h
+
+    def _fold_storage(self) -> None:
+        """One fold-and-root call per written contract; the new roots go
+        into ``state.roots`` for the account fold."""
+        e = self.e
+        by_contract: Dict[bytes, list] = {}
+        for (contract, key), v in self.writes.items():
+            by_contract.setdefault(contract, []).append((key, v))
+        for contract, kvs in by_contract.items():
+            keys = b"".join(self._hash_key(k) for k, _v in kvs)
+            vals = b"".join(v.to_bytes(32, "big") for _k, v in kvs)
+            root = e._storage_trie(contract).fold_storage(keys, vals,
+                                                          len(kvs))
+            e.state.roots[e.state.index[contract]] = root
 
     def _fold_accounts(self) -> bytes:
         e = self.e
@@ -75,13 +114,15 @@ class CommitPipeline:
             bytes(mc), bytes(dels))
 
     def flush(self) -> bytes:
-        """Fold the staged window, check the root against the last staged
-        header, advance ``engine.root``."""
+        """Fold the staged window (storage first — the account fold
+        consumes the fresh storage roots — then accounts), check the
+        root against the last staged header, advance ``engine.root``."""
         e = self.e
         if not self.staged_blocks:
             return e.root
         from coreth_tpu_torch.replay.engine import ReplayError
         t0 = time.monotonic()
+        self._fold_storage()
         root = self._fold_accounts()
         dt = time.monotonic() - t0
         self.fold_s += dt
@@ -90,6 +131,7 @@ class CommitPipeline:
         self.fold_blocks += self.staged_blocks
         expected, number = self.expected_root, self.expected_number
         n_blocks = self.staged_blocks
+        self.writes = {}
         self.accounts = {}
         self.staged_blocks = 0
         self.expected_root = None

@@ -1,6 +1,9 @@
-"""Batched block-replay engine — the value-transfer slice of the port.
+"""Batched block-replay engine — value-transfer and machine blocks.
 
-Port of reference ``replay/engine.py``, transfer path only:
+Port of reference ``replay/engine.py``: the transfer fast path and, for
+the blocks it rejects, general contract blocks on the device step
+machine (``replay/machine_block``, one block at a time — the reference's
+per-block OCC configuration).  The transfer path:
 
 1. **Classify** (host): a block is device-replayable when every tx is a
    pure value transfer (``to`` set, empty calldata, no access list,
@@ -19,10 +22,17 @@ Port of reference ``replay/engine.py``, transfer path only:
 4. **Commit** (host-native): one deduped account fold per window in the
    C++ trie, root checked against the header (replay/commit.py).
 
-A block that does not classify, or whose device ``ok`` flag is 0, or
-that fails a consensus check raises ``ReplayError`` with ``.block``
-set: the host execution path (the reference's ``Processor`` fallback)
-is not ported yet, and the engine refuses loudly instead.
+A block the transfer classifier rejects goes to the machine path:
+``MachineBlockExecutor.classify`` takes it when every tx is a transfer
+or a call into device-eligible contract code, and executes it on the
+step machine (K5, with the K4 ALU and K3 keccak inside) with
+miss-and-rerun storage rounds, OCC validation, and the conflict suffix
+on the native host session.  A block neither path takes — contract
+creation, host-only opcodes, a lane that escapes the machine — or whose
+device ``ok`` flag is 0, or that fails a consensus check, raises
+``ReplayError`` with ``.block`` set: the host execution path (the
+reference's ``Processor`` fallback) is not ported yet, and the engine
+refuses loudly instead.
 """
 
 from __future__ import annotations
@@ -30,12 +40,12 @@ from __future__ import annotations
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from coreth_tpu_torch import default_device, kernels
+from coreth_tpu_torch import default_device, kernels, rlp
 from coreth_tpu_torch.consensus.engine import ConsensusError, DummyEngine
 from coreth_tpu_torch.crypto import keccak256, native
 from coreth_tpu_torch.crypto import secp_device
@@ -47,6 +57,7 @@ from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.ops import u256
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
+from coreth_tpu_torch.state import StateStore, as_store
 from coreth_tpu_torch.types import (
     Block, LatestSigner, Receipt, StateAccount,
 )
@@ -479,25 +490,29 @@ class _SenderPipeline:
 
 
 class ReplayEngine:
-    """Windowed replay of value-transfer blocks over a state trie.
+    """Windowed replay of transfer and machine blocks over a state.
 
-    ``trie`` holds the state at the parent of the first block to replay
-    (its hash is the starting root) and is advanced by every window's
-    fold.  ``device`` defaults to ``"cuda"`` and raises without a card;
+    ``state`` — a ``StateStore`` (account trie, storage tries, code
+    store), or a bare account trie for chains without contracts — holds
+    the state at the parent of the first block to replay (its account
+    trie's hash is the starting root) and is advanced by every fold.
+    ``device`` defaults to ``"cuda"`` and raises without a card;
     ``device="cpu"`` runs the kernels' plain versions."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
     DEVICE_RECOVER_MIN = 1024
 
-    def __init__(self, config: ChainConfig, trie: NativeSecureTrie,
+    def __init__(self, config: ChainConfig,
+                 state: Union[StateStore, NativeSecureTrie],
                  parent_header=None, batch_pad: int = 1024,
                  capacity: int = 1 << 14, window: int = 16,
                  slot_capacity: Optional[int] = None, device=None):
         self.device = default_device(device)
         self.config = config
-        self.trie = trie
-        self.root = trie.hash()
+        self.store = as_store(state)
+        self.trie = self.store.trie
+        self.root = self.trie.hash()
         self.state = DeviceState(capacity, slot_capacity or capacity,
                                  self.device)
         self.signer = LatestSigner(config.chain_id)
@@ -513,6 +528,7 @@ class ReplayEngine:
         from coreth_tpu_torch.replay.commit import CommitPipeline
         self.commit_pipe = CommitPipeline(self)
         self._recover_pool: Optional[ThreadPoolExecutor] = None
+        self._machine = None
 
     def close(self) -> None:
         """Stop the recovery worker thread."""
@@ -528,6 +544,24 @@ class ReplayEngine:
         raw = self.trie.get(addr)
         account = StateAccount.from_rlp(raw) if raw is not None else None
         return self.state.ensure(addr, account)
+
+    def _storage_trie(self, contract: bytes) -> NativeSecureTrie:
+        """The contract's storage trie in the engine's store (advanced in
+        place by every fold, so it is at the account's current root)."""
+        st = self.store.storage.get(contract)
+        if st is None:
+            root = self.state.roots[self._account(contract)]
+            if root != EMPTY_ROOT_HASH:
+                raise ReplayError(
+                    f"storage trie of {contract.hex()} (root {root.hex()})"
+                    " is not in the engine's state store")
+            st = self.store.storage_trie(contract)
+        return st
+
+    def storage_value(self, contract: bytes, key: bytes) -> int:
+        """Folded value of (normalized) slot ``key`` of ``contract``."""
+        raw = self._storage_trie(contract).get(key)
+        return int.from_bytes(rlp.decode(raw), "big") if raw else 0
 
     # -------------------------------------------------------------- senders
     def _pack_sigs(self, blocks):
@@ -809,7 +843,38 @@ class ReplayEngine:
 
     def _refuse(self, block: Block) -> ReplayError:
         return _block_error(
-            f"not a value-transfer block; {_NOT_PORTED}", block)
+            "neither a value-transfer block nor a device-machine block; "
+            f"{_NOT_PORTED}", block)
+
+    # ------------------------------------------------------------- machine
+    def _machine_executor(self):
+        """Lazy general-bytecode block executor (machine_block.py)."""
+        if self._machine is None:
+            from coreth_tpu_torch.replay.machine_block import (
+                MachineBlockExecutor)
+            self._machine = MachineBlockExecutor(self)
+        return self._machine
+
+    def machine_counters(self) -> dict:
+        """The machine path's counters (blocks, OCC rounds, conflict-
+        suffix txs, step-machine launches and lane-steps)."""
+        return self._machine_executor().counters()
+
+    def _machine_run(self, block: Block) -> None:
+        """Run a block the transfer classifier rejected on the device
+        step machine: the reference's ``_try_machine`` / ``_machine_run``
+        with the per-block OCC configuration's lookahead of one block.
+        Raises ReplayError when the machine cannot take the block."""
+        mx = self._machine_executor()
+        t0 = time.monotonic()
+        plans = mx.classify(block)
+        self.stats.t_classify += time.monotonic() - t0
+        if plans is None:
+            raise self._refuse(block)
+        if mx.execute_run([(block, plans)]) == 0:
+            raise _block_error(
+                "a call escaped the device step machine (HOST); "
+                f"{_NOT_PORTED}", block)
 
     def replay_block(self, block: Block) -> bytes:
         """Process one block synchronously."""
@@ -818,7 +883,8 @@ class ReplayEngine:
         batch = self._classify(block)
         self.stats.t_classify += time.monotonic() - t0
         if batch is None:
-            raise self._refuse(block)
+            self._machine_run(block)
+            return self.root
         self._complete_window_run(self._issue_window_run([(block, batch)]))
         return self.root
 
@@ -853,7 +919,9 @@ class ReplayEngine:
             if refused is not None:
                 if pending is not None:
                     self._complete_window_run(pending)
-                raise self._refuse(refused)
+                    pending = None
+                self._machine_run(refused)   # pipe.ensure(i) ran above
+                i += 1
         return self.root
 
     def commit(self) -> bytes:

@@ -1,0 +1,157 @@
+"""ERC-20 token workload.
+
+Port of reference ``workloads/erc20.py`` (copied, without the
+interpreter-based gas probe): a hand-assembled minimal token contract
+(transfer + balanceOf over a balances mapping at storage slot 0,
+Transfer event, unchecked classic semantics).  Hand assembly keeps the
+execution path — and thus the gas schedule — small and auditable.
+
+Storage layout: balances[addr] at keccak256(pad32(addr) ++ pad32(0)) —
+the Solidity mapping rule the reference's state tests rely on.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, List, Tuple
+
+from coreth_tpu_torch.crypto import keccak256, keccak256_py
+
+TRANSFER_SELECTOR = bytes.fromhex("a9059cbb")
+BALANCEOF_SELECTOR = bytes.fromhex("70a08231")
+# keccak256("Transfer(address,address,uint256)")
+TRANSFER_TOPIC = keccak256_py(b"Transfer(address,address,uint256)")
+
+_OPS = {
+    "STOP": 0x00, "ADD": 0x01, "SUB": 0x03, "LT": 0x10, "GT": 0x11,
+    "EQ": 0x14, "SHR": 0x1C, "SHA3": 0x20, "CALLER": 0x33,
+    "CALLDATALOAD": 0x35, "MSTORE": 0x52, "SLOAD": 0x54, "SSTORE": 0x55,
+    "JUMPI": 0x57, "JUMPDEST": 0x5B, "LOG3": 0xA3, "RETURN": 0xF3,
+    "REVERT": 0xFD, "DUP1": 0x80, "DUP2": 0x81, "DUP3": 0x82,
+    "SWAP1": 0x90,
+}
+
+
+def _assemble(program: List, ops: Dict[str, int] = None) -> bytes:
+    """Two-pass assembler: items are opcode names, ("PUSH", bytes),
+    ("PUSHL", label) 2-byte label pushes, or ("LABEL", name).
+    `ops` overrides the opcode table (workloads/swap.py extends it)."""
+    _ops = ops or _OPS
+    # pass 1: layout
+    offsets: Dict[str, int] = {}
+    pc = 0
+    for item in program:
+        if isinstance(item, str):
+            pc += 1
+        elif item[0] == "LABEL":
+            offsets[item[1]] = pc
+            pc += 1                      # JUMPDEST emitted at the label
+        elif item[0] == "PUSH":
+            pc += 1 + len(item[1])
+        elif item[0] == "PUSHL":
+            pc += 3                      # PUSH2 + 2-byte offset
+        else:
+            raise ValueError(item)
+    # pass 2: emit
+    out = bytearray()
+    for item in program:
+        if isinstance(item, str):
+            out.append(_ops[item])
+        elif item[0] == "LABEL":
+            out.append(_OPS["JUMPDEST"])
+        elif item[0] == "PUSH":
+            data = item[1]
+            out.append(0x5F + len(data))     # PUSH1..PUSH32
+            out += data
+        elif item[0] == "PUSHL":
+            out.append(0x61)                 # PUSH2
+            out += offsets[item[1]].to_bytes(2, "big")
+    return bytes(out)
+
+
+def _b1(v: int) -> Tuple[str, bytes]:
+    return ("PUSH", bytes([v]))
+
+
+TOKEN_RUNTIME = _assemble([
+    # dispatcher: selector = calldataload(0) >> 224
+    _b1(0x00), "CALLDATALOAD", _b1(0xE0), "SHR",
+    "DUP1", ("PUSH", TRANSFER_SELECTOR), "EQ", ("PUSHL", "transfer"),
+    "JUMPI",
+    "DUP1", ("PUSH", BALANCEOF_SELECTOR), "EQ", ("PUSHL", "balanceOf"),
+    "JUMPI",
+    _b1(0x00), _b1(0x00), "REVERT",
+
+    # transfer(address to, uint256 amt)
+    ("LABEL", "transfer"),
+    _b1(0x24), "CALLDATALOAD",                       # [amt]
+    "CALLER", _b1(0x00), "MSTORE",
+    _b1(0x00), _b1(0x20), "MSTORE",
+    _b1(0x40), _b1(0x00), "SHA3",                    # [amt, fromKey]
+    "DUP1", "SLOAD",                                 # [amt, fK, fromBal]
+    "DUP3", "DUP2", "LT",                            # fromBal < amt ?
+    ("PUSHL", "revert"), "JUMPI",                    # [amt, fK, fromBal]
+    "DUP3", "SWAP1", "SUB",                          # [amt, fK, fromBal-amt]
+    "SWAP1", "SSTORE",                               # [amt]
+    _b1(0x04), "CALLDATALOAD",                       # [amt, to]
+    _b1(0x00), "MSTORE",                             # [amt] mem0 = to
+    _b1(0x40), _b1(0x00), "SHA3",                    # [amt, toKey]
+    "DUP1", "SLOAD",                                 # [amt, toKey, toBal]
+    "DUP3", "ADD",                                   # [amt, toKey, toBal+amt]
+    "SWAP1", "SSTORE",                               # [amt]
+    # emit Transfer(caller, to, amt)
+    "DUP1", _b1(0x00), "MSTORE",
+    _b1(0x04), "CALLDATALOAD",                       # [amt, to]
+    "CALLER",                                        # [amt, to, caller]
+    ("PUSH", TRANSFER_TOPIC),                        # [amt, to, from, sig]
+    _b1(0x20), _b1(0x00),                            # [.., size, offset]
+    "LOG3",                                          # [amt]
+    _b1(0x01), _b1(0x00), "MSTORE",
+    _b1(0x20), _b1(0x00), "RETURN",
+
+    ("LABEL", "revert"),
+    _b1(0x00), _b1(0x00), "REVERT",
+
+    # balanceOf(address)
+    ("LABEL", "balanceOf"),
+    _b1(0x04), "CALLDATALOAD", _b1(0x00), "MSTORE",
+    _b1(0x00), _b1(0x20), "MSTORE",
+    _b1(0x40), _b1(0x00), "SHA3", "SLOAD",
+    _b1(0x00), "MSTORE",
+    _b1(0x20), _b1(0x00), "RETURN",
+])
+
+TOKEN_CODE_HASH = keccak256_py(TOKEN_RUNTIME)
+
+
+
+@lru_cache(maxsize=1 << 17)
+def balance_slot(addr: bytes) -> bytes:
+    """Storage slot key of balances[addr] (mapping slot 0).  Memoized:
+    the replay classifier derives two slot keys per token tx and the
+    sender/recipient population recurs across blocks, so the keccak
+    runs once per address instead of once per tx."""
+    return keccak256(b"\x00" * 12 + addr + b"\x00" * 32)
+
+
+def transfer_calldata(to: bytes, amount: int) -> bytes:
+    return (TRANSFER_SELECTOR + b"\x00" * 12 + to
+            + amount.to_bytes(32, "big"))
+
+
+def parse_transfer_calldata(data: bytes):
+    """(to, amount) if data is a well-formed transfer call, else None."""
+    if len(data) != 68 or data[:4] != TRANSFER_SELECTOR:
+        return None
+    if any(data[4:16]):
+        return None
+    return data[16:36], int.from_bytes(data[36:68], "big")
+
+
+def token_genesis_account(balances: Dict[bytes, int]):
+    """GenesisAccount for the token with pre-funded balances."""
+    from coreth_tpu_torch.chain import GenesisAccount
+    storage = {balance_slot(addr): v.to_bytes(32, "big")
+               for addr, v in balances.items()}
+    return GenesisAccount(balance=0, code=TOKEN_RUNTIME, nonce=1,
+                          storage=storage)
