@@ -36,7 +36,9 @@ Phases, each printing one JSON line:
    ``transfer()`` lanes with the storage cache seeded and unseeded (miss
    rows), lanes that REVERT (insufficient balance), run out of gas, hit
    INVALID or escape HOST: packed rows and step counts equal to the plain
-   version's (tolerance 0);
+   version's (tolerance 0); then the launch's time split: the same batch
+   with every lane a lone STOP (wrapper and lane set-up only), and the
+   kernel's device time from a ``torch.profiler`` trace of both;
 9. machine — the benchmark's ERC-20 shape (1024 keys, 256 txs/block, every
    third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
    cut from 256 to 32 blocks because the chain is built with pure-Python
@@ -90,6 +92,27 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def kernel_ms(fn, name: str, reps: int = 10):
+    """Mean device milliseconds per launch of the kernels whose name
+    holds ``name``, from a ``torch.profiler`` trace of ``reps`` calls of
+    ``fn``; None when the trace shows no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, n = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            us += getattr(ev, "device_time_total",
+                          getattr(ev, "cuda_time_total", 0.0))
+            n += ev.count
+    return us / n / 1000 if n and us else None
 
 
 def max_abs_err(got, want) -> int:
@@ -275,16 +298,16 @@ def alu_operands(rng, n: int):
 def build_chain(n_blocks: int, txs: int, n_keys: int):
     from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
     from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
-    from coreth_tpu_torch.mpt import NativeSecureTrie
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.state import StateStore
     from coreth_tpu_torch.types import DynamicFeeTx, sign_tx
     keys = [0xC0FFEE + i for i in range(n_keys)]
     addrs = [priv_to_address(k) for k in keys]
     genesis = Genesis(config=CFG, gas_limit=8_000_000,
                       alloc={a: GenesisAccount(balance=10**27)
                              for a in addrs})
-    trie = NativeSecureTrie()
-    gblock = genesis.to_block(trie)
+    store = StateStore()
+    gblock = genesis.to_block(store)
     nonces = [0] * n_keys
 
     def gen(i, bg):
@@ -302,7 +325,7 @@ def build_chain(n_blocks: int, txs: int, n_keys: int):
                 to=to, value=10**12 + j), keys[k], CFG.chain_id))
             nonces[k] += 1
 
-    blocks, _ = generate_chain(CFG, gblock, trie, n_blocks, gen, gap=10)
+    blocks, _ = generate_chain(CFG, gblock, store, n_blocks, gen, gap=10)
     return genesis, blocks
 
 
@@ -537,6 +560,16 @@ def phase_k5(dev, rng):
                              f"{statuses}, {misses} miss rows")
     ms = cuda_ms(lambda: M.run_machine(p, inputs))
     plain_ms = once_ms(lambda: M.run_plain(p, inputs))
+    # where the launch's time goes: the same batch with every lane's
+    # code a lone STOP runs the wrapper, the lane set-up (arena and row
+    # initialisation, storage-cache copy) and one step per lane
+    stop = dict(inputs, code=inputs["code"].clone())
+    stop["code"][:, 0] = 0
+    split = {"stop_ms": cuda_ms(lambda: M.run_machine(p, stop)),
+             "kernel_ms": kernel_ms(lambda: M.run_machine(p, inputs),
+                                    "step_machine"),
+             "stop_kernel_ms": kernel_ms(lambda: M.run_machine(p, stop),
+                                         "step_machine")}
     n_bytes = sum(t.numel() * t.element_size() for t in inputs.values()
                   if isinstance(t, torch.Tensor)) \
         + packed.numel() * 4 + steps.numel() * 4
@@ -554,7 +587,7 @@ def phase_k5(dev, rng):
           "code_cap": p.code_cap, "scache_cap": p.scache_cap,
           "width": p.width, "statuses": statuses, "miss_rows": misses,
           "lane_steps": n_steps, "max_lane_steps": int(steps.max()),
-          **k5})
+          **split, **k5})
     return k5
 
 
@@ -748,12 +781,12 @@ def main() -> int:
     t_build = time.monotonic() - t0
     wire = [b.encode() for b in blocks]
     fresh = [Block.decode(w) for w in wire]      # no cached senders
-    from coreth_tpu_torch.mpt import NativeSecureTrie
-    trie = NativeSecureTrie()
-    gblock = genesis.to_block(trie)
+    from coreth_tpu_torch.state import StateStore
+    store = StateStore()
+    gblock = genesis.to_block(store)
     need = n_keys + n_blocks * txs // 2 + 1024
     capacity = 1 << max(14, (need - 1).bit_length())
-    eng = E.ReplayEngine(genesis.config, trie, parent_header=gblock.header,
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
                          batch_pad=txs, capacity=capacity, window=128,
                          device="cuda")
     E.LAUNCHES = 0

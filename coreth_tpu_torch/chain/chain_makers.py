@@ -19,7 +19,7 @@ take (a host-only opcode, a precompile callee) raise ``InvalidTransfer``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Set, Tuple, Union
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from coreth_tpu_torch.consensus import calc_base_fee
 from coreth_tpu_torch.consensus.engine import DummyEngine
@@ -32,11 +32,10 @@ from coreth_tpu_torch.evm.hostexec.eligibility import (
 from coreth_tpu_torch.evm.precompiles import (
     BLACKHOLE_ADDR, is_prohibited, special_call_targets,
 )
-from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
 from coreth_tpu_torch.processor.state_transition import intrinsic_gas
-from coreth_tpu_torch.state import StateStore, as_store
+from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import (
     Block, Header, LatestSigner, Log, Receipt, StateAccount, Transaction,
 )
@@ -306,15 +305,14 @@ _EMPTY_PREDICATE_RESULTS = b"\x00" * 4
 
 
 def generate_chain(config: ChainConfig, parent: Block,
-                   state: Union[StateStore, NativeSecureTrie], n: int,
+                   state: StateStore, n: int,
                    gen: Optional[Callable[[int, BlockGen], None]],
                    gap: int = 10,
                    ) -> Tuple[List[Block], List[List[Receipt]]]:
-    """GenerateChain: ``state`` (a StateStore, or a bare account trie
-    for transfer-only chains) holds the state at ``parent.root`` and is
-    advanced block by block.  Returns (blocks, receipts)."""
+    """GenerateChain: ``state`` holds the state at ``parent.root`` and
+    is advanced block by block.  Returns (blocks, receipts)."""
     engine = DummyEngine()
-    st = _State(as_store(state))
+    st = _State(state)
     calls = _Calls(config, st)
     blocks: List[Block] = []
     all_receipts: List[List[Receipt]] = []

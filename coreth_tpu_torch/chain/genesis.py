@@ -8,9 +8,8 @@ into a ``StateStore`` (account trie, storage tries, code store).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Union
+from typing import Dict, Optional
 
-from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
 from coreth_tpu_torch.state import StateStore, normalize_state_key
@@ -41,24 +40,16 @@ class Genesis:
     gas_used: int = 0
     parent_hash: bytes = b"\x00" * 32
 
-    def to_block(self, state: Union[StateStore, NativeSecureTrie,
-                                    None] = None) -> Block:
-        """ToBlock: writes the genesis state into ``state`` (a
-        ``StateStore``, or a bare account trie when no account has code
-        or storage; a fresh trie when None) and returns the genesis
-        block.  Every alloc entry is written, empty ones included
-        (genesis commits without EIP-158 deletion)."""
-        if isinstance(state, StateStore):
-            store, trie = state, state.trie
-        else:
-            store, trie = None, state if state is not None \
-                else NativeSecureTrie()
+    def to_block(self, state: Optional[StateStore] = None) -> Block:
+        """ToBlock: writes the genesis state into ``state`` (a fresh
+        store when None) and returns the genesis block.  Every alloc
+        entry is written, empty ones included (genesis commits without
+        EIP-158 deletion)."""
+        store = state if state is not None else StateStore()
+        trie = store.trie
         for addr, account in self.alloc.items():
             acct = StateAccount(nonce=account.nonce, balance=account.balance)
             if account.code or account.storage:
-                if store is None:
-                    raise ValueError("genesis has code or storage: pass a "
-                                     "StateStore")
                 acct.code_hash = store.put_code(account.code)
                 for key, value in account.storage.items():
                     store.set_storage(addr, normalize_state_key(key),

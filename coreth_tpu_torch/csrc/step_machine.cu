@@ -12,8 +12,9 @@
 // Bound: neither bytes nor arithmetic, at the batch sizes replay sees.
 // The inputs (code rows, calldata, storage seeds) are read once and the
 // packed rows written once, but a tx batch of 256 lanes is 8 warps on a
-// 132-SM card, and every step pays dependent device-memory accesses to
-// the lane's stack and memory in its scratch arena.  The wrapper
+// 132-SM card; each lane zeroes its arena and fills its row before the
+// first step, and every step reaches the lane's stack and memory in
+// device memory.  The wrapper
 // (coreth_tpu_torch/evm/device/machine.py run_machine) allocates the
 // arena and the outputs; the kernel allocates nothing.
 //

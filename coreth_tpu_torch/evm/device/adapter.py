@@ -23,6 +23,10 @@ from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.ops import u256
 
+# miss-and-rerun rounds of one MachineRunner.run before a lane still
+# missing storage goes to the host (the reference's max_rounds default)
+MISS_ROUNDS = 6
+
 
 def addr_word(addr: bytes) -> int:
     return int.from_bytes(addr, "big")
@@ -102,11 +106,10 @@ class MachineRunner:
 
     def __init__(self, fork: str, env: BlockEnv,
                  storage_resolver: Callable[[bytes, bytes], int],
-                 max_rounds: int = 6, device=None):
+                 device=None):
         self.fork = fork
         self.env = env
         self.resolver = storage_resolver
-        self.max_rounds = max_rounds
         self.device = default_device(device)
         self.launches = 0
         self.steps = 0
@@ -199,7 +202,7 @@ class MachineRunner:
             if not info.eligible:
                 raise ValueError(
                     f"TxSpec code not device-eligible: {info.reason}")
-        for _ in range(self.max_rounds):
+        for _ in range(MISS_ROUNDS):
             t0 = time.monotonic()
             p = self._params(txs)
             inputs = self.pack(txs, p)

@@ -40,7 +40,7 @@ from __future__ import annotations
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +57,7 @@ from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.ops import u256
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
-from coreth_tpu_torch.state import StateStore, as_store
+from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import (
     Block, LatestSigner, Receipt, StateAccount,
 )
@@ -414,6 +414,15 @@ class DeviceState:
         _scatter_drop(self.nonces, didx, _upload(non, self.device))
         self._staged = []
 
+    def set_accounts(self, accounts: Dict[bytes, Tuple[int, int]]) -> None:
+        """Write ``addr -> (balance, nonce)`` for indexed accounts, in
+        place of any initial values still staged for them."""
+        rows = {self.index[a]: v for a, v in accounts.items()}
+        self._staged = [s for s in self._staged if s[0] not in rows]
+        self._staged.extend((i, bal, nonce)
+                            for i, (bal, nonce) in rows.items())
+        self.flush_staged()
+
 
 class _SenderPipeline:
     """Segmented, look-ahead sender recovery for replay().
@@ -493,8 +502,7 @@ class ReplayEngine:
     """Windowed replay of transfer and machine blocks over a state.
 
     ``state`` — a ``StateStore`` (account trie, storage tries, code
-    store), or a bare account trie for chains without contracts — holds
-    the state at the parent of the first block to replay (its account
+    store) — holds the state at the parent of the first block to replay (its account
     trie's hash is the starting root) and is advanced by every fold.
     ``device`` defaults to ``"cuda"`` and raises without a card;
     ``device="cpu"`` runs the kernels' plain versions."""
@@ -504,13 +512,13 @@ class ReplayEngine:
     DEVICE_RECOVER_MIN = 1024
 
     def __init__(self, config: ChainConfig,
-                 state: Union[StateStore, NativeSecureTrie],
+                 state: StateStore,
                  parent_header=None, batch_pad: int = 1024,
                  capacity: int = 1 << 14, window: int = 16,
                  slot_capacity: Optional[int] = None, device=None):
         self.device = default_device(device)
         self.config = config
-        self.store = as_store(state)
+        self.store = state
         self.trie = self.store.trie
         self.root = self.trie.hash()
         self.state = DeviceState(capacity, slot_capacity or capacity,
@@ -871,7 +879,7 @@ class ReplayEngine:
         self.stats.t_classify += time.monotonic() - t0
         if plans is None:
             raise self._refuse(block)
-        if mx.execute_run([(block, plans)]) == 0:
+        if mx.execute(block, plans) is None:
             raise _block_error(
                 "a call escaped the device step machine (HOST); "
                 f"{_NOT_PORTED}", block)

@@ -270,8 +270,10 @@ class MachineBlockExecutor:
             return v
 
         pending: List[Tuple[int, Dict]] = [(i, {}) for i in call_idx]
-        for rnd in range(len(call_idx) + 3):
-            if pending and rnd >= DEVICE_ROUNDS:
+        # the round at DEVICE_ROUNDS resolves every pending tx, so the
+        # loop always ends in its break
+        for rnd in range(DEVICE_ROUNDS + 1):
+            if pending and rnd == DEVICE_ROUNDS:
                 # the conflict suffix re-executes sequentially at its
                 # exact position; the device keeps the valid prefix
                 t_s = time.monotonic()
@@ -329,9 +331,6 @@ class MachineBlockExecutor:
             if not pending:
                 break
             self.rounds += 1
-        else:
-            e.stats.t_device += time.monotonic() - t0
-            return None
         e.stats.t_device += time.monotonic() - t0
         return self._finish_block(block, plans, results)
 
@@ -438,26 +437,14 @@ class MachineBlockExecutor:
 
         # stage storage + accounts, and refresh the device tables the
         # transfer path reads
-        e.commit_pipe.stage(
-            block.header,
-            {addr: (st[0], st[1]) for addr, st in accounts.items()},
-            writes_final)
+        final = {addr: (st[0], st[1]) for addr, st in accounts.items()}
+        e.commit_pipe.stage(block.header, final, writes_final)
         for addr in accounts:
             e._account(addr)
-        e.state.flush_staged()
-        for addr, (bal, nonce) in accounts.items():
-            e.state._staged.append((e.state.index[addr], bal, nonce))
-        e.state.flush_staged()
+        e.state.set_accounts(final)
         e.parent_header = block.header
         self.blocks += 1
         e.stats.blocks_device += 1
         e.stats.txs += len(block.transactions)
         e.stats.t_trie += time.monotonic() - t1
         return e.commit_pipe.flush()
-
-    def execute_run(self, items) -> int:
-        """The per-block OCC configuration (the reference's
-        ``CORETH_DEVICE_OCC=0`` branch): executes the first block of
-        ``items``; returns 1, or 0 when it escaped the machine."""
-        block, plans = items[0]
-        return 1 if self.execute(block, plans) is not None else 0

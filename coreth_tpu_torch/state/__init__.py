@@ -2,5 +2,5 @@
 code store)."""
 
 from coreth_tpu_torch.state.store import (  # noqa: F401
-    StateStore, as_store, normalize_state_key,
+    StateStore, normalize_state_key,
 )

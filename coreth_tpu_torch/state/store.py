@@ -11,7 +11,7 @@ against the block headers.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Optional
 
 from coreth_tpu_torch import rlp
 from coreth_tpu_torch.crypto import keccak256
@@ -62,8 +62,3 @@ class StateStore:
     def code(self, code_hash: bytes) -> bytes:
         return self.codes[code_hash]
 
-
-def as_store(state: Union[StateStore, NativeSecureTrie]) -> StateStore:
-    """A StateStore for ``state``: a bare account trie (value-transfer
-    chains, no contracts) is wrapped with empty storage and code."""
-    return state if isinstance(state, StateStore) else StateStore(state)

@@ -57,13 +57,13 @@ def test_recover_kernel_matches_plain(cuda):
 
 
 def test_replay_on_the_card(cuda):
-    from coreth_tpu_torch.mpt import NativeSecureTrie
     from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
     from coreth_tpu_torch.types import Block
     genesis, blocks = chip_smoke.build_chain(4, 32, 16)
-    trie = NativeSecureTrie()
-    gb = genesis.to_block(trie)
-    eng = ReplayEngine(genesis.config, trie, parent_header=gb.header,
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
                        batch_pad=32, capacity=256, window=2, device=cuda)
     eng.DEVICE_RECOVER_MIN = 1
     root = eng.replay([Block.decode(b.encode()) for b in blocks])

@@ -53,17 +53,17 @@ _REPLAY_SCRIPT = r"""
 import sys
 import coreth_tpu_torch.chain as C
 from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
-from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
 from coreth_tpu_torch.replay import ReplayEngine
+from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import Block, DynamicFeeTx, sign_tx
 
 keys = [0x2000 + i for i in range(4)]
 addrs = [priv_to_address(k) for k in keys]
 genesis = C.Genesis(config=CFG, gas_limit=8_000_000,
                     alloc={a: C.GenesisAccount(balance=10**24) for a in addrs})
-trie = NativeSecureTrie()
-gb = genesis.to_block(trie)
+store = StateStore()
+gb = genesis.to_block(store)
 nonces = [0] * 4
 
 def gen(i, bg):
@@ -74,10 +74,10 @@ def gen(i, bg):
             value=7 + i), keys[j], CFG.chain_id))
         nonces[j] += 1
 
-blocks, _ = C.generate_chain(CFG, gb, trie, 4, gen, gap=2)
-t2 = NativeSecureTrie()
-g2 = genesis.to_block(t2)
-engine = ReplayEngine(CFG, t2, parent_header=g2.header, capacity=64,
+blocks, _ = C.generate_chain(CFG, gb, store, 4, gen, gap=2)
+s2 = StateStore()
+g2 = genesis.to_block(s2)
+engine = ReplayEngine(CFG, s2, parent_header=g2.header, capacity=64,
                       batch_pad=8, window=2, device="cpu")
 root = engine.replay([Block.decode(b.encode()) for b in blocks])
 engine.close()
@@ -131,11 +131,11 @@ def test_entry_points_refuse_cpu_without_being_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is honoured")
     from coreth_tpu_torch import default_device
-    from coreth_tpu_torch.mpt import NativeSecureTrie
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG
     from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
     with pytest.raises(RuntimeError, match="CUDA"):
         default_device()
     with pytest.raises(RuntimeError, match="CUDA"):
-        ReplayEngine(TEST_CHAIN_CONFIG, NativeSecureTrie())
+        ReplayEngine(TEST_CHAIN_CONFIG, StateStore())
     assert default_device("cpu").type == "cpu"

@@ -32,6 +32,7 @@ from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
 from coreth_tpu_torch.replay import DeviceState, ReplayEngine, ReplayError
+from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.replay import engine as tengine
 from coreth_tpu_torch.types import Block, DynamicFeeTx, LatestSigner, sign_tx
 
@@ -82,14 +83,14 @@ def ref_chain(n_blocks, txs, cross=False, fresh_every=0):
 def port_genesis():
     genesis = Genesis(config=CFG, gas_limit=8_000_000,
                       alloc=_alloc(GenesisAccount))
-    trie = NativeSecureTrie()
-    return genesis, genesis.to_block(trie), trie
+    store = StateStore()
+    return genesis, genesis.to_block(store), store
 
 
 def port_chain(n_blocks, txs, cross=False, fresh_every=0):
-    genesis, gblock, trie = port_genesis()
+    genesis, gblock, store = port_genesis()
     blocks, _ = generate_chain(
-        CFG, gblock, trie, n_blocks,
+        CFG, gblock, store, n_blocks,
         _gen(txs, cross, DynamicFeeTx, sign_tx, CFG, fresh_every), gap=2)
     return gblock, blocks
 
@@ -152,9 +153,9 @@ def test_chain_builder_matches_reference_on_edge_transfers():
     palloc = {**_alloc(GenesisAccount),
               b"\x55" * 20: GenesisAccount(balance=0)}
     pgen = Genesis(config=CFG, gas_limit=8_000_000, alloc=palloc)
-    trie = NativeSecureTrie()
+    store = StateStore()
     blocks, _ = generate_chain(
-        CFG, pgen.to_block(trie), trie, 4,
+        CFG, pgen.to_block(store), store, 4,
         _gen_mixed(DynamicFeeTx, LegacyTx, sign_tx, CFG), gap=2)
     assert [b.hash() for b in blocks] == [b.hash() for b in ref_blocks]
 
@@ -192,8 +193,8 @@ def _engines(window, capacity=256):
     gb = genesis.to_block(db)
     ref = RReplayEngine(RCFG, db, gb.root, parent_header=gb.header,
                         capacity=capacity, batch_pad=64, window=window)
-    _pg, pgb, trie = port_genesis()
-    port = ReplayEngine(CFG, trie, parent_header=pgb.header,
+    _pg, pgb, store = port_genesis()
+    port = ReplayEngine(CFG, store, parent_header=pgb.header,
                         capacity=capacity, batch_pad=64, window=window,
                         device="cpu")
     return ref, port
@@ -337,9 +338,9 @@ def test_contract_block_raises_where_reference_falls_back():
 
     pgen = Genesis(config=CFG, gas_limit=8_000_000,
                    alloc={ADDRS[0]: GenesisAccount(balance=10**24)})
-    trie = NativeSecureTrie()
-    pgb = pgen.to_block(trie)
-    port = ReplayEngine(CFG, trie, parent_header=pgb.header, capacity=256,
+    store = StateStore()
+    pgb = pgen.to_block(store)
+    port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu")
     pblocks = to_port(blocks)
     with pytest.raises(ReplayError, match="not ported") as exc:
@@ -356,8 +357,8 @@ def test_device_rejected_block_raises_with_block():
     .block set."""
     _gb, blocks = port_chain(3, 4)
     pblocks = to_port(blocks)
-    _g, pgb, trie = port_genesis()
-    port = ReplayEngine(CFG, trie, parent_header=pgb.header, capacity=256,
+    _g, pgb, store = port_genesis()
+    port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu")
     port.replay(pblocks[:2])
     row = port.state.row_of[port.state.index[ADDRS[0]]]
