@@ -43,9 +43,23 @@ Phases, each printing one JSON line:
    third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
    cut from 256 to 32 blocks because the chain is built with pure-Python
    signing within the script's run-time budget, replayed through
-   ``ReplayEngine(device="cuda")``: every block on the machine path, OCC
-   rounds > 0, the final root equal to the last header's, and the step
-   machine's launch counter rising during the replay.
+   ``ReplayEngine(device="cuda", device_occ=False)`` (per-block OCC on the
+   step machine): every block on the machine path, OCC rounds > 0, the
+   final root equal to the last header's, and the step machine's launch
+   counter rising during the replay;
+10. k6    — the fused OCC window against its plain version (tolerance 0:
+   table, packed rows, lane-steps) on three windows: (a) the ERC-20
+   chain's first 8 blocks x 256 lanes with the premaps the window runner
+   learns from them, (b) two blocks of 8 swaps (full conflict, one lane
+   per round), (c) three blocks of 16 ERC-20 transfers with a HOST lane,
+   an unpremapped lane and five trailing inactive blocks; per-launch ms
+   (CUDA events), device ms (``torch.profiler``), rounds per block,
+   lane-steps;
+11. window — the same ERC-20 chain through ``ReplayEngine(device="cuda",
+   device_occ=True)``, the reference's default machine path: one K6
+   launch per window of 8 blocks, the final root equal to the last
+   header's, no dirty block, K6 launched at least once per window and
+   the step machine never.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -412,6 +426,9 @@ def machine_lanes(rng, n: int):
 
 # ------------------------------------------------------------ machine
 
+TOKEN = bytes([0x77]) * 20
+
+
 def build_erc20_chain(n_blocks: int, txs: int, n_keys: int):
     """The benchmark's ERC-20 chain (bench.py gen_erc20 and _genesis):
     every third recipient the next key, the rest a rotating pool of
@@ -423,7 +440,7 @@ def build_erc20_chain(n_blocks: int, txs: int, n_keys: int):
     from coreth_tpu_torch.types import DynamicFeeTx, sign_tx
     from coreth_tpu_torch.workloads.erc20 import (
         token_genesis_account, transfer_calldata)
-    token = bytes([0x77]) * 20
+    token = TOKEN
     keys = [0xC0FFEE + i for i in range(n_keys)]
     addrs = [priv_to_address(k) for k in keys]
     alloc = {a: GenesisAccount(balance=10**27) for a in addrs}
@@ -591,33 +608,57 @@ def phase_k5(dev, rng):
     return k5
 
 
-def phase_machine(dev, smi, n_blocks: int = 32, txs: int = 256,
-                  n_keys: int = 1024):
-    import torch
+def _zero_launches() -> None:
     from coreth_tpu_torch.evm.device import machine as M
     from coreth_tpu_torch.ops import keccak as K
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.ops import u256x
     from coreth_tpu_torch.replay import engine as E
+    E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
+    K.LAUNCHES = u256x.LAUNCHES = 0
+
+
+def _read_launches() -> dict:
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.ops import keccak as K
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.ops import u256x
+    from coreth_tpu_torch.replay import engine as E
+    return {"step_machine": M.LAUNCHES, "occ_window": M.OCC_LAUNCHES,
+            "secp_recover": S.LAUNCHES, "transfer_window": E.LAUNCHES,
+            "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
+
+
+def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
+    """Replay the ERC-20 chain from fresh decodes (no cached senders),
+    the launch counters zeroed just before and read just after."""
+    import torch
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.state import StateStore
     from coreth_tpu_torch.types import Block
-    t0 = time.monotonic()
-    genesis, blocks = build_erc20_chain(n_blocks, txs, n_keys)
-    t_build = time.monotonic() - t0
-    fresh = [Block.decode(b.encode()) for b in blocks]   # no cached senders
+    fresh = [Block.decode(b.encode()) for b in blocks]
     store = StateStore()
     gblock = genesis.to_block(store)
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
-                         batch_pad=txs, window=16, device=dev)
-    E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
+                         batch_pad=txs, window=16, device=dev,
+                         device_occ=device_occ)
+    A.RECIPES.clear()      # learned premaps start empty: discovery counts
+    _zero_launches()
     t0 = time.monotonic()
     root = eng.replay(fresh)
     torch.cuda.synchronize()
     dt = time.monotonic() - t0
-    launches = {"step_machine": M.LAUNCHES, "secp_recover": S.LAUNCHES,
-                "transfer_window": E.LAUNCHES,
-                "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
+    launches = _read_launches()
     eng.close()
+    return eng, root, dt, launches
+
+
+def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
+                  n_keys: int):
+    n_blocks = len(blocks)
+    eng, root, dt, launches = _replay_erc20(dev, genesis, blocks, txs,
+                                            device_occ=False)
     mc = eng.machine_counters()
     if root != blocks[-1].header.root:
         raise AssertionError("machine path: final root differs from the "
@@ -627,15 +668,210 @@ def phase_machine(dev, smi, n_blocks: int = 32, txs: int = 256,
                              "blocks on the machine path")
     if mc["rounds"] < 1:
         raise AssertionError("machine path: no OCC round was exercised")
-    if launches["step_machine"] < 1:
+    if launches["step_machine"] < 1 or launches["occ_window"] != 0:
         raise AssertionError(f"machine path: the step machine never "
-                             f"launched: {launches}")
+                             f"launched, or K6 did: {launches}")
     emit({"phase": "machine", "blocks": n_blocks, "txs_per_block": txs,
           "keys": n_keys, "chain_build_s": round(t_build, 2),
           "replay_s": round(dt, 4),
           "txs_per_s": round(n_blocks * txs / dt, 1),
           "root_matches_header": True, "launches": launches,
           "k5_launches_per_block": launches["step_machine"] / n_blocks,
+          "machine": mc, "stats": eng.stats.row(), "card": smi})
+    return launches
+
+
+# ------------------------------------------------------------ K6 inputs
+
+def _block_env(i: int):
+    from coreth_tpu_torch.evm.device.adapter import BlockEnv
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    return BlockEnv(coinbase=bytes([0x01 + i]) + b"\x00" * 19,
+                    timestamp=3000 + 10 * i, number=5 + i,
+                    gas_limit=15_000_000, chain_id=CFG.chain_id,
+                    base_fee=25 * GWEI + i)
+
+
+def window_from_chain(dev, genesis, blocks):
+    """K6 window (a): the chain's first 8 blocks as the window runner
+    packs them, with the premaps it learned from one discovery pass
+    over them (the table rebuilt from the genesis mirror)."""
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    fresh = [Block.decode(b.encode()) for b in blocks[:8]]
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         batch_pad=256, device=dev)
+    eng.warm_senders(fresh)
+    mx = eng._machine_executor()
+    items = mx._window_items([(b, mx.classify(b)) for b in fresh])
+    runner = mx._window_runner()
+    runner.complete(runner.issue(items))
+    runner.invalidate()
+    pk = runner.pack(items)
+    eng.close()
+    return pk
+
+
+def swap_window(dev, n_blocks: int = 2, lanes: int = 8):
+    """K6 window (b): blocks of swaps into one pool, every pair in
+    conflict through the two reserve slots."""
+    from coreth_tpu_torch.evm.device.adapter import (
+        MachineWindowRunner, TxSpec)
+    from coreth_tpu_torch.workloads.swap import POOL_RUNTIME, swap_calldata
+    pool = b"\x74" * 20
+    reserves = {(0).to_bytes(32, "big"): 10**15,
+                (1).to_bytes(32, "big"): 10**15}
+    runner = MachineWindowRunner("durango",
+                                 lambda a, k: reserves.get(k, 0),
+                                 device=dev)
+    items = []
+    for i in range(n_blocks):
+        specs = []
+        for j in range(lanes):
+            caller = (0x6000 + 64 * i + j).to_bytes(2, "big") * 10
+            specs.append(TxSpec(
+                code=POOL_RUNTIME, calldata=swap_calldata(1000 + 17 * j + i),
+                gas=200_000, value=0, caller=caller, address=pool,
+                origin=caller, gas_price=25 * GWEI))
+        items.append((_block_env(i), specs))
+    return runner.pack(items)
+
+
+def escape_window(dev, rng, lanes: int = 16):
+    """K6 window (c): three blocks of ERC-20 transfers (both balance
+    slots premapped; every fourth lane pays the next lane's sender, the
+    rest fresh holders) in an 8-block window; in block 0 lane 5 escapes
+    HOST (memory past mem_cap) and lane 9 has no premap (an F_MISS
+    escape), so blocks 1 and 2 run on a speculative table, and blocks
+    3-7 are inactive."""
+    from coreth_tpu_torch.evm.device.adapter import (
+        RECIPES, MachineWindowRunner, TxSpec)
+    from coreth_tpu_torch.state import normalize_state_key
+    from coreth_tpu_torch.workloads.erc20 import (
+        TOKEN_RUNTIME, balance_slot, transfer_calldata)
+    RECIPES.clear()       # no learned prediction premaps lane 9's keys
+    committed = {}
+    items = []
+    for i in range(3):
+        specs = []
+        for j in range(lanes):
+            sender = (0x7000 + j).to_bytes(2, "big") * 10
+            to = (0x7000 + j + 1 if j % 4 == 0
+                  else 0x7100 + 16 * i + j).to_bytes(2, "big") * 10
+            keys = [normalize_state_key(balance_slot(a))
+                    for a in (sender, to)]
+            for k in keys:
+                committed.setdefault(k, int(rng.integers(10**6, 10**9)))
+            t = TxSpec(code=TOKEN_RUNTIME,
+                       calldata=transfer_calldata(to, 10 + j), gas=100_000,
+                       value=0, caller=sender, address=TOKEN, origin=sender,
+                       gas_price=25 * GWEI,
+                       storage={k: (0, 0) for k in keys})
+            if i == 0 and j == 5:
+                t.code, t.calldata = bytes.fromhex("600061138852" + "00"), b""
+            if i == 0 and j == 9:
+                t.storage = {}
+            specs.append(t)
+        items.append((_block_env(i), specs))
+    runner = MachineWindowRunner("durango",
+                                 lambda a, k: committed.get(k, 0),
+                                 device=dev)
+    runner.seed_window_hint(8)
+    return runner.pack(items)
+
+
+def phase_k6(dev, genesis, blocks):
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    rng = np.random.default_rng(SEED + 6)
+    windows = {"a_erc20_chain": window_from_chain(dev, genesis, blocks),
+               "b_swap_conflict": swap_window(dev),
+               "c_escape_trailing": escape_window(dev, rng)}
+    rows, k6 = {}, None
+    for name, pk in windows.items():
+        p, occ = pk["p"], pk["occ"]
+        args = (p, occ, pk["table"], pk["key_tab"], pk["inputs"])
+        got = M.run_occ_window(*args)
+        t0 = time.perf_counter()
+        want = M.occ_run_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = 1000 * (time.perf_counter() - t0)
+        for k in ("table", "packed", "steps"):
+            if not torch.equal(got[k], want[k]):
+                bad = (got[k] != want[k]).nonzero()[:5].tolist()
+                raise AssertionError(f"K6 {name} {k} differs from the "
+                                     f"plain version at {bad}")
+        err = max_abs_err([got[k] for k in ("table", "packed", "steps")],
+                          [want[k] for k in ("table", "packed", "steps")])
+        ms = cuda_ms(lambda: M.run_occ_window(*args), reps=5, warmup=1)
+        dev_ms = kernel_ms(lambda: M.run_occ_window(*args), "occ_window",
+                           reps=5)
+        extra = got["packed"][:, :, -4:].cpu().numpy()
+        rounds = extra[:, 0, 3].tolist()
+        lane_steps = int(got["steps"].sum())
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in pk["inputs"].values()) \
+            + 2 * pk["table"].numel() * 4 + pk["key_tab"].numel() * 4 \
+            + got["packed"].numel() * 4 + got["steps"].numel() * 4
+        sweep_ops = sum(rounds) * p.batch * p.scache_cap \
+            * M.OPS_PER_SWEEP_ENTRY
+        bound_ms, bound_by = bound(
+            n_bytes, lane_steps * M.OPS_PER_STEP + sweep_ops)
+        n_active = int(pk["inputs"]["active"].sum())
+        if name == "b_swap_conflict" and rounds[:2] != [8, 8]:
+            raise AssertionError(f"K6 swap window rounds {rounds}")
+        if name == "c_escape_trailing" and (
+                extra[0, :, 1].sum() != 2 or any(rounds[3:])):
+            raise AssertionError(f"K6 escape window: escapes "
+                                 f"{extra[0, :, 1].sum()}, rounds {rounds}")
+        rows[name] = {"blocks": occ.blocks, "batch": p.batch,
+                      "scache_cap": p.scache_cap, "table_cap": occ.table_cap,
+                      "active_lanes": n_active, "rounds": rounds,
+                      "committed": int(extra[..., 0].sum()),
+                      "escaped": int(extra[..., 1].sum()),
+                      "pending": int(extra[..., 2].sum()),
+                      "lane_steps": lane_steps, "max_abs_err": err,
+                      "ms": round(ms, 4), "device_ms": dev_ms,
+                      "plain_ms": round(plain_ms, 1),
+                      "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
+        if k6 is None:
+            k6 = {"name": "occ_window", "route": "cuda",
+                  "source": "coreth_tpu_torch/csrc/occ_window.cu",
+                  "replaces": "coreth_tpu/evm/device/machine.py:948",
+                  "max_abs_err": err, "ms": round(ms, 4),
+                  "plain_ms": round(plain_ms, 1),
+                  "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
+                  "library_ms": None}
+    k6["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    emit({"phase": "k6", "equal": True, "windows": rows,
+          "ms_is": "window (a), CUDA events around the wrapper", **k6})
+    return k6
+
+
+def phase_window(dev, smi, genesis, blocks, txs: int):
+    n_blocks = len(blocks)
+    eng, root, dt, launches = _replay_erc20(dev, genesis, blocks, txs,
+                                            device_occ=True)
+    mc = eng.machine_counters()
+    if root != blocks[-1].header.root:
+        raise AssertionError("window path: final root differs from the "
+                             "header")
+    if mc["blocks"] != n_blocks or mc["dirty_blocks"] != 0:
+        raise AssertionError(f"window path: {mc['blocks']} of {n_blocks} "
+                             f"blocks, {mc['dirty_blocks']} dirty")
+    if launches["occ_window"] < mc["windows"] or mc["windows"] < 1 \
+            or launches["step_machine"] != 0:
+        raise AssertionError(f"window path: K6 launches "
+                             f"{launches['occ_window']} for {mc['windows']} "
+                             f"windows, K5 {launches['step_machine']}")
+    emit({"phase": "window", "blocks": n_blocks, "txs_per_block": txs,
+          "replay_s": round(dt, 4),
+          "txs_per_s": round(n_blocks * txs / dt, 1),
+          "root_matches_header": True, "launches": launches,
+          "k6_launches_per_block": launches["occ_window"] / n_blocks,
           "machine": mc, "stats": eng.stats.row(), "card": smi})
     return launches
 
@@ -820,14 +1056,24 @@ def main() -> int:
     k4 = phase_k4(dev, rng)
     k5 = phase_k5(dev, rng)
 
-    # ---- 9. the machine path
-    m_launches = phase_machine(dev, smi)
+    # ---- 9. the machine path (per-block OCC, K5), on the ERC-20 chain
+    m_txs, m_keys = 256, 1024
+    t0 = time.monotonic()
+    m_genesis, m_blocks = build_erc20_chain(32, m_txs, m_keys)
+    t_build = time.monotonic() - t0
+    m_launches = phase_machine(dev, smi, m_genesis, m_blocks, t_build,
+                               m_txs, m_keys)
+
+    # ---- 10.-11. K6 against its plain version, then the window path
+    k6 = phase_k6(dev, m_genesis, m_blocks)
+    w_launches = phase_window(dev, smi, m_genesis, m_blocks, m_txs)
 
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
     k5["launches"] = m_launches["step_machine"]
-    k3["launches"] = k4["launches"] = "in K5"
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5]}), flush=True)
+    k6["launches"] = w_launches["occ_window"]
+    k3["launches"] = k4["launches"] = "in K5 and K6"
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

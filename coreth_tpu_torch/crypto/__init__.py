@@ -3,7 +3,7 @@ C++ fast path of ``native/`` installed on first use when the library
 builds)."""
 
 from coreth_tpu_torch.crypto.keccak import (  # noqa: F401
-    keccak256, keccak256_py, EMPTY_KECCAK,
+    keccak256, keccak256_many, keccak256_py, EMPTY_KECCAK,
 )
 
-__all__ = ["keccak256", "keccak256_py", "EMPTY_KECCAK"]
+__all__ = ["keccak256", "keccak256_many", "keccak256_py", "EMPTY_KECCAK"]

@@ -111,6 +111,24 @@ def set_impl(fn) -> None:
     _impl = fn
 
 
+def keccak256_many(msgs) -> list:
+    """Digests for a batch of messages in ONE native call
+    (``coreth_keccak256_batch``).  The fused OCC window's premap
+    predictor hashes every predicted (source word || slot) pair of a
+    window through this: one ctypes crossing per window instead of one
+    keccak call per candidate key."""
+    msgs = list(msgs)
+    if not msgs:
+        return []
+    from coreth_tpu_torch.crypto import native
+    if len(msgs) == 1:
+        return [keccak256(msgs[0])]
+    stride = max(len(m) for m in msgs)
+    blob = b"".join(m.ljust(stride, b"\x00") for m in msgs)
+    out = native.keccak256_batch(blob, [len(m) for m in msgs], stride)
+    return [out[32 * i:32 * i + 32] for i in range(len(msgs))]
+
+
 EMPTY_KECCAK = bytes.fromhex(
     "c5d2460186f7233c927e7db2dcc703c0e500b653ca82273b7bfad8045d85a470")
 

@@ -1,7 +1,7 @@
 """ctypes bridge to the repo's C++ host runtime (native/libcoreth_native.so).
 
 The port's own copy of the reference loader, cut to the symbols the
-transfer-replay slice calls: keccak-256, batched secp256k1 recovery
+port calls: keccak-256 (single and batched), batched secp256k1 recovery
 (and the prep/finish halves around the device ladder), and the
 receipt-root fold.  The library is built lazily by
 ``coreth_tpu_torch.nativebuild``; every caller here needs it, so a
@@ -32,6 +32,10 @@ def load():
         lib.coreth_keccak256.argtypes = [
             ctypes.c_char_p, ctypes.c_uint64, ctypes.c_char_p]
         lib.coreth_keccak256.restype = None
+        lib.coreth_keccak256_batch.argtypes = [
+            ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint64),
+            ctypes.c_uint64, ctypes.c_uint64, ctypes.c_char_p]
+        lib.coreth_keccak256_batch.restype = None
         lib.coreth_ecrecover.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
             ctypes.c_int, ctypes.c_char_p]
@@ -71,6 +75,17 @@ def _require() -> ctypes.CDLL:
 def keccak256_native(data: bytes) -> bytes:
     out = ctypes.create_string_buffer(32)
     _require().coreth_keccak256(data, len(data), out)
+    return out.raw
+
+
+def keccak256_batch(data: bytes, lens, stride: int) -> bytes:
+    """Batched fixed-stride keccak-256: item i occupies
+    ``data[i*stride : i*stride + lens[i]]``.  Returns the packed
+    32-byte digests."""
+    n = len(lens)
+    arr = (ctypes.c_uint64 * n)(*lens)
+    out = ctypes.create_string_buffer(32 * n)
+    _require().coreth_keccak256_batch(data, arr, stride, n, out)
     return out.raw
 
 

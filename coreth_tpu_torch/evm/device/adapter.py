@@ -1,24 +1,31 @@
 """Host adapter for the device step machine.
 
-Port of reference ``evm/device/adapter.py``, cut to the single-shot
-runner (``MachineRunner``) and the packed-row readers: it packs a batch
-of same-block calls into machine inputs, runs the miss-and-rerun
-storage rounds, and unpacks per-tx results (status / gas left / refund
-/ logs / storage read- and write-sets).  Cross-tx ordering inside a
-block is the caller's (``replay/machine_block``): this module only
-executes a batch against the pre-states it is handed.
+Port of reference ``evm/device/adapter.py``, cut to what the port runs:
+
+- ``MachineRunner`` packs a batch of same-block calls into machine
+  inputs, runs the miss-and-rerun storage rounds on K5, and unpacks
+  per-tx results (status / gas left / refund / logs / storage read- and
+  write-sets); cross-tx ordering inside a block is the caller's
+  (``replay/machine_block``);
+- ``MachineWindowRunner`` drives the fused OCC window (K6): it premaps
+  each lane's storage keys onto rows of a slot table that stays on the
+  device, predicting keccak-derived keys from learned recipes, launches
+  one window of blocks, and resolves the keys lanes still missed by
+  re-launching the window from its host mirror.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from coreth_tpu_torch import default_device
+from coreth_tpu_torch.crypto import keccak256, keccak256_many
+from coreth_tpu_torch.evm.census import static_storage_keys
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.ops import u256
@@ -36,6 +43,75 @@ def word16(v: int) -> np.ndarray:
     """u256 int -> 16 little-endian int32 limbs (the machine layout)."""
     return np.frombuffer(
         v.to_bytes(32, "little"), dtype=np.uint16).astype(np.int32)
+
+
+_WORD16_CACHE: Dict[int, np.ndarray] = {}
+
+
+def word16c(v: int) -> np.ndarray:
+    """Cached, read-only word16: the window packer converts the same
+    caller / contract / gas-price words every window (senders recur all
+    chain).  Callers assign the result into batch arrays (a copy)."""
+    w = _WORD16_CACHE.get(v)
+    if w is None:
+        if len(_WORD16_CACHE) > (1 << 16):
+            _WORD16_CACHE.clear()  # unbounded value streams: reset
+        w = word16(v)
+        w.setflags(write=False)
+        _WORD16_CACHE[v] = w
+    return w
+
+
+def _norm_slot_key(key: bytes) -> bytes:
+    """Normal-storage partition of a raw 32-byte slot key: bit 0 of
+    byte 0 cleared — the machine's limb-15 ``& 0xFEFF`` mask, applied on
+    the host to predicted keccak keys so they compare equal to the keys
+    the kernel reports."""
+    return bytes([key[0] & 0xFE]) + key[1:]
+
+
+def _cd_word(data: bytes, w: int) -> bytes:
+    """ABI calldata word ``w`` (32 bytes past the 4-byte selector),
+    zero-padded exactly like CALLDATALOAD past the end."""
+    word = data[4 + 32 * w:4 + 32 * w + 32]
+    return word + b"\x00" * (32 - len(word))
+
+
+_ARR_BASE: Dict[int, int] = {}
+
+
+def _arr_base(slot: int) -> int:
+    """keccak(pad32(slot)) as an int — the Solidity dynamic-array data
+    base; element i lives at base + i (cached per slot index)."""
+    v = _ARR_BASE.get(slot)
+    if v is None:
+        v = int.from_bytes(keccak256(slot.to_bytes(32, "big")), "big")
+        _ARR_BASE[slot] = v
+    return v
+
+
+# Process-wide learned-recipe store (see MachineWindowRunner): a recipe
+# is a fact about a bytecode's keccak structure, not state, so runners
+# and engines share it.
+RECIPES: Dict[bytes, Dict[tuple, None]] = {}
+
+
+_STATIC_PREMAP: Dict[bytes, Tuple[bytes, ...]] = {}
+
+
+def _static_premap(code: bytes) -> Tuple[bytes, ...]:
+    """PUSH-constant storage footprint of ``code`` as normalized premap
+    keys (``census.static_storage_keys`` — the swap pool's reserve
+    slots), () when any key is computed."""
+    cached = _STATIC_PREMAP.get(code)
+    if cached is None:
+        ks = static_storage_keys(code)
+        out: Dict[bytes, None] = {}
+        if ks is not None:
+            for k in ks[0] + ks[1]:
+                out[_norm_slot_key(k)] = None
+        cached = _STATIC_PREMAP[code] = tuple(out)
+    return cached
 
 
 @dataclass
@@ -134,40 +210,19 @@ class MachineRunner:
     def pack(self, txs: List[TxSpec], p: M.MachineParams) -> dict:
         """Machine inputs for ``txs`` as tensors on the runner's device
         (padding lanes inactive)."""
-        B = p.batch
         S = p.scache_cap
-        code = np.zeros((B, p.code_cap + 33), dtype=np.int32)
-        code_len = np.zeros((B,), dtype=np.int32)
-        jdest = np.zeros((B, p.code_cap), dtype=np.int32)
-        calldata = np.zeros((B, p.data_cap), dtype=np.int32)
-        data_len = np.zeros((B,), dtype=np.int32)
-        start_gas = np.zeros((B,), dtype=np.int32)
-        active = np.zeros((B,), dtype=np.int32)
-        skey = np.zeros((B, S, u256.LIMBS), dtype=np.int32)
-        sval = np.zeros((B, S, u256.LIMBS), dtype=np.int32)
-        sorig = np.zeros((B, S, u256.LIMBS), dtype=np.int32)
-        sflag = np.zeros((B, S), dtype=np.int32)
-        scnt = np.zeros((B,), dtype=np.int32)
-        words = {k: np.zeros((B, u256.LIMBS), dtype=np.int32)
-                 for k in ("callvalue", "caller_w", "address_w",
-                           "origin_w", "gasprice_w")}
+        # one block of a window, without the block axis
+        arrays = {k: v if k == "chainid_w" else v[0] for k, v in
+                  window_arrays(p, 1, [(self.env, txs)]).items()}
+        arrays.update({k: v[0] for k, v in code_arrays(
+            p, 1, [(self.env, txs)],
+            lambda c: code_rows(c, p.code_cap, self.fork)).items()})
+        skey = np.zeros((p.batch, S, u256.LIMBS), dtype=np.int32)
+        sval = np.zeros((p.batch, S, u256.LIMBS), dtype=np.int32)
+        sorig = np.zeros((p.batch, S, u256.LIMBS), dtype=np.int32)
+        sflag = np.zeros((p.batch, S), dtype=np.int32)
+        scnt = np.zeros((p.batch,), dtype=np.int32)
         for i, t in enumerate(txs):
-            cb = np.frombuffer(t.code, dtype=np.uint8)
-            code[i, :len(cb)] = cb
-            code_len[i] = len(cb)
-            dests = [d for d in T.scan_code(t.code, self.fork).jumpdests
-                     if d < p.code_cap]
-            jdest[i, dests] = 1
-            db = np.frombuffer(t.calldata, dtype=np.uint8)
-            calldata[i, :len(db)] = db
-            data_len[i] = len(db)
-            start_gas[i] = t.gas
-            active[i] = 1
-            words["callvalue"][i] = word16(t.value)
-            words["caller_w"][i] = word16(addr_word(t.caller))
-            words["address_w"][i] = word16(addr_word(t.address))
-            words["origin_w"][i] = word16(addr_word(t.origin))
-            words["gasprice_w"][i] = word16(t.gas_price)
             for j, (key, (cur, orig)) in enumerate(t.storage.items()):
                 skey[i, j] = word16(int.from_bytes(key, "big"))
                 sval[i, j] = word16(cur)
@@ -175,17 +230,12 @@ class MachineRunner:
                 sflag[i, j] = M.F_VALID | (
                     M.F_WARM if key in t.warm_slots else 0)
             scnt[i] = len(t.storage)
-        env = self.env
-        arrays = dict(
-            code=code, jdest=jdest, code_len=code_len, calldata=calldata,
-            data_len=data_len, start_gas=start_gas, active=active,
-            skey=skey, sval=sval, sorig=sorig, sflag=sflag, scnt=scnt,
-            coinbase_w=word16(addr_word(env.coinbase)),
-            chainid_w=word16(env.chain_id),
-            basefee_w=word16(env.base_fee), **words)
+        scalars = {k: int(arrays.pop(k)) for k in ("timestamp", "number",
+                                                   "gaslimit")}
+        arrays.update(skey=skey, sval=sval, sorig=sorig, sflag=sflag,
+                      scnt=scnt)
         inputs = {k: _upload(v, self.device) for k, v in arrays.items()}
-        inputs.update(timestamp=env.timestamp, number=env.number,
-                      gaslimit=min(env.gas_limit, (1 << 31) - 1))
+        inputs.update(scalars)
         return inputs
 
     def run(self, txs: List[TxSpec]) -> List[TxResult]:
@@ -249,8 +299,13 @@ class MachineRunner:
 
 
 def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor without waiting for the card: a copy
+    from pinned memory, queued on the current stream behind any kernel
+    still running (a pageable copy may wait for that stream first)."""
     t = torch.from_numpy(np.ascontiguousarray(arr))
-    return t.to(device) if device.type != "cpu" else t
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 # ------------------------------------------------------------ unpack
@@ -399,3 +454,666 @@ def results_for_rows(out: PackedOut, rows) -> List[TxResult]:
                      reads=reads_l[k], writes=writes_l[k],
                      host_reason=hreason[k])
             for k in range(n)]
+
+
+# ----------------------------------------------------------- OCC window
+@dataclass
+class WindowResult:
+    """Per-block outcome of one fused OCC window (machine.run_occ_window).
+    ``clean[k]`` means every lane of block k committed on the device; a
+    dirty block (and every block after it, whose base table was
+    speculative) is the caller's to redo."""
+    results: List[List[TxResult]]       # per block, per call lane
+    committed: List[np.ndarray]         # (lanes,) bool per block
+    escape: List[np.ndarray]            # (lanes,) bool per block
+    clean: List[bool]
+    rounds: List[int]                   # device OCC rounds per block
+    attempts: int                       # launches this window took
+
+
+def window_arrays(p: M.MachineParams, W: int, items) -> Dict[str, np.ndarray]:
+    """The per-lane and per-block inputs of one window (numpy, padding
+    lanes and blocks inactive), the code rows excepted (``code_arrays``).
+    ``items`` is [(BlockEnv, [TxSpec, ...]), ...] in chain order."""
+    L = p.batch
+    calldata = np.zeros((W, L, p.data_cap), dtype=np.int32)
+    data_len = np.zeros((W, L), dtype=np.int32)
+    start_gas = np.zeros((W, L), dtype=np.int32)
+    active = np.zeros((W, L), dtype=np.int32)
+    words = {k: np.zeros((W, L, u256.LIMBS), dtype=np.int32)
+             for k in ("callvalue", "caller_w", "address_w", "origin_w",
+                       "gasprice_w")}
+    block = {k: np.zeros((W,), dtype=np.int32)
+             for k in ("timestamp", "number", "gaslimit")}
+    coinbase_w = np.zeros((W, u256.LIMBS), dtype=np.int32)
+    basefee_w = np.zeros((W, u256.LIMBS), dtype=np.int32)
+    chain_id = 0
+    for bi, (env, specs) in enumerate(items):
+        block["timestamp"][bi] = env.timestamp
+        block["number"][bi] = env.number
+        block["gaslimit"][bi] = min(env.gas_limit, (1 << 31) - 1)
+        coinbase_w[bi] = word16(addr_word(env.coinbase))
+        basefee_w[bi] = word16(env.base_fee)
+        chain_id = env.chain_id
+        for li, t in enumerate(specs):
+            db = np.frombuffer(t.calldata, dtype=np.uint8)
+            calldata[bi, li, :len(db)] = db
+            data_len[bi, li] = len(db)
+            start_gas[bi, li] = t.gas
+            active[bi, li] = 1
+            words["callvalue"][bi, li] = word16c(t.value)
+            words["caller_w"][bi, li] = word16c(addr_word(t.caller))
+            words["address_w"][bi, li] = word16c(addr_word(t.address))
+            words["origin_w"][bi, li] = word16c(addr_word(t.origin))
+            words["gasprice_w"][bi, li] = word16c(t.gas_price)
+    return dict(calldata=calldata, data_len=data_len, start_gas=start_gas,
+                active=active, coinbase_w=coinbase_w, basefee_w=basefee_w,
+                chainid_w=word16(chain_id), **words, **block)
+
+
+def code_rows(code: bytes, code_cap: int, fork: str) -> Tuple:
+    """Dense (code row, jdest row, code_len) of one bytecode."""
+    cb = np.zeros((code_cap + 33,), dtype=np.int32)
+    arr = np.frombuffer(code, dtype=np.uint8)
+    cb[:len(arr)] = arr
+    jd = np.zeros((code_cap,), dtype=np.int32)
+    for d in T.scan_code(code, fork).jumpdests:
+        if d < code_cap:
+            jd[d] = 1
+    return cb, jd, len(arr)
+
+
+def code_arrays(p: M.MachineParams, W: int, items,
+                rows_of: Callable[[bytes], Tuple]) -> Dict[str, np.ndarray]:
+    """The window's code, jdest and code_len arrays; ``rows_of(code)``
+    gives one bytecode's ``code_rows``."""
+    L = p.batch
+    code = np.zeros((W, L, p.code_cap + 33), dtype=np.int32)
+    code_len = np.zeros((W, L), dtype=np.int32)
+    jdest = np.zeros((W, L, p.code_cap), dtype=np.int32)
+    for bi, (_env, specs) in enumerate(items):
+        for li, t in enumerate(specs):
+            cb, jd, ln = rows_of(t.code)
+            code[bi, li] = cb
+            jdest[bi, li] = jd
+            code_len[bi, li] = ln
+    return dict(code=code, jdest=jdest, code_len=code_len)
+
+
+def _scatter_rows(tab: torch.Tensor, idx: np.ndarray,
+                  rows: np.ndarray) -> None:
+    """tab[idx] = rows in place, rows whose index falls outside the
+    table dropped."""
+    keep = (idx >= 0) & (idx < tab.shape[0])
+    if keep.any():
+        tab[_upload(idx[keep].astype(np.int64), tab.device)] = \
+            _upload(rows[keep], tab.device)
+
+
+class MachineWindowRunner:
+    """Device-resident OCC over WINDOWS of machine blocks (K6).
+
+    One launch executes up to ``occ.blocks`` machine blocks: the
+    Block-STM round loop, read-set validation and the cross-block state
+    fold run inside the kernel against a global slot-value table that
+    stays on the device.  The host supplies per-lane inputs and the
+    premapped table row of each lane's storage-cache entries, and
+    fetches one packed result tensor per window.
+
+    Persistent across windows:
+    - ``slot_gid``: (contract, key32) -> table row;
+    - ``vals``: host mirror of committed slot values at the last fold
+      point (the rebuild source when the device table is invalidated);
+    - ``table`` / ``key_tab``: the device-resident value and key tables;
+      each launch returns a new value table, which replaces the old one
+      without the host waiting for it;
+    - ``recipes``: per-contract, selector-scoped premap predictors learned
+      from misses — (selector, "caller" | "data" + word, slot) says lanes
+      calling ``selector`` touch ``keccak(pad32(source) || pad32(slot))``
+      (the Solidity mapping rule), with second-level ("nest", the
+      allowance shape) and array-element ("arr", ``keccak(slot) + i``)
+      forms; PUSH-constant footprints (the swap reserves) premap with no
+      learning at all;
+    - ``common``: per-contract keys every lane touched so far (the
+      residue prediction cannot derive).  A key still outside the premap
+      surfaces as an F_MISS escape and resolves through the bounded
+      re-launch loop, counted in ``discovery_dispatches``.
+
+    ``launches`` / ``steps`` count K6 launches and the lane-steps they
+    ran; ``t_pack`` (premaps, packing, upload), ``t_machine`` (launch,
+    and the wait for and download of the packed rows) and ``t_unpack``
+    (miss resolution, recipe learning, results) are host-clock seconds.
+    """
+
+    COMMON_CAP = 8   # premapped common keys per contract
+    RECIPE_CAP = 8   # learned keccak recipes per contract
+    SLOT_SCAN = 4    # mapping slot indices a miss is explained against
+    DATA_WORDS = 4   # calldata words considered as mapping sources
+    ARRAY_SPAN = 1 << 32  # max index an array recipe explains with
+
+    def __init__(self, fork: str,
+                 storage_resolver: Callable[[bytes, bytes], int],
+                 max_attempts: int = 6, device=None):
+        self.fork = fork
+        self.resolver = storage_resolver
+        self.max_attempts = max_attempts
+        self.device = default_device(device)
+        self.slot_gid: Dict[Tuple[bytes, bytes], int] = {}
+        self.gid_keys: List[Tuple[bytes, bytes]] = []
+        self.vals: List[int] = []
+        # contract -> {key32: None} (dict as an ordered set)
+        self.common: Dict[bytes, Dict[bytes, None]] = {}
+        # bytecode -> {recipe: None}; recipe =
+        # (selector, "caller", slot) | (selector, "data", word, slot) |
+        # (selector, "nest", outer_tag, inner_tag, slot) |
+        # (selector, "arr", tag, slot)
+        self.recipes = RECIPES
+        self.table: Optional[torch.Tensor] = None
+        self.key_tab: Optional[torch.Tensor] = None
+        self.table_cap = 0
+        self._synced = 0          # rows present in the device tables
+        self._stale = True        # device table != mirror: full rebuild
+        # (code, code_cap) -> (code row, jdest row, len)
+        self._code_rows: Dict[Tuple[bytes, int], Tuple] = {}
+        # window code-assignment signature -> device (code, jdest,
+        # code_len); at most 2 entries (see issue())
+        self._win_code_cache: Dict[Tuple, Tuple] = {}
+        self._hw: Dict[str, int] = {}   # sticky pow2 shape high-water
+        self.premap_predicted = 0   # predicted keys seeded into premaps
+        self.premap_hits = 0        # predicted keys lanes then touched
+        self.premap_nested = 0      # keys derived via 2nd-level recipes
+        self.premap_array = 0       # keys derived via array recipes
+        self.discovery_dispatches = 0  # re-launches for missed keys
+        self.launches = 0
+        self.steps = 0
+        self.t_pack = self.t_machine = self.t_unpack = 0.0
+
+    # ------------------------------------------------------------ state
+    def invalidate(self) -> None:
+        """The device table no longer matches the committed state (a
+        dirty window left partial writes in it); the next issue()
+        rebuilds it from the host mirror."""
+        self._stale = True
+
+    def commit_block(self,
+                     writes: Dict[Tuple[bytes, bytes], int]) -> None:
+        """Fold one committed block's storage writes into the host mirror
+        (blocks the device committed already carry them in the resident
+        table; blocks run elsewhere also need invalidate())."""
+        for (contract, key), v in writes.items():
+            g = self.slot_gid.get((contract, key))
+            if g is None:
+                g = len(self.vals)
+                self.slot_gid[(contract, key)] = g
+                self.gid_keys.append((contract, key))
+                self.vals.append(v)
+            else:
+                self.vals[g] = v
+
+    def _gid(self, contract: bytes, key: bytes) -> int:
+        g = self.slot_gid.get((contract, key))
+        if g is None:
+            g = len(self.vals)
+            self.slot_gid[(contract, key)] = g
+            self.gid_keys.append((contract, key))
+            self.vals.append(self.resolver(contract, key))
+        return g
+
+    def _key_mapped(self, contract: bytes, key: bytes) -> bool:
+        return (contract, key) in self.slot_gid
+
+    def _code_pack(self, code: bytes, code_cap: int) -> Tuple:
+        """``code_rows`` of one bytecode under one code_cap (memoized;
+        the rows are read-only and copied whole into the batch)."""
+        key = (code, code_cap)
+        rows = self._code_rows.get(key)
+        if rows is None:
+            cb, jd, n = code_rows(code, code_cap, self.fork)
+            cb.setflags(write=False)
+            jd.setflags(write=False)
+            rows = self._code_rows[key] = (cb, jd, n)
+        return rows
+
+    # -------------------------------------------------------- prediction
+    def _rc_src(self, t: TxSpec, tag: tuple) -> bytes:
+        """A recipe source tag's padded 32-byte value for THIS lane."""
+        if tag[0] == "caller":
+            return b"\x00" * 12 + t.caller
+        return _cd_word(t.calldata, tag[1])
+
+    def _learn_recipes(self, t: TxSpec, missed: List[bytes]) -> None:
+        """Explain a lane's missed keys as
+        ``keccak(pad32(source) || pad32(slot))`` over the lane's caller
+        and calldata words (the Solidity mapping rule); each match
+        becomes a recipe that derives later lanes' keys from their own
+        inputs before launch.  A miss no first-level derivation explains
+        is tried one level deeper — ``keccak(pad32(src2) || inner)``
+        with ``inner`` a first-level digest (the nested-mapping rule,
+        the allowance shape) — and then as an array element
+        ``keccak(pad32(slot)) + v`` for a small source word ``v``."""
+        if not missed:
+            return
+        recipes = self.recipes.setdefault(t.code, {})
+        if len(recipes) >= self.RECIPE_CAP:
+            return
+        # scoped to the calldata selector they were learned from: a
+        # transfer()-derived recipe must not predict keys for another
+        # function's lanes (each wrong prediction claims a table row)
+        sel = bytes(t.calldata[:4])
+        srcs: List[Tuple[tuple, bytes]] = [
+            (("caller",), b"\x00" * 12 + t.caller)]
+        n_words = min(self.DATA_WORDS,
+                      max(0, (len(t.calldata) - 4 + 31) // 32))
+        for w in range(n_words):
+            srcs.append((("data", w), _cd_word(t.calldata, w)))
+        msgs = [src + slot.to_bytes(32, "big")
+                for _tag, src in srcs
+                for slot in range(self.SLOT_SCAN)]
+        digs = keccak256_many(msgs)
+        want = dict.fromkeys(missed)
+        explained: Dict[bytes, None] = {}
+        i = 0
+        for tag, _src in srcs:
+            for slot in range(self.SLOT_SCAN):
+                if _norm_slot_key(digs[i]) in want \
+                        and len(recipes) < self.RECIPE_CAP:
+                    recipes[(sel,) + tag + (slot,)] = None
+                    explained[_norm_slot_key(digs[i])] = None
+                i += 1
+        if len(recipes) < self.RECIPE_CAP:
+            leftover = dict.fromkeys(
+                k for k in want if k not in explained)
+            if leftover:
+                # second level: outer keccaks over every first-level
+                # digest as the candidate inner hash, one batched call
+                msgs2 = [src2 + digs[i]
+                         for _tag2, src2 in srcs
+                         for i in range(len(digs))]
+                digs2 = keccak256_many(msgs2)
+                j = 0
+                for tag2, _src2 in srcs:
+                    for i in range(len(digs)):
+                        k2 = _norm_slot_key(digs2[j])
+                        if k2 in leftover \
+                                and len(recipes) < self.RECIPE_CAP:
+                            tag1 = srcs[i // self.SLOT_SCAN][0]
+                            slot = i % self.SLOT_SCAN
+                            recipes[(sel, "nest", tag2, tag1,
+                                     slot)] = None
+                            explained[k2] = None
+                        j += 1
+        # third shape: a leftover miss equal to base(slot) + v for a
+        # small source word v (an index argument, never an address)
+        if len(recipes) >= self.RECIPE_CAP:
+            return
+        left2 = dict.fromkeys(k for k in want if k not in explained)
+        if not left2:
+            return
+        for tag, src in srcs:
+            v = int.from_bytes(src, "big")
+            if v >= self.ARRAY_SPAN:
+                continue
+            for slot in range(self.SLOT_SCAN):
+                cand = _norm_slot_key((
+                    (_arr_base(slot) + v) % (1 << 256)
+                ).to_bytes(32, "big"))
+                if cand in left2 and len(recipes) < self.RECIPE_CAP:
+                    recipes[(sel, "arr", tag, slot)] = None
+                    # a second source word carrying the same value must
+                    # not burn another recipe on the same key
+                    del left2[cand]
+                    explained[cand] = None
+            if not left2:
+                return
+
+    def _premaps(self, items, discovered):
+        """Per-lane premapped key lists: PREDICTED keys first (the static
+        PUSH-constant footprint and the learned recipes applied to the
+        lane's own caller and calldata), then the common-key residue,
+        the seeded storage view, and keys discovered by earlier
+        attempts.  Recipe keccaks batch across the whole window: one
+        native call for every first-level digest (which doubles as the
+        inner hash of the nested recipes), one for the nested recipes'
+        outer keccaks.  Returns (premaps, predicted), ``predicted[bi][li]``
+        the prediction-only key set (hit accounting in _update_common)."""
+        msgs: List[bytes] = []
+        meta: List[List[List[tuple]]] = []
+        for _env, specs in items:
+            block_meta = []
+            for t in specs:
+                sel = bytes(t.calldata[:4])
+                lane = []
+                for rc in self.recipes.get(t.code, ()):
+                    if rc[0] != sel:
+                        continue
+                    if rc[1] == "nest":
+                        _sel, _n, tag2, tag1, slot = rc
+                        msgs.append(self._rc_src(t, tag1)
+                                    + slot.to_bytes(32, "big"))
+                        lane.append(("nest", self._rc_src(t, tag2)))
+                    elif rc[1] == "arr":
+                        _sel, _a, tag, slot = rc
+                        v = int.from_bytes(self._rc_src(t, tag), "big")
+                        if v >= self.ARRAY_SPAN:
+                            continue
+                        lane.append(("key", _norm_slot_key((
+                            (_arr_base(slot) + v) % (1 << 256)
+                        ).to_bytes(32, "big"))))
+                    elif rc[1] == "caller":
+                        msgs.append(b"\x00" * 12 + t.caller
+                                    + rc[2].to_bytes(32, "big"))
+                        lane.append(("flat",))
+                    else:
+                        msgs.append(_cd_word(t.calldata, rc[2])
+                                    + rc[3].to_bytes(32, "big"))
+                        lane.append(("flat",))
+                block_meta.append(lane)
+            meta.append(block_meta)
+        digs = keccak256_many(msgs)
+        # the nested recipes' outer keccaks consume the RAW inner digests
+        # (only the final key normalizes)
+        msgs2: List[bytes] = []
+        di = 0
+        for block_meta in meta:
+            for lane in block_meta:
+                for entry in lane:
+                    if entry[0] == "key":
+                        continue  # host-derived; no digest consumed
+                    if entry[0] == "nest":
+                        msgs2.append(entry[1] + digs[di])
+                    di += 1
+        digs2 = keccak256_many(msgs2)
+        di = dj = 0
+        premaps = []
+        predicted = []
+        for bi, ((_env, specs), disc) in enumerate(zip(items, discovered)):
+            block_pre = []
+            block_predicted = []
+            for li, t in enumerate(specs):
+                keys: Dict[bytes, None] = {}
+                pred: Dict[bytes, None] = {}
+                for k in _static_premap(t.code):
+                    keys[k] = None
+                    pred[k] = None
+                for entry in meta[bi][li]:
+                    if entry[0] == "key":
+                        k = entry[1]
+                        self.premap_array += 1
+                    elif entry[0] == "nest":
+                        k = _norm_slot_key(digs2[dj])
+                        dj += 1
+                        self.premap_nested += 1
+                        di += 1
+                    else:
+                        k = _norm_slot_key(digs[di])
+                        di += 1
+                    keys[k] = None
+                    pred[k] = None
+                for k in self.common.get(t.address, ()):
+                    keys[k] = None
+                for k in t.storage:
+                    keys[k] = None
+                    pred.pop(k, None)
+                for k in disc[li]:
+                    keys[k] = None
+                    pred.pop(k, None)
+                block_pre.append(list(keys))
+                block_predicted.append(pred)
+            premaps.append(block_pre)
+            predicted.append(block_predicted)
+        return premaps, predicted
+
+    # ------------------------------------------------------------- shape
+    def _occ_params(self, items, premaps):
+        max_code = 64
+        max_data = 64
+        max_lanes = 1
+        max_slots = 4
+        unmapped = 0  # premap keys that will claim rows during packing
+        for (_env, specs), block_pre in zip(items, premaps):
+            max_lanes = max(max_lanes, len(specs))
+            for t, pre in zip(specs, block_pre):
+                info = T.scan_code(t.code, self.fork)
+                if not info.eligible:
+                    raise ValueError(
+                        f"TxSpec code not device-eligible: {info.reason}")
+                max_code = max(max_code, len(t.code))
+                max_data = max(max_data, len(t.calldata))
+                max_slots = max(max_slots, len(pre) + 8)
+                for k in pre:
+                    if (t.address, k) not in self.slot_gid:
+                        unmapped += 1
+        p = M.MachineParams(
+            fork=self.fork,
+            batch=_pow2(max_lanes, 8),
+            code_cap=_pow2(max_code, 256),
+            data_cap=_pow2(max_data, 128),
+            scache_cap=_pow2(max_slots, 8))
+        occ = M.OccParams(
+            blocks=_pow2(len(items), 1),
+            table_cap=_pow2(len(self.vals) + unmapped + 1, 64),
+            rounds=p.batch + 1)
+        return self._apply_buckets(p, occ)
+
+    def _apply_buckets(self, p: M.MachineParams,
+                       occ: M.OccParams) -> Tuple:
+        """Sticky pow2 shape buckets: every dimension only ratchets UP
+        over the runner's life, and the table never shrinks (growth pads
+        it on the device, see _device_tables).  This decides
+        ``scache_cap`` and with it which lanes escape on cache capacity,
+        exactly as the reference's bucketing does.  Inactive lanes and
+        blocks cost nothing: they never run."""
+        hw = self._hw
+        p = M.MachineParams(
+            fork=p.fork,
+            batch=max(p.batch, hw.get("batch", 0)),
+            code_cap=max(p.code_cap, hw.get("code_cap", 0)),
+            data_cap=max(p.data_cap, hw.get("data_cap", 0)),
+            scache_cap=max(p.scache_cap, hw.get("scache_cap", 0)))
+        occ = M.OccParams(
+            blocks=max(occ.blocks, hw.get("blocks", 0)),
+            table_cap=max(occ.table_cap, self.table_cap),
+            rounds=p.batch + 1)
+        hw.update(batch=p.batch, code_cap=p.code_cap,
+                  data_cap=p.data_cap, scache_cap=p.scache_cap,
+                  blocks=occ.blocks)
+        return p, occ
+
+    def seed_window_hint(self, blocks: int) -> None:
+        """Steady-state windows hold ``blocks`` machine blocks: size the
+        block axis there from the first launch (inactive trailing blocks
+        leave the kernel's loop at once)."""
+        self._hw["blocks"] = max(self._hw.get("blocks", 0),
+                                 _pow2(max(1, blocks), 1))
+
+    def _device_tables(self, G: int):
+        n = len(self.vals)
+        if self.table is not None and not self._stale \
+                and G > self.table_cap:
+            # pad the resident tables on the device: no host-mirror trip
+            pad = G - self.table_cap
+            z = torch.zeros((pad, u256.LIMBS), dtype=torch.int32,
+                            device=self.device)
+            self.table = torch.cat([self.table, z])
+            self.key_tab = torch.cat([self.key_tab, z])
+            self.table_cap = G
+        if self.table is None or self.table_cap != G or self._stale:
+            tv = np.zeros((G, u256.LIMBS), dtype=np.int32)
+            tk = np.zeros((G, u256.LIMBS), dtype=np.int32)
+            if n:
+                tv[:n] = u256.pack_np(self.vals)
+                tk[:n] = u256.pack_np([int.from_bytes(k, "big")
+                                       for _c, k in self.gid_keys])
+            self.table = _upload(tv, self.device)
+            self.key_tab = _upload(tk, self.device)
+            self.table_cap = G
+            self._synced = n
+            self._stale = False
+        elif self._synced < n:
+            # append newly mapped rows; already-synced rows are live on
+            # the device (committed by the kernel itself)
+            idx = np.arange(self._synced, n, dtype=np.int64)
+            _scatter_rows(self.table, idx,
+                          u256.pack_np(self.vals[self._synced:]))
+            _scatter_rows(self.key_tab, idx, u256.pack_np(
+                [int.from_bytes(k, "big")
+                 for _c, k in self.gid_keys[self._synced:]]))
+            self._synced = n
+        return self.table, self.key_tab
+
+    # ------------------------------------------------------------- issue
+    def pack(self, items, discovered=None) -> dict:
+        """Premap, pack and upload one window: returns the launch's
+        arguments (``p``, ``occ``, ``table``, ``key_tab``, ``inputs``)
+        with the premaps and their predicted subsets.  Maps every
+        premapped key to a table row (resolving new ones) and brings the
+        device tables up to date; launches nothing.
+
+        items: [(BlockEnv, [TxSpec, ...]), ...] in chain order."""
+        if discovered is None:
+            discovered = [[{} for _t in specs] for _env, specs in items]
+        premaps, predicted = self._premaps(items, discovered)
+        p, occ = self._occ_params(items, premaps)
+        W, L, S, G = occ.blocks, p.batch, p.scache_cap, occ.table_cap
+        arrays = window_arrays(p, W, items)
+        sgid = np.full((W, L, S), G, dtype=np.int32)
+        for bi, ((_env, specs), block_pre) in enumerate(
+                zip(items, premaps)):
+            for li, t in enumerate(specs):
+                for j, key in enumerate(block_pre[li]):
+                    sgid[bi, li, j] = self._gid(t.address, key)
+        arrays["sgid"] = sgid
+        table, key_tab = self._device_tables(G)
+        # the lane -> bytecode assignment recurs window after window, and
+        # the code / jump-table rows are the largest window inputs: keep
+        # them on the device while the assignment signature repeats
+        code_sig = (W, L, p.code_cap,
+                    tuple(tuple(t.code for t in specs)
+                          for _env, specs in items))
+        code_dev = self._win_code_cache.get(code_sig)
+        if code_dev is None:
+            ca = code_arrays(p, W, items,
+                             lambda c: self._code_pack(c, p.code_cap))
+            code_dev = tuple(_upload(ca[k], self.device)
+                             for k in ("code", "jdest", "code_len"))
+            if len(self._win_code_cache) >= 2:
+                # steady state needs two signatures at most (a short lead
+                # window and the full window); a shifting workload rebuilds
+                self._win_code_cache.clear()
+            self._win_code_cache[code_sig] = code_dev
+        inputs = {k: _upload(v, self.device)
+                  for k, v in arrays.items()}
+        inputs.update(zip(("code", "jdest", "code_len"), code_dev))
+        return dict(p=p, occ=occ, table=table, key_tab=key_tab,
+                    inputs=inputs, items=items, discovered=discovered,
+                    premaps=premaps, predicted=predicted)
+
+    def issue(self, items, discovered=None, attempt: int = 1) -> dict:
+        """Pack and launch one window; returns a handle for complete().
+        The launch is asynchronous and nothing here waits for the card:
+        callers fold the previous window's tries while this one runs,
+        and block only in complete()'s fetch."""
+        t0 = time.monotonic()
+        handle = self.pack(items, discovered)
+        t1 = time.monotonic()
+        handle["out"] = M.run_occ_window(
+            handle["p"], handle["occ"], handle.pop("table"),
+            handle.pop("key_tab"), handle.pop("inputs"))
+        # the launch's output table (the post-window committed state)
+        # replaces the resident one; the stream orders its later uses
+        self.table = handle["out"]["table"]
+        self.launches += 1
+        self.t_pack += t1 - t0
+        self.t_machine += time.monotonic() - t1
+        handle["attempt"] = attempt
+        return handle
+
+    # ---------------------------------------------------------- complete
+    def complete(self, handle: dict) -> WindowResult:
+        """Fetch a window's results; resolve the storage keys lanes
+        missed, learn recipes from them, and re-launch the whole window
+        from the host mirror (bounded attempts, counted in
+        ``discovery_dispatches``) until no key is left to resolve."""
+        while True:
+            t0 = time.monotonic()
+            p = handle["p"]
+            L = p.batch
+            packed = handle["out"]["packed"].cpu().numpy()
+            self.steps += int(handle["out"]["steps"].sum())
+            t1 = time.monotonic()
+            self.t_machine += t1 - t0
+            pw = packed.shape[2] - 4
+            pout = PackedOut(packed[:, :, :pw].reshape(-1, pw), p)
+            extra = packed[:, :, pw:]
+            missing = False
+            for bi, (_env, specs) in enumerate(handle["items"]):
+                for li, t in enumerate(specs):
+                    if not extra[bi, li, 1]:
+                        continue  # escaped lanes only carry misses
+                    disc = handle["discovered"][bi][li]
+                    fresh: List[bytes] = []
+                    for key in miss_keys(pout, bi * L + li):
+                        if not self._key_mapped(t.address, key):
+                            self._gid(t.address, key)
+                        if key not in disc:
+                            disc[key] = None
+                            fresh.append(key)
+                            missing = True
+                    self._learn_recipes(t, fresh)
+            self.t_unpack += time.monotonic() - t1
+            if missing and handle["attempt"] < self.max_attempts:
+                # re-run the WHOLE window from the host mirror (the
+                # failed attempt's device table holds partial commits)
+                self.discovery_dispatches += 1
+                self._stale = True
+                handle = self.issue(handle["items"], handle["discovered"],
+                                    attempt=handle["attempt"] + 1)
+                continue
+            break
+        t2 = time.monotonic()
+        results, committed, escape, clean, rounds = [], [], [], [], []
+        for bi, (_env, specs) in enumerate(handle["items"]):
+            n = len(specs)
+            res = results_for_rows(pout, np.arange(n) + bi * L)
+            com = extra[bi, :n, 0].astype(bool)
+            esc = (extra[bi, :n, 1] | extra[bi, :n, 2]).astype(bool)
+            results.append(res)
+            committed.append(com)
+            escape.append(esc)
+            clean.append(bool(com.all()))
+            rounds.append(int(extra[bi, :n, 3].max()) if n else 0)
+        self._update_common(handle, pout, clean)
+        self.t_unpack += time.monotonic() - t2
+        return WindowResult(results=results, committed=committed,
+                            escape=escape, clean=clean, rounds=rounds,
+                            attempts=handle["attempt"])
+
+    def _update_common(self, handle, pout: PackedOut,
+                       clean: List[bool]) -> None:
+        """Count predicted-premap keys and hits (against the final
+        attempt's prediction sets), and narrow each contract's
+        common-key residue to the keys EVERY lane touched."""
+        L = handle["p"].batch
+        predicted = handle["predicted"]
+        kb = pout.key_blob()
+        for bi, (_env, specs) in enumerate(handle["items"]):
+            if not clean[bi]:
+                continue
+            for li, t in enumerate(specs):
+                row = bi * L + li
+                touched: Dict[bytes, None] = {}
+                flags = pout.sflag[row]
+                for j in range(int(pout.scnt[row])):
+                    if flags[j] & (M.F_READ | M.F_WRITTEN):
+                        off = (row * pout.S + j) * 32
+                        touched[kb[off:off + 32]] = None
+                self.premap_predicted += len(predicted[bi][li])
+                self.premap_hits += sum(
+                    1 for k in predicted[bi][li] if k in touched)
+                cur = self.common.get(t.address)
+                if cur is None:
+                    keep = list(touched)[:self.COMMON_CAP]
+                    self.common[t.address] = dict.fromkeys(keep)
+                else:
+                    self.common[t.address] = {
+                        k: None for k in cur if k in touched}

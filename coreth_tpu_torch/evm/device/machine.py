@@ -729,3 +729,270 @@ def run_machine(p: MachineParams, inputs: Dict[str, torch.Tensor]):
     kernels.check(rc, "step_machine")
     LAUNCHES += 1
     return packed, steps
+
+
+# ------------------------------------------------------------------- OCC
+# The fused, device-resident OCC window (K6): the Block-STM round loop,
+# read-set validation and the cross-block state fold run inside one
+# launch per window of machine blocks, against a global slot-value table
+# that stays on the device.  Lanes carry their read/write sets in the
+# storage cache of their packed row; the table row of each cache entry
+# is premapped by the host (``sgid``).
+
+@dataclass(frozen=True)
+class OccParams:
+    """Shape of one fused OCC window launch."""
+    blocks: int        # W — machine blocks per launch
+    table_cap: int     # G — global slot-table rows
+    rounds: int        # per-block OCC round cap (batch + 1 converges)
+
+
+# per-lane result fields the OCC loop carries between rounds
+_OCC_RES = ("status", "gas", "refund", "host_reason", "scnt", "sflag",
+            "skey", "sval", "sorig", "log_top", "log_nt", "log_data",
+            "log_dlen", "log_cnt")
+
+# per-block exec inputs of a window (leading axis W), as build_machine
+# takes them for one block
+_EXEC_KEYS = ("code", "jdest", "code_len", "calldata", "data_len",
+              "start_gas", "callvalue", "caller_w", "address_w",
+              "origin_w", "gasprice_w", "timestamp", "number",
+              "gaslimit", "coinbase_w", "basefee_w")
+
+# Integer operations the kernel spends per lane per validation sweep,
+# per storage-cache entry: the table/overlay gather (stamp test + 16
+# limbs), the 16-limb compare against ``sorig``, the flag tests and the
+# seed or overlay write.  The K6 bound uses it with the rounds each block
+# ran.
+OPS_PER_SWEEP_ENTRY = 60
+
+OCC_LAUNCHES = 0
+
+
+def _occ_res0(p: MachineParams, dev) -> dict:
+    """The result of a lane that never ran: status SKIP, all else 0."""
+    B, S, LC = p.batch, p.scache_cap, p.log_cap
+    i32 = dict(dtype=torch.int32, device=dev)
+    return dict(
+        status=torch.full((B,), SKIP, **i32),
+        gas=torch.zeros((B,), **i32), refund=torch.zeros((B,), **i32),
+        host_reason=torch.zeros((B,), **i32),
+        scnt=torch.zeros((B,), **i32), sflag=torch.zeros((B, S), **i32),
+        skey=torch.zeros((B, S, LIMBS), **i32),
+        sval=torch.zeros((B, S, LIMBS), **i32),
+        sorig=torch.zeros((B, S, LIMBS), **i32),
+        log_top=torch.zeros((B, LC, 4, LIMBS), **i32),
+        log_nt=torch.zeros((B, LC), **i32),
+        log_data=torch.zeros((B, LC, p.log_data_cap), **i32),
+        log_dlen=torch.zeros((B, LC), **i32),
+        log_cnt=torch.zeros((B,), **i32))
+
+
+def occ_run_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
+                  key_tab: torch.Tensor, blocks_in: dict) -> dict:
+    """The plain version of K6: reference ``build_occ_machine``'s
+    ``occ_run`` (machine.py:1024) written out in torch.
+
+    table   (G, 16) int32 — committed slot values (not modified).
+    key_tab (G, 16) int32 — slot-key words per table row.
+    blocks_in — per-block inputs with leading axis W: the exec inputs of
+      ``run_plain`` (``_EXEC_KEYS`` and ``active``), ``sgid`` (W, B, S)
+      int32, the table row of each lane-cache entry (>= G: unused), and
+      ``chainid_w`` (16,) shared across the window.
+
+    Returns {"table": (G, 16), "packed": (W, B, width + 4), "steps":
+    (W, B)}: per-lane results in the ``pack_result`` layout plus the
+    committed / escape / pending / rounds columns, and the lane-steps
+    each lane executed over all rounds.  Blocks after the first dirty
+    block ran against a speculative table; the runner discards them."""
+    B, S, G, R = p.batch, p.scache_cap, occ.table_cap, occ.rounds
+    dev = table.device
+    tbl = table.clone()
+    packed, steps_all = [], []
+    lane_ids = torch.arange(B, dtype=torch.int32,
+                            device=dev)[:, None].expand(B, S)
+    for w in range(occ.blocks):
+        exec_in = {k: blocks_in[k][w] for k in _EXEC_KEYS}
+        exec_in["chainid_w"] = blocks_in["chainid_w"]
+        sgid = blocks_in["sgid"][w].long()
+        active0 = blocks_in["active"][w].bool()
+        premapped = sgid < G
+        nkeys = premapped.sum(dim=1).to(torch.int32)
+        sgc = sgid.clamp(0, G - 1)
+
+        def gather(t2, gids, gc):
+            return torch.where((gids < G)[..., None], t2[gc], 0)
+
+        skey0 = gather(key_tab, sgid, sgc)
+        sflag0 = torch.where(premapped, F_VALID, 0).to(torch.int32)
+        res = _occ_res0(p, dev)
+        rnd = 0
+        pending = active0
+        seeds = gather(tbl, sgid, sgc)
+        committed = torch.zeros((B,), dtype=torch.bool, device=dev)
+        escape = torch.zeros((B,), dtype=torch.bool, device=dev)
+        t_out = tbl
+        steps = torch.zeros((B,), dtype=torch.int32, device=dev)
+        while rnd < R and bool(pending.any()) and not bool(escape.any()):
+            st = run_plain(p, dict(exec_in, skey=skey0, sval=seeds,
+                                   sorig=seeds, sflag=sflag0, scnt=nkeys,
+                                   active=pending))
+            res = {f: torch.where(
+                pending.reshape((B,) + (1,) * (res[f].dim() - 1)),
+                st[f], res[f]) for f in _OCC_RES}
+            steps = steps + torch.where(pending, st["steps"], 0)
+            t_out, committed, pending, seeds, escape = _occ_sweep(
+                res, tbl, sgid, sgc, premapped, seeds, active0, lane_ids,
+                G, gather)
+            rnd += 1
+        tbl = t_out
+        extra = torch.stack(
+            [committed.to(torch.int32), escape.to(torch.int32),
+             pending.to(torch.int32),
+             torch.full((B,), rnd, dtype=torch.int32, device=dev)], dim=1)
+        packed.append(torch.cat([pack_result(B, res), extra], dim=1))
+        steps_all.append(steps)
+    return dict(table=tbl, packed=torch.stack(packed),
+                steps=torch.stack(steps_all))
+
+
+def _occ_sweep(res, tbl, sgid, sgc, premapped, seeds, active0, lane_ids,
+               G, gather):
+    """One round's validation in tx order against the block-start table
+    (reference ``occ_body`` :1099-1193): the disjoint fast path when no
+    lane reads or writes a row another lane may write, else the
+    sequential sweep.  Returns (table after the valid lanes' writes,
+    valid, re-pending, next seeds, escape)."""
+    B, S = sgid.shape
+    dev = tbl.device
+    sflag, status = res["sflag"], res["status"]
+    entry = torch.arange(S, device=dev)[None, :] < res["scnt"][:, None]
+    missed = (entry & ((sflag & F_MISS) != 0)).any(dim=1)
+    hosty = (status == HOST) | missed
+    skip = status == SKIP
+    rflags = entry & ((sflag & F_READ) != 0) & premapped
+    pot_w = entry & ((sflag & F_WRITTEN) != 0) & premapped \
+        & (~skip & ~hosty & (status == STOP))[:, None]
+    gids_w_all = torch.where(pot_w, sgid, G).reshape(-1)
+    nw = torch.zeros((G + 1,), dtype=torch.int32, device=dev)
+    nw.index_add_(0, gids_w_all, torch.ones_like(gids_w_all,
+                                                 dtype=torch.int32))
+    wlane = torch.full((G + 1,), -1, dtype=torch.int32, device=dev)
+    wlane[gids_w_all] = lane_ids.reshape(-1)
+    rg = sgid.clamp(0, G)
+    conflict = bool((nw[:G] > 1).any()) or bool(
+        (rflags & (nw[rg] > 0) & (wlane[rg] != lane_ids)).any())
+    sval, sorig = res["sval"], res["sorig"]
+    if not conflict:
+        cur0 = gather(tbl, sgid, sgc)
+        match0 = (sorig == cur0).all(dim=-1)
+        reads_ok0 = (~rflags | match0).all(dim=1)
+        valid0 = ~skip & ~hosty & reads_ok0
+        wr0 = pot_w & valid0[:, None]
+        t2 = tbl.clone()
+        t2[sgid[wr0]] = sval[wr0]
+        pend0 = ~skip & ~hosty & ~reads_ok0
+        seeds2 = torch.where(pend0[:, None, None], cur0, seeds)
+        return t2, valid0, pend0, seeds2, hosty & active0
+    t2 = tbl.clone()
+    ok = torch.zeros((B,), dtype=torch.bool, device=dev)
+    pend2 = torch.zeros((B,), dtype=torch.bool, device=dev)
+    seeds2 = seeds.clone()
+    for j in range(B):
+        cur = gather(t2, sgid[j], sgc[j])                   # (S, 16)
+        readf = entry[j] & ((sflag[j] & F_READ) != 0) & premapped[j]
+        match = (sorig[j] == cur).all(dim=-1)
+        reads_ok = bool((~readf | match).all())
+        valid = not bool(skip[j]) and not bool(hosty[j]) and reads_ok
+        if valid and int(status[j]) == STOP:
+            wr = entry[j] & ((sflag[j] & F_WRITTEN) != 0) & premapped[j]
+            t2[sgid[j][wr]] = sval[j][wr]
+        if not bool(skip[j]) and not bool(hosty[j]) and not reads_ok:
+            seeds2[j] = cur
+            pend2[j] = True
+        ok[j] = valid
+    return t2, ok, pend2, seeds2, hosty & active0
+
+
+def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
+                   key_tab: torch.Tensor, blocks_in: dict) -> dict:
+    """K6: one fused OCC window.  CUDA inputs launch
+    ``csrc/occ_window.cu`` (asynchronous, current stream: nothing here
+    waits for the card); CPU inputs run ``occ_run_plain``.  Same
+    arguments and result as ``occ_run_plain``."""
+    dev = table.device
+    B, S, W, G = p.batch, p.scache_cap, occ.blocks, occ.table_cap
+    if table.shape != (G, LIMBS) or key_tab.shape != (G, LIMBS):
+        raise ValueError(f"run_occ_window: tables {tuple(table.shape)}, "
+                         f"{tuple(key_tab.shape)} != ({G}, {LIMBS})")
+    shapes = {"code": (W, B, p.code_cap + 33), "jdest": (W, B, p.code_cap),
+              "calldata": (W, B, p.data_cap), "sgid": (W, B, S),
+              "active": (W, B), "timestamp": (W,),
+              "chainid_w": (LIMBS,), "coinbase_w": (W, LIMBS)}
+    for k in _EXEC_KEYS + ("active", "sgid", "chainid_w"):
+        t = blocks_in[k]
+        if t.device != dev or t.dtype not in (torch.int32, torch.bool):
+            raise ValueError(f"run_occ_window: {k} must be int32 on {dev}")
+        if k in shapes and tuple(t.shape) != shapes[k]:
+            raise ValueError(f"run_occ_window: {k} {tuple(t.shape)} != "
+                             f"{shapes[k]}")
+    if dev.type == "cpu":
+        return occ_run_plain(p, occ, table, key_tab, blocks_in)
+    if dev.type != "cuda":
+        raise ValueError(f"run_occ_window: unsupported device {dev}")
+    if S * LIMBS * 4 > 48 * 1024:
+        raise ValueError(f"run_occ_window: scache_cap {S} exceeds the "
+                         "sweep's shared-memory row buffer")
+    global OCC_LAUNCHES
+    lib = kernels.load("occ_window")
+    lane = [blocks_in[k].to(torch.int32).contiguous()
+            for k in _OCC_LANE_INPUTS]
+    env = torch.stack([blocks_in["coinbase_w"],
+                       blocks_in["chainid_w"].reshape(1, LIMBS).expand(
+                           W, LIMBS),
+                       blocks_in["basefee_w"]], dim=1).to(
+        torch.int32).contiguous()                            # (W, 3, 16)
+    scal = torch.stack([blocks_in[k].to(torch.int32) for k in
+                        ("timestamp", "number", "gaslimit")]).contiguous()
+    tb = _tables(p.fork, dev)
+    tables = torch.stack([tb["const_gas"], tb["nin"], tb["nout"],
+                          tb["supported"]]).to(torch.int32).contiguous()
+    TC = p.tcache_cap
+    out_table = table.to(torch.int32).clone()
+    key_tab = key_tab.to(torch.int32).contiguous()
+    packed = torch.empty((W, B, p.width + 4), dtype=torch.int32, device=dev)
+    steps = torch.empty((W, B), dtype=torch.int32, device=dev)
+    arena = torch.empty(
+        (B, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32),
+        dtype=torch.uint8, device=dev)
+    # scratch: the lanes' storage-cache inputs (keys, seeds, flags, key
+    # counts), the pending mask, and the sweep's per-row overlay
+    # (values + the stamp of the sweep that wrote them)
+    i32 = dict(dtype=torch.int32, device=dev)
+    skey0 = torch.empty((B, S, LIMBS), **i32)
+    seeds = torch.empty((B, S, LIMBS), **i32)
+    lanes_i = torch.empty((4, B), **i32)        # nkeys, pending, ok, esc
+    sflag0 = torch.empty((B, S), **i32)
+    ov = torch.empty((G, LIMBS), **i32)
+    stamp = torch.zeros((G,), **i32)
+    dims = np.array([B, p.stack_cap, p.mem_cap, p.code_cap, p.data_cap, S,
+                     TC, p.log_cap, p.log_data_cap, p.keccak_cap,
+                     p.copy_cap, p.max_steps, int(p.refunds), 0, 0, 0,
+                     p.width, arena.shape[1], W, G, occ.rounds],
+                    dtype=np.int32)
+    rc = lib.occ_window_launch(
+        *(t.data_ptr() for t in lane), env.data_ptr(), scal.data_ptr(),
+        tables.data_ptr(), key_tab.data_ptr(), dims.ctypes.data,
+        out_table.data_ptr(), packed.data_ptr(), steps.data_ptr(),
+        arena.data_ptr(), skey0.data_ptr(), seeds.data_ptr(),
+        sflag0.data_ptr(), lanes_i.data_ptr(), ov.data_ptr(),
+        stamp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(rc, "occ_window")
+    OCC_LAUNCHES += 1
+    return dict(table=out_table, packed=packed, steps=steps)
+
+
+# Per-lane inputs of a window, in the order K6 takes them.
+_OCC_LANE_INPUTS = ("code", "jdest", "code_len", "calldata", "data_len",
+                    "start_gas", "active", "sgid", "callvalue",
+                    "caller_w", "address_w", "origin_w", "gasprice_w")

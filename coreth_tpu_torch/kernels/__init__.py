@@ -29,6 +29,7 @@ SOURCES = {
     "keccak256_blocks": "keccak256_blocks.cu",
     "u256x_eval": "u256x_eval.cu",
     "step_machine": "step_machine.cu",
+    "occ_window": "occ_window.cu",
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -127,6 +128,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "step_machine":
         lib.step_machine_launch.argtypes = [P] * 24
         lib.step_machine_launch.restype = I
+    elif name == "occ_window":
+        lib.occ_window_launch.argtypes = [P] * 29
+        lib.occ_window_launch.restype = I
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,8 +2,10 @@
 
 Port of reference ``replay/engine.py``: the transfer fast path and, for
 the blocks it rejects, general contract blocks on the device step
-machine (``replay/machine_block``, one block at a time — the reference's
-per-block OCC configuration).  The transfer path:
+machine (``replay/machine_block``): runs of consecutive machine blocks in
+fused OCC windows (``device_occ=True``, the reference's default), or one
+block at a time (``device_occ=False``, its per-block OCC configuration).
+The transfer path:
 
 1. **Classify** (host): a block is device-replayable when every tx is a
    pure value transfer (``to`` set, empty calldata, no access list,
@@ -24,12 +26,15 @@ per-block OCC configuration).  The transfer path:
 
 A block the transfer classifier rejects goes to the machine path:
 ``MachineBlockExecutor.classify`` takes it when every tx is a transfer
-or a call into device-eligible contract code, and executes it on the
-step machine (K5, with the K4 ALU and K3 keccak inside) with
-miss-and-rerun storage rounds, OCC validation, and the conflict suffix
-on the native host session.  A block neither path takes — contract
-creation, host-only opcodes, a lane that escapes the machine — or whose
-device ``ok`` flag is 0, or that fails a consensus check, raises
+or a call into device-eligible contract code.  With ``device_occ`` the
+engine collects up to ``LOOKAHEAD`` consecutive such blocks and runs
+them in windows of the fused OCC kernel (K6, with K5's lane interpreter,
+the K4 ALU and K3 keccak inside); without it, each block runs on the
+step machine (K5) with miss-and-rerun storage rounds, OCC validation on
+the host, and the conflict suffix on the native host session.  A block
+neither path takes — contract creation, host-only opcodes, a lane that
+escapes the machine — or whose device ``ok`` flag is 0, or that fails a
+consensus check, raises
 ``ReplayError`` with ``.block`` set: the host execution path (the
 reference's ``Processor`` fallback) is not ported yet, and the engine
 refuses loudly instead.
@@ -505,7 +510,9 @@ class ReplayEngine:
     store) — holds the state at the parent of the first block to replay (its account
     trie's hash is the starting root) and is advanced by every fold.
     ``device`` defaults to ``"cuda"`` and raises without a card;
-    ``device="cpu"`` runs the kernels' plain versions."""
+    ``device="cpu"`` runs the kernels' plain versions.  ``device_occ``
+    (the reference's ``CORETH_DEVICE_OCC``, default on) runs machine
+    blocks in fused OCC windows; off, one block at a time."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -515,8 +522,10 @@ class ReplayEngine:
                  state: StateStore,
                  parent_header=None, batch_pad: int = 1024,
                  capacity: int = 1 << 14, window: int = 16,
-                 slot_capacity: Optional[int] = None, device=None):
+                 slot_capacity: Optional[int] = None, device=None,
+                 device_occ: bool = True):
         self.device = default_device(device)
+        self.device_occ = device_occ
         self.config = config
         self.store = state
         self.trie = self.store.trie
@@ -868,21 +877,41 @@ class ReplayEngine:
         suffix txs, step-machine launches and lane-steps)."""
         return self._machine_executor().counters()
 
-    def _machine_run(self, block: Block) -> None:
-        """Run a block the transfer classifier rejected on the device
-        step machine: the reference's ``_try_machine`` / ``_machine_run``
-        with the per-block OCC configuration's lookahead of one block.
-        Raises ReplayError when the machine cannot take the block."""
+    def _machine_run(self, blocks: List[Block], i: int,
+                     ensure=None) -> int:
+        """Run blocks the transfer classifier rejected, starting at
+        ``i``: collect consecutive machine blocks (up to the executor's
+        ``LOOKAHEAD`` with ``device_occ``, else one) into one run for
+        ``MachineBlockExecutor.execute_run``.  A run stops at the first
+        later block the transfer classifier takes, and at a fork change.
+        Returns how many blocks were replayed (>= 1); raises ReplayError
+        when the machine cannot take block ``i``."""
         mx = self._machine_executor()
-        t0 = time.monotonic()
-        plans = mx.classify(block)
-        self.stats.t_classify += time.monotonic() - t0
-        if plans is None:
-            raise self._refuse(block)
-        if mx.execute(block, plans) is None:
-            raise _block_error(
-                "a call escaped the device step machine (HOST); "
-                f"{_NOT_PORTED}", block)
+        lookahead = mx.LOOKAHEAD if self.device_occ else 1
+        items = []
+        fork = None
+        j = i
+        while j < len(blocks) and len(items) < lookahead:
+            if ensure is not None:
+                ensure(j)
+            t0 = time.monotonic()
+            # blocks past the first stay with the cheaper transfer path
+            # when it can take them (block i is here because it could
+            # not); the outer loop classifies that block again
+            if j > i and self._classify(blocks[j]) is not None:
+                self.stats.t_classify += time.monotonic() - t0
+                break
+            plans = mx.classify(blocks[j])
+            self.stats.t_classify += time.monotonic() - t0
+            if plans is None or (fork is not None and mx._fork != fork):
+                break
+            fork = mx._fork
+            items.append((blocks[j], plans))
+            j += 1
+        if not items:
+            raise self._refuse(blocks[i])
+        mx._fork = fork
+        return mx.execute_run(items)
 
     def replay_block(self, block: Block) -> bytes:
         """Process one block synchronously."""
@@ -891,7 +920,7 @@ class ReplayEngine:
         batch = self._classify(block)
         self.stats.t_classify += time.monotonic() - t0
         if batch is None:
-            self._machine_run(block)
+            self._machine_run([block], 0)
             return self.root
         self._complete_window_run(self._issue_window_run([(block, batch)]))
         return self.root
@@ -928,8 +957,7 @@ class ReplayEngine:
                 if pending is not None:
                     self._complete_window_run(pending)
                     pending = None
-                self._machine_run(refused)   # pipe.ensure(i) ran above
-                i += 1
+                i += self._machine_run(blocks, i, ensure=pipe.ensure)
         return self.root
 
     def commit(self) -> bytes:

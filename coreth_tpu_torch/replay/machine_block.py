@@ -1,21 +1,32 @@
 """Machine blocks: general contract blocks on the device step machine,
 with an optimistic execute-validate-retry scheduler.
 
-Port of reference ``replay/machine_block.py`` in its per-block OCC
-configuration (the reference's ``CORETH_DEVICE_OCC=0``): every call tx
-whose callee bytecode is device-eligible executes on the step machine
-(``evm/device``: the K5 kernel on the card) against block-start state,
-and cross-tx ordering is repaired Block-STM style:
+Port of reference ``replay/machine_block.py``.  Every call tx whose
+callee bytecode is device-eligible executes on the step machine against
+block-start state, and cross-tx ordering is repaired Block-STM style.
+Two execution paths, chosen by the engine's ``device_occ``:
 
-1. round 0 executes the block's calls in one device batch;
-2. a sequential host sweep validates each tx's observed read set
-   against the in-block state the valid prefix produced; txs whose
-   reads diverge re-execute with the best-known pre-state snapshot;
-3. after ``DEVICE_ROUNDS`` device rounds, the conflict suffix (every
-   call from the first still-pending one on) runs sequentially on the
-   native host session (``evm/hostexec``, native/evm.cc), seeded with
-   the device-valid prefix's writes — the reference reaches the same
-   compiled executor through its interpreter's hostexec bridge.
+- ``execute_run`` (``device_occ=True``, the reference's default
+  ``CORETH_DEVICE_OCC=1`` with ``CORETH_SPECIALIZE=0``): WINDOWS of up to
+  ``WINDOW`` consecutive machine blocks run in one launch of the fused
+  OCC kernel (K6, ``adapter.MachineWindowRunner``): the round loop,
+  validation and the cross-block state fold stay on the device, against
+  a slot table that lives there.  The next window is launched before the
+  previous one's tries fold.  A block the kernel marks dirty (a lane
+  that escaped) goes to ``execute`` and ends the run.
+- ``execute`` (``device_occ=False``, the reference's
+  ``CORETH_DEVICE_OCC=0``, and the dirty-block route): one block at a
+  time on K5 —
+
+  1. round 0 executes the block's calls in one device batch;
+  2. a sequential host sweep validates each tx's observed read set
+     against the in-block state the valid prefix produced; txs whose
+     reads diverge re-execute with the best-known pre-state snapshot;
+  3. after ``DEVICE_ROUNDS`` device rounds, the conflict suffix (every
+     call from the first still-pending one on) runs sequentially on the
+     native host session (``evm/hostexec``, native/evm.cc), seeded with
+     the device-valid prefix's writes — the reference reaches the same
+     compiled executor through its interpreter's hostexec bridge.
 
 Account effects (nonces, buyGas solvency, value moves, fees) are a host
 sweep over Python ints, O(txs).  A block this executor cannot finish —
@@ -37,7 +48,7 @@ from coreth_tpu_torch.crypto import native
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import tables as DT
 from coreth_tpu_torch.evm.device.adapter import (
-    BlockEnv, MachineRunner, TxResult, TxSpec,
+    BlockEnv, MachineRunner, MachineWindowRunner, TxResult, TxSpec,
 )
 from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
 from coreth_tpu_torch.evm.hostexec.eligibility import (
@@ -55,6 +66,14 @@ from coreth_tpu_torch.types import (
 # optimistic device rounds before the conflict suffix goes to the
 # native session (the reference's CORETH_OCC_DEVICE_ROUNDS default)
 DEVICE_ROUNDS = 2
+
+# window-runner counters that accumulate across runner rebuilds: the
+# premap and discovery counts (reported as they are), then K6's launches,
+# lane-steps and host-clock split
+_PREMAP_COUNTERS = ("premap_predicted", "premap_hits", "premap_nested",
+                    "premap_array", "discovery_dispatches")
+_RUNNER_COUNTERS = _PREMAP_COUNTERS + ("launches", "steps", "t_pack",
+                                       "t_machine", "t_unpack")
 
 
 @dataclass
@@ -76,6 +95,12 @@ class MachineBlockExecutor:
     """Classification and execution of machine blocks for one
     ReplayEngine (shares its tries, code store and device tables)."""
 
+    # machine blocks per fused window launch, and how many blocks ahead
+    # the engine classifies for one run (the reference's
+    # CORETH_MACHINE_WINDOW / CORETH_MACHINE_LOOKAHEAD defaults)
+    WINDOW = 8
+    LOOKAHEAD = 32
+
     def __init__(self, engine):
         self.e = engine
         self.rounds = 0            # OCC re-execution rounds
@@ -84,17 +109,38 @@ class MachineBlockExecutor:
         self.native_txs = 0        # ... of them served by the native session
         self.launches = 0          # step-machine runs (miss rounds included)
         self.steps = 0             # lane-steps those runs executed
-        # host-clock seconds of the runners (adapter.MachineRunner) and
-        # of the native conflict suffix
+        # host-clock seconds of the runners (adapter.MachineRunner and
+        # MachineWindowRunner) and of the native conflict suffix
         self.t_pack = self.t_machine = self.t_unpack = self.t_suffix = 0.0
+        self.windows = 0           # fused OCC windows completed
+        self.window_attempts = 0   # launches those windows took
+        self.dirty_blocks = 0      # blocks the fused path escalated
+        self.last_writes: Dict[Tuple[bytes, bytes], int] = {}
         self._fork: Optional[str] = None
+        self._runner: Optional[MachineWindowRunner] = None
+        self._runner_fork: Optional[str] = None
+        self._runner_totals = dict.fromkeys(_RUNNER_COUNTERS, 0)
 
     def counters(self) -> dict:
+        """The machine path's counters.  ``launches`` / ``steps`` are K5's
+        (per-block path), ``window_launches`` / ``window_steps`` K6's;
+        the ``t_*`` times sum both runners."""
+        w = dict(self._runner_totals)
+        if self._runner is not None:
+            for k in w:
+                w[k] += getattr(self._runner, k)
         return dict(blocks=self.blocks, rounds=self.rounds,
                     host_txs=self.host_txs, native_txs=self.native_txs,
                     launches=self.launches, steps=self.steps,
-                    t_pack=self.t_pack, t_machine=self.t_machine,
-                    t_unpack=self.t_unpack, t_suffix=self.t_suffix)
+                    window_launches=w["launches"],
+                    window_steps=w["steps"],
+                    t_pack=self.t_pack + w["t_pack"],
+                    t_machine=self.t_machine + w["t_machine"],
+                    t_unpack=self.t_unpack + w["t_unpack"],
+                    t_suffix=self.t_suffix, windows=self.windows,
+                    window_attempts=self.window_attempts,
+                    dirty_blocks=self.dirty_blocks,
+                    **{k: w[k] for k in _PREMAP_COUNTERS})
 
     # ------------------------------------------------------------ classify
     def classify(self, block: Block) -> Optional[List[TxPlan]]:
@@ -336,9 +382,13 @@ class MachineBlockExecutor:
 
     # --------------------------------------------------------- finish
     def _finish_block(self, block: Block, plans: List[TxPlan],
-                      results: Dict[int, TxResult]) -> bytes:
+                      results: Dict[int, TxResult],
+                      defer: bool = False) -> Optional[bytes]:
         """Account sweep + receipts + staged trie commit for one block
-        whose call results are final; folds and root-checks it."""
+        whose call results are final; folds and root-checks it, unless
+        ``defer``: then the caller owns the flush, so a fused window
+        folds once while the next window's launch is in flight.  The
+        block's storage writes are left in ``last_writes``."""
         e = self.e
         t1 = time.monotonic()
         accounts: Dict[bytes, List[int]] = {}  # addr -> [bal, nonce]
@@ -438,6 +488,7 @@ class MachineBlockExecutor:
         # stage storage + accounts, and refresh the device tables the
         # transfer path reads
         final = {addr: (st[0], st[1]) for addr, st in accounts.items()}
+        self.last_writes = writes_final
         e.commit_pipe.stage(block.header, final, writes_final)
         for addr in accounts:
             e._account(addr)
@@ -447,4 +498,126 @@ class MachineBlockExecutor:
         e.stats.blocks_device += 1
         e.stats.txs += len(block.transactions)
         e.stats.t_trie += time.monotonic() - t1
+        if defer:
+            return None
         return e.commit_pipe.flush()
+
+    # ------------------------------------------------- fused OCC windows
+    def _window_runner(self) -> MachineWindowRunner:
+        """The persistent fused-OCC runner, rebuilt when the fork
+        changes (its counters carry over)."""
+        if self._runner is None or self._runner_fork != self._fork:
+            if self._runner is not None:
+                for k in self._runner_totals:
+                    self._runner_totals[k] += getattr(self._runner, k)
+            self._runner = MachineWindowRunner(
+                self._fork, self._base_value, device=self.e.device)
+            self._runner.seed_window_hint(self.WINDOW)
+            self._runner_fork = self._fork
+        return self._runner
+
+    def _window_items(self, chunk):
+        """(BlockEnv, [TxSpec]) pairs for the call lanes of a chunk."""
+        e = self.e
+        out = []
+        for block, plans in chunk:
+            env = BlockEnv(
+                coinbase=block.header.coinbase, timestamp=block.time,
+                number=block.number, gas_limit=block.header.gas_limit,
+                chain_id=e.config.chain_id, base_fee=block.base_fee or 0)
+            specs = [TxSpec(
+                code=pl.code, calldata=pl.data,
+                gas=pl.gas_limit - pl.intrinsic, value=pl.value,
+                caller=pl.sender, address=pl.to, origin=pl.sender,
+                gas_price=pl.price) for pl in plans if pl.kind == "call"]
+            out.append((env, specs))
+        return out
+
+    def execute_run(self, items) -> int:
+        """Execute a run of consecutive machine blocks ``items`` =
+        [(block, plans), ...]; returns how many blocks it finished (>= 1).
+
+        With the engine's ``device_occ`` the blocks chunk into windows
+        of ``WINDOW``, one fused launch each.  The next chunk is launched
+        BEFORE the previous chunk's tries fold (the device table carries
+        the committed state across launches), so the host folds window N
+        while the card runs window N+1.  A dirty block (an escaped lane)
+        re-runs through ``execute``, and the run stops after it so the
+        engine re-classifies against the repaired state.  Without
+        ``device_occ`` the first block runs through ``execute`` alone.
+        Raises ReplayError for a block neither path can finish."""
+        e = self.e
+        if not e.device_occ:
+            block, plans = items[0]
+            self._execute_or_raise(block, plans)
+            return 1
+        runner = self._window_runner()
+        chunks = [items[k:k + self.WINDOW]
+                  for k in range(0, len(items), self.WINDOW)]
+        t0 = time.monotonic()
+        inflight = runner.issue(self._window_items(chunks[0]))
+        e.stats.t_device += time.monotonic() - t0
+        return self._chunk_loop(runner, chunks, inflight)
+
+    def _execute_or_raise(self, block: Block, plans) -> None:
+        if self.execute(block, plans) is None:
+            from coreth_tpu_torch.replay.engine import _NOT_PORTED, \
+                _block_error
+            raise _block_error(
+                "a call escaped the device step machine (HOST); "
+                f"{_NOT_PORTED}", block)
+
+    def _chunk_loop(self, runner: MachineWindowRunner, chunks,
+                    inflight) -> int:
+        e = self.e
+        consumed = 0
+        for ci, chunk in enumerate(chunks):
+            t0 = time.monotonic()
+            wres = runner.complete(inflight)
+            e.stats.t_device += time.monotonic() - t0
+            self.windows += 1
+            self.window_attempts += wres.attempts
+            # pipeline: launch the NEXT chunk before folding this one —
+            # its base state is the device-resident table.  The runner's
+            # host mirror must learn this chunk's writes first: if the
+            # next chunk grows the table past its pow2 cap, issue()
+            # rebuilds it from the mirror
+            pre_committed = False
+            if ci + 1 < len(chunks) and all(wres.clean):
+                for k, (_block, plans) in enumerate(chunk):
+                    calls = [pl for pl in plans if pl.kind == "call"]
+                    writes: Dict[Tuple[bytes, bytes], int] = {}
+                    for pl, res in zip(calls, wres.results[k]):
+                        if res.status == M.STOP:
+                            for key, v in res.writes.items():
+                                writes[(pl.to, key)] = v
+                    runner.commit_block(writes)
+                pre_committed = True
+                t0 = time.monotonic()
+                inflight = runner.issue(self._window_items(chunks[ci + 1]))
+                e.stats.t_device += time.monotonic() - t0
+            for k, (block, plans) in enumerate(chunk):
+                if wres.clean[k]:
+                    call_idx = [i for i, pl in enumerate(plans)
+                                if pl.kind == "call"]
+                    results = {i: wres.results[k][n]
+                               for n, i in enumerate(call_idx)}
+                    self.rounds += max(0, wres.rounds[k] - 1)
+                    # deferred: the window's writes fold once, below
+                    self._finish_block(block, plans, results, defer=True)
+                    if not pre_committed:
+                        runner.commit_block(self.last_writes)
+                    consumed += 1
+                    continue
+                # dirty: partial commits may sit in the device table and
+                # every later block of the window ran on a speculative
+                # base — this block goes to the per-block path, the rest
+                # back to the engine (execute() folds the clean prefix)
+                self.dirty_blocks += 1
+                runner.invalidate()
+                self._execute_or_raise(block, plans)
+                runner.commit_block(self.last_writes)
+                return consumed + 1
+            # ONE deduped fold + root check per fused window
+            e.commit_pipe.flush()
+        return consumed

@@ -149,9 +149,11 @@ def test_step_machine_step_bound_on_the_card(cuda):
     assert packed[:3, 3].tolist() == [M.R_STEPS] * 3
 
 
-def test_erc20_replay_on_the_card(cuda):
-    """ERC-20 transfer() blocks replay through the machine path with the
-    step-machine kernel, to the header roots."""
+@pytest.mark.parametrize("device_occ", [False, True])
+def test_erc20_replay_on_the_card(cuda, device_occ):
+    """ERC-20 transfer() blocks replay through the machine path, per
+    block on the step-machine kernel or in fused windows on K6, to the
+    header roots."""
     from coreth_tpu_torch.evm.device import machine as M
     from coreth_tpu_torch.replay import ReplayEngine
     from coreth_tpu_torch.state import StateStore
@@ -160,11 +162,81 @@ def test_erc20_replay_on_the_card(cuda):
     store = StateStore()
     gb = genesis.to_block(store)
     eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
-                       batch_pad=32, capacity=256, device=cuda)
-    launches = M.LAUNCHES
+                       batch_pad=32, capacity=256, device=cuda,
+                       device_occ=device_occ)
+    launches, occ_launches = M.LAUNCHES, M.OCC_LAUNCHES
     root = eng.replay([Block.decode(b.encode()) for b in blocks])
     eng.close()
     assert root == blocks[-1].header.root
     mc = eng.machine_counters()
     assert mc["blocks"] == 3 and mc["rounds"] > 0
-    assert M.LAUNCHES - launches == mc["launches"] > 0
+    assert M.LAUNCHES - launches == mc["launches"]
+    assert M.OCC_LAUNCHES - occ_launches == mc["window_launches"]
+    if device_occ:
+        assert mc["window_launches"] >= mc["windows"] >= 1
+        assert mc["launches"] == 0 and mc["dirty_blocks"] == 0
+    else:
+        assert mc["launches"] > 0 and mc["window_launches"] == 0
+
+
+def _occ_both(pk, occ=None):
+    """K6 and its plain version on one packed window (card tensors)."""
+    from coreth_tpu_torch.evm.device import machine as M
+    args = (pk["p"], occ or pk["occ"], pk["table"], pk["key_tab"],
+            pk["inputs"])
+    launches = M.OCC_LAUNCHES
+    got = M.run_occ_window(*args)
+    assert M.OCC_LAUNCHES == launches + 1
+    want = M.occ_run_plain(*args)
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(C.WINDOW_CASES))
+def test_occ_window_kernel_matches_plain(cuda, name):
+    """Table, packed rows (trailing columns included) and lane-steps of
+    every window case equal the plain version's."""
+    _occ_both(C.pack_window(name, device=cuda))
+
+
+def test_occ_window_kernel_unmapped_entries_and_round_cap(cuda):
+    from coreth_tpu_torch.evm.device import machine as M
+    pk = C.pack_window("chained_blocks", device=cuda)
+    G = pk["occ"].table_cap
+    sgid = pk["inputs"]["sgid"]
+    sgid[:, :, 8] = G + 1
+    sgid[:, :, 10] = 10**6
+    _occ_both(pk)
+    for name, rounds, pending in (("swap", 3, 3), ("host_and_miss", 1, 1)):
+        pk = C.pack_window(name, device=cuda)
+        got = _occ_both(pk, M.OccParams(blocks=pk["occ"].blocks,
+                                        table_cap=pk["occ"].table_cap,
+                                        rounds=rounds))
+        assert got["packed"][0, :, -2].sum() == pending  # at the cap
+
+
+def test_occ_window_kernel_wide_cache_and_many_lanes(cuda):
+    """A 64-entry storage cache (entries past the sweep warp's 32
+    threads) and 512 lanes (more lanes than the CTA's 256 threads)."""
+    from coreth_tpu_torch.evm.device import adapter as A
+    blocks = C.wide_cache_window()
+    runner = A.MachineWindowRunner(
+        "durango", C.resolver_for([ln for b in blocks for ln in b]),
+        device=cuda)
+    pk = runner.pack(C.window_items(blocks, A.TxSpec, A.BlockEnv))
+    assert pk["p"].scache_cap == 64
+    _occ_both(pk)
+    pk = chip_smoke.escape_window(cuda, np.random.default_rng(3), lanes=300)
+    assert pk["p"].batch == 512
+    _occ_both(pk)
+
+
+def test_occ_window_kernel_on_chip_smoke_windows(cuda):
+    """The swap and escape windows chip_smoke.py measures, at their full
+    shapes (8 swaps a block; 16 lanes with a HOST lane, a missed key and
+    trailing inactive blocks)."""
+    rng = np.random.default_rng(7)
+    for pk in (chip_smoke.swap_window(cuda),
+               chip_smoke.escape_window(cuda, rng)):
+        _occ_both(pk)

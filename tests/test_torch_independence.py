@@ -49,6 +49,18 @@ def test_no_file_imports_jax_or_the_reference():
     assert not bad, bad
 
 
+def test_every_kernel_wrapper_is_scanned():
+    """Each CUDA source under csrc/ is launched from a wrapper module
+    that the import scan above covers (K6's ``run_occ_window`` too)."""
+    from coreth_tpu_torch import kernels
+    texts = {path: open(path).read() for path in _port_sources()}
+    for name, src in kernels.SOURCES.items():
+        assert os.path.exists(os.path.join(kernels.CSRC, src)), src
+        users = [p for p, t in texts.items()
+                 if f'kernels.load("{name}")' in t]
+        assert users, f"no scanned wrapper launches {name}"
+
+
 _REPLAY_SCRIPT = r"""
 import sys
 import coreth_tpu_torch.chain as C
@@ -138,4 +150,7 @@ def test_entry_points_refuse_cpu_without_being_asked():
         default_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         ReplayEngine(TEST_CHAIN_CONFIG, StateStore())
+    from coreth_tpu_torch.evm.device.adapter import MachineWindowRunner
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MachineWindowRunner("durango", lambda addr, key: 0)
     assert default_device("cpu").type == "cpu"

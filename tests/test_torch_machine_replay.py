@@ -4,13 +4,16 @@ reference.
 Chains of contract calls (ERC-20 ``transfer()``/``balanceOf()``, swaps
 into the shared-slot pool, reverts, transfers in between) come from
 both chain builders and must be the same blocks.  The reference
-``ReplayEngine`` in its per-block OCC configuration
-(``CORETH_DEVICE_OCC=0``, ``CORETH_NO_TOKEN_FASTPATH=1``, and
+``ReplayEngine`` (``CORETH_NO_TOKEN_FASTPATH=1``, and
 ``CORETH_SERIAL_SHORTCIRCUIT=0`` so swaps take OCC too) and the port's
-engine (``device="cpu"``: the step machine's plain version) replay the
-same blocks one by one: the roots must agree with each other and with
-the headers after every block, and the machine counters (blocks, OCC
-rounds, conflict-suffix txs) must agree.  Mirrors
+engine (``device="cpu"``: the kernels' plain versions) replay the same
+blocks one by one, both in the per-block OCC configuration
+(``CORETH_DEVICE_OCC=0`` / ``device_occ=False``: K5) and, where a case
+holds in both, also in the fused window configuration
+(``CORETH_DEVICE_OCC=1`` with ``CORETH_SPECIALIZE=0`` /
+``device_occ=True``: K6, one-block windows): the roots must agree with
+each other and with the headers after every block, and the machine
+counters (blocks, OCC rounds, conflict-suffix txs) must agree.  Mirrors
 tests/test_machine_block.py.
 """
 
@@ -25,6 +28,7 @@ from coreth_tpu.chain import Genesis as RGenesis
 from coreth_tpu.chain import GenesisAccount as RAccount
 from coreth_tpu.chain import generate_chain as r_generate_chain
 from coreth_tpu.crypto.secp256k1 import priv_to_address
+from coreth_tpu.evm.device import adapter as radapter
 from coreth_tpu.params import TEST_CHAIN_CONFIG as RCFG
 from coreth_tpu.replay import ReplayEngine as RReplayEngine
 from coreth_tpu.state import Database
@@ -34,6 +38,7 @@ from coreth_tpu.workloads import erc20 as rerc20
 from coreth_tpu.workloads import swap as rswap
 
 from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
+from coreth_tpu_torch.evm.device import adapter as tadapter
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
 from coreth_tpu_torch.replay import ReplayEngine, ReplayError
 from coreth_tpu_torch.state import StateStore
@@ -58,6 +63,16 @@ def reference_env(monkeypatch):
     monkeypatch.setenv("CORETH_DEVICE_OCC", "0")
     monkeypatch.setenv("CORETH_NO_TOKEN_FASTPATH", "1")
     monkeypatch.setenv("CORETH_SERIAL_SHORTCIRCUIT", "0")
+
+
+def _occ_env(monkeypatch, device_occ: bool) -> None:
+    """Switch the reference to the port's configuration: its fused
+    window path without K7 when ``device_occ``, else per-block OCC.
+    Both packages' learned-recipe stores start empty."""
+    monkeypatch.setenv("CORETH_DEVICE_OCC", "1" if device_occ else "0")
+    monkeypatch.setenv("CORETH_SPECIALIZE", "0")
+    radapter.RECIPES.clear()
+    tadapter.RECIPES.clear()
 
 
 def _alloc(pkg, extra=None):
@@ -117,7 +132,7 @@ def _chains(n_blocks, txs_of, extra=None, port_builder=True):
     return rgen, pgen, rblocks
 
 
-def _replay_both(n_blocks, txs_of, extra=None):
+def _replay_both(n_blocks, txs_of, extra=None, device_occ=False):
     rgen, pgen, rblocks = _chains(n_blocks, txs_of, extra)
     db = Database()
     rgb = rgen.to_block(db)
@@ -126,7 +141,7 @@ def _replay_both(n_blocks, txs_of, extra=None):
     store = StateStore()
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
-                        batch_pad=64, device="cpu")
+                        batch_pad=64, device="cpu", device_occ=device_occ)
     for rb in rblocks:
         ref.replay_block(rb)
         port.replay_block(Block.decode(rb.encode()))
@@ -152,11 +167,20 @@ def _erc20_txs(i, n=12):
     return out
 
 
-def test_erc20_chain_matches_reference(reference_env):
-    port = _replay_both(3, _erc20_txs)
+@pytest.mark.parametrize("device_occ", [False, True])
+def test_erc20_chain_matches_reference(reference_env, monkeypatch,
+                                       device_occ):
+    _occ_env(monkeypatch, device_occ)
+    port = _replay_both(3, _erc20_txs, device_occ=device_occ)
     mx = port._machine
+    c = mx.counters()
     assert mx.blocks == 3 and mx.rounds > 0
-    assert mx.launches >= 3 and mx.steps > 0
+    if device_occ:
+        assert c["window_launches"] >= 3 and c["window_steps"] > 0
+        assert mx.launches == 0 and mx.windows == 3
+    else:
+        assert mx.launches >= 3 and mx.steps > 0
+        assert c["window_launches"] == 0
 
 
 def test_deep_swap_conflict_chain_suffix_on_native_session(reference_env):
@@ -172,21 +196,29 @@ def test_deep_swap_conflict_chain_suffix_on_native_session(reference_env):
     assert mx.native_txs == mx.host_txs
 
 
-def test_disjoint_balanceof_calls_take_one_round(reference_env):
+@pytest.mark.parametrize("device_occ", [False, True])
+def test_disjoint_balanceof_calls_take_one_round(reference_env, monkeypatch,
+                                                 device_occ):
+    _occ_env(monkeypatch, device_occ)
     port = _replay_both(2, lambda i: [
-        (k, TOKEN, "balanceof", ADDRS[k], 200_000, 0) for k in range(6)])
+        (k, TOKEN, "balanceof", ADDRS[k], 200_000, 0) for k in range(6)],
+        device_occ=device_occ)
     assert port._machine.blocks == 2 and port._machine.rounds == 0
 
 
-def test_machine_block_with_reverts(reference_env):
+@pytest.mark.parametrize("device_occ", [False, True])
+def test_machine_block_with_reverts(reference_env, monkeypatch, device_occ):
+    _occ_env(monkeypatch, device_occ)
     _replay_both(2, lambda i: [
         (0, TOKEN, "transfer", (b"\x50" * 20, 10), 200_000, 0),
         (1, TOKEN, "transfer", (b"\x51" * 20, 10**30), 200_000, 0),
         (2, TOKEN, "transfer", (b"\x52" * 20, 5), 30_000, 0),    # OOG
-    ])
+    ], device_occ=device_occ)
 
 
-def test_machine_then_transfer_interleave(reference_env):
+@pytest.mark.parametrize("device_occ", [False, True])
+def test_machine_then_transfer_interleave(reference_env, monkeypatch,
+                                          device_occ):
     """Machine blocks interleave with transfer-path blocks (and a
     value transfer inside a machine block); the device tables stay
     coherent across the hand-off."""
@@ -197,14 +229,17 @@ def test_machine_then_transfer_interleave(reference_env):
                 (5, bytes([0x43]) * 20, "raw", b"", 21_000, 12345)]
         return [(k, bytes([0x60 + k]) * 20, "raw", b"", 21_000, 999)
                 for k in range(4)]
-    port = _replay_both(4, txs)
+    _occ_env(monkeypatch, device_occ)
+    port = _replay_both(4, txs, device_occ=device_occ)
     assert port.stats.blocks_device == 4 and port._machine.blocks == 2
 
 
+@pytest.mark.parametrize("device_occ", [False, True])
 def test_ineligible_block_raises_where_reference_falls_back(
-        reference_env):
+        reference_env, monkeypatch, device_occ):
     """A call into host-only bytecode (SELFBALANCE) runs on the
     reference's host path; the port refuses at exactly that block."""
+    _occ_env(monkeypatch, device_occ)
     holder = b"\x72" * 20
     extra = {holder: (5, 1, bytes.fromhex("47600055" + "00"))}
 
@@ -223,7 +258,7 @@ def test_ineligible_block_raises_where_reference_falls_back(
     store = StateStore()
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
-                        batch_pad=64, device="cpu")
+                        batch_pad=64, device="cpu", device_occ=device_occ)
     blocks = [Block.decode(b.encode()) for b in rblocks]
     with pytest.raises(ReplayError, match="not ported") as exc:
         port.replay(blocks)

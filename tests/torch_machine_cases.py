@@ -1,7 +1,8 @@
-"""Programs for the step machine (K5) parity tests — JAX-free, shared by
-tests/test_torch_machine.py (the port's plain version against the JAX
-reference on the CPU) and tests/test_torch_cuda.py (the CUDA kernel
-against the plain version on the card).
+"""Programs for the step machine (K5) and fused OCC window (K6) parity
+tests — JAX-free, shared by tests/test_torch_machine.py and
+tests/test_torch_occ.py (the port's plain versions against the JAX
+reference on the CPU) and tests/test_torch_cuda.py (the CUDA kernels
+against the plain versions on the card).
 
 Each case is a list of lanes that run in ONE batch; a lane is a dict
 of code, calldata, gas, value, the contract address and its committed
@@ -19,8 +20,9 @@ from __future__ import annotations
 from typing import Dict, List
 
 from coreth_tpu_torch.workloads.erc20 import (
-    TOKEN_RUNTIME, balance_slot, transfer_calldata,
+    BALANCEOF_SELECTOR, TOKEN_RUNTIME, balance_slot, transfer_calldata,
 )
+from coreth_tpu_torch.workloads.swap import POOL_RUNTIME, swap_calldata
 
 SENDER = b"\x11" * 20
 CONTRACT = b"\xcc" * 20
@@ -45,11 +47,14 @@ def sstore_seq(exprs) -> bytes:
 
 
 def lane(code, calldata=b"", gas=500_000, storage=None, value=0,
-         address=CONTRACT) -> dict:
+         address=CONTRACT, caller=SENDER, premap=()) -> dict:
+    """One lane: ``storage`` is its contract's committed storage (raw
+    keys); ``premap`` the keys a fused window premaps for it."""
     if isinstance(code, str):
         code = bytes.fromhex(code)
     return dict(code=code, calldata=calldata, gas=gas, value=value,
-                address=address, storage=dict(storage or {}))
+                address=address, storage=dict(storage or {}),
+                caller=caller, premap=tuple(premap))
 
 
 def _k(v: int) -> bytes:
@@ -207,6 +212,145 @@ CANCUN_CASES: Dict[str, List[dict]] = {
         lane("".join(push(1) + push(k) + "5d" for k in range(9)) + "00"),
     ],
 }
+
+
+# ------------------------------------------------------ fused OCC windows
+TOKEN = b"\x77" * 20
+POOL = b"\x74" * 20
+ESCAPER_CODE = bytes.fromhex("600061138852" + "00")   # MSTORE at 5000
+
+
+def _norm(key: bytes) -> bytes:
+    return bytes([key[0] & 0xFE]) + key[1:]
+
+
+def _holder(i: int) -> bytes:
+    return (0x4000 + i).to_bytes(2, "big") * 10
+
+
+def _xfer(src: int, dst: int, amount: int, premap=True, bal=10**9,
+          gas=100_000) -> dict:
+    """An ERC-20 transfer() lane from holder ``src`` to holder ``dst``,
+    each holding ``bal`` tokens, both balance slots premapped."""
+    a, b = balance_slot(_holder(src)), balance_slot(_holder(dst))
+    return lane(TOKEN_RUNTIME, transfer_calldata(_holder(dst), amount),
+                gas=gas, storage={a: bal, b: bal}, address=TOKEN,
+                caller=_holder(src),
+                premap=(_norm(a), _norm(b)) if premap else ())
+
+
+def _balance_of(who: int) -> dict:
+    k = balance_slot(_holder(who))
+    return lane(TOKEN_RUNTIME, BALANCEOF_SELECTOR + b"\x00" * 12
+                + _holder(who), gas=100_000, storage={k: 77},
+                address=TOKEN, premap=(_norm(k),))
+
+
+def _swap(amount: int, caller: int) -> dict:
+    return lane(POOL_RUNTIME, swap_calldata(amount), gas=200_000,
+                storage={_k(0): 10**15, _k(1): 10**15}, address=POOL,
+                caller=_holder(caller))
+
+
+_CTX_OPS = ("42", "43", "45", "41", "46", "48")   # block words
+
+
+def _context(block: int) -> dict:
+    """Stores TIMESTAMP, NUMBER, GASLIMIT, COINBASE, CHAINID and BASEFEE
+    into premapped slots 1..6 (each block overwrites them)."""
+    return lane(sstore_seq([(op, k + 1) for k, op in enumerate(_CTX_OPS)]),
+                premap=[_k(k + 1) for k in range(len(_CTX_OPS))],
+                caller=_holder(900 + block))
+
+
+# Each window case is a list of blocks, each a list of lanes (at most 8).
+WINDOW_CASES: Dict[str, List[List[dict]]] = {
+    # no lane reads a row another lane writes: the disjoint fast path;
+    # balanceOf lanes have an empty write set
+    "disjoint": [
+        [_xfer(0, 100, 5), _xfer(1, 101, 6), _balance_of(2),
+         _xfer(3, 102, 7), _balance_of(4)],
+        [_xfer(5, 103, 8), _xfer(6, 104, 9), _xfer(7, 105, 10)],
+    ],
+    # every lane pays the next lane's sender: the sequential sweep, one
+    # more committed lane per round
+    "raw_chain": [[_xfer(10 + j, 11 + j, 100 + j) for j in range(6)]],
+    # every swap conflicts through the reserve slots (premapped from the
+    # pool's PUSH-constant footprint)
+    "swap": [[_swap(1000 + 17 * j, 20 + j) for j in range(6)]],
+    # a HOST lane (memory past mem_cap) and an unpremapped lane (F_MISS)
+    # escape: the block ends after the round that found them, while the
+    # other lanes validate around them
+    "host_and_miss": [[
+        _xfer(30, 31, 5), lane(ESCAPER_CODE, caller=_holder(32)),
+        _xfer(33, 34, 6), _xfer(35, 36, 7, premap=False),
+        _xfer(31, 37, 8)]],
+    # three blocks, each reading the previous block's writes through
+    # the table, with per-block words stored by a context lane
+    "chained_blocks": [
+        [_xfer(40, 41, 50), _context(0), _xfer(44, 45, 3)],
+        [_xfer(41, 42, 60), _context(1), _xfer(45, 46, 4)],
+        [_xfer(42, 43, 70), _context(2), _xfer(46, 47, 5)],
+    ],
+    # stack underflow, undefined, INVALID, PUSH0 (defined from Durango
+    # on), and blind SSTOREs that OOG on a premapped or missed slot
+    "errors": [
+        CASES["errors"],
+        [lane(push(9) + push(3) + "55" + "00", gas=g, storage={_k(3): 7},
+              address=_addr(i), premap=[_k(3)] if i % 2 == 0 else ())
+         for i, g in enumerate((10_000, 5_006, 5_005, 23_000, 2_300))],
+    ],
+}
+
+
+def wide_cache_window() -> List[List[dict]]:
+    """Two blocks of lanes with 40 premapped slots each (a 64-entry
+    storage cache: more entries than a warp has threads), every lane
+    incrementing slots 0..19 of its contract; lanes 0 and 1 of a block
+    share a contract, so lane 1 re-runs."""
+    code = bytes.fromhex("".join(push(k) + "54" + push(1) + "01" + push(k)
+                                 + "55" for k in range(20)) + "00")
+    keys = [_k(k) for k in range(40)]
+    return [[lane(code, gas=2_000_000, address=_addr(8 + (i if i else 1)),
+                  storage={_k(k): k for k in range(20)}, premap=keys,
+                  caller=_holder(60 + 4 * b + i)) for i in range(4)]
+            for b in range(2)]
+
+
+def window_items(blocks, TxSpec, BlockEnv) -> list:
+    """A window case as [(BlockEnv, [TxSpec])], one env per block (its
+    words move with the block index); each lane's ``premap`` keys ride
+    as its seeded storage view, which the window runner premaps."""
+    items = []
+    for b, lanes in enumerate(blocks):
+        env = BlockEnv(coinbase=bytes([0x01 + b]) + b"\x00" * 19,
+                       timestamp=TIME + 10 * b, number=NUMBER + b,
+                       gas_limit=GAS_LIMIT - b, chain_id=CHAIN_ID,
+                       base_fee=BASE_FEE + b)
+        items.append((env, [TxSpec(
+            code=ln["code"], calldata=ln["calldata"], gas=ln["gas"],
+            value=ln["value"], caller=ln["caller"], address=ln["address"],
+            origin=ln["caller"], gas_price=GAS_PRICE,
+            storage={k: (0, 0) for k in ln["premap"]}) for ln in lanes]))
+    return items
+
+
+# the one shape every window case packs to (the reference compiles its
+# window program once for all of them)
+WINDOW_SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
+WINDOW_BLOCKS = 4
+
+
+def pack_window(name: str, device="cpu") -> dict:
+    """Window case ``name`` packed by the port's ``MachineWindowRunner``
+    at ``WINDOW_SHAPE``: {p, occ, table, key_tab, inputs, ...}."""
+    from coreth_tpu_torch.evm.device import adapter as A
+    blocks = WINDOW_CASES[name]
+    runner = A.MachineWindowRunner(
+        "durango", resolver_for([ln for b in blocks for ln in b]),
+        device=device)
+    runner._hw.update(blocks=WINDOW_BLOCKS, **WINDOW_SHAPE)
+    return runner.pack(window_items(blocks, A.TxSpec, A.BlockEnv))
 
 
 def resolver_for(lanes):
