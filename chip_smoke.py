@@ -41,12 +41,13 @@ Phases, each printing one JSON line:
    kernel's device time from a ``torch.profiler`` trace of both;
 9. machine — the benchmark's ERC-20 shape (1024 keys, 256 txs/block, every
    third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
-   cut from 256 to 32 blocks because the chain is built with pure-Python
+   cut from 256 to 128 blocks because the chain is built with pure-Python
    signing within the script's run-time budget, replayed through
    ``ReplayEngine(device="cuda", device_occ=False)`` (per-block OCC on the
    step machine): every block on the machine path, OCC rounds > 0, the
    final root equal to the last header's, and the step machine's launch
-   counter rising during the replay;
+   counter rising during the replay; txs/s over the whole replay and
+   after the first fold (``steady_txs_per_s``);
 10. k6    — the fused OCC window against its plain version (tolerance 0:
    table, packed rows, lane-steps) on three windows: (a) the ERC-20
    chain's first 8 blocks x 256 lanes with the premaps the window runner
@@ -59,7 +60,9 @@ Phases, each printing one JSON line:
    device_occ=True)``, the reference's default machine path: one K6
    launch per window of 8 blocks, the final root equal to the last
    header's, no dirty block, K6 launched at least once per window and
-   the step machine never.
+   the step machine never; txs/s over the whole replay and after the
+   first window's fold, which holds the discovery re-launches
+   (``steady_txs_per_s``).
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -629,9 +632,39 @@ def _read_launches() -> dict:
             "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
 
 
+def _timed_folds(pipe) -> list:
+    """Wrap a commit pipeline's flush to record (monotonic time, blocks
+    folded) for every fold that folds blocks."""
+    folds = []
+    flush = pipe.flush
+
+    def timed():
+        n = pipe.staged_blocks
+        root = flush()
+        if n:
+            folds.append((time.monotonic(), n))
+        return root
+    pipe.flush = timed
+    return folds
+
+
+def _steady(folds, t0: float, txs: int) -> dict:
+    """The first fold's time from ``t0`` (the first window's discovery
+    re-launches on the window path), and txs/s after it: the blocks
+    folded later over the time from the first fold to the last."""
+    (t_first, n_first), t_last = folds[0], folds[-1][0]
+    later = sum(n for _t, n in folds[1:])
+    return {"folds": len(folds), "first_fold_blocks": n_first,
+            "first_fold_s": round(t_first - t0, 4),
+            "steady_txs_per_s": round(later * txs / (t_last - t_first), 1)
+            if later else None}
+
+
 def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
     """Replay the ERC-20 chain from fresh decodes (no cached senders),
-    the launch counters zeroed just before and read just after."""
+    the launch counters zeroed just before and read just after; returns
+    the engine, the root, the replay's seconds, the launches and the
+    steady-state split of ``_steady``."""
     import torch
     from coreth_tpu_torch.evm.device import adapter as A
     from coreth_tpu_torch.replay import engine as E
@@ -644,6 +677,7 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
                          batch_pad=txs, window=16, device=dev,
                          device_occ=device_occ)
     A.RECIPES.clear()      # learned premaps start empty: discovery counts
+    folds = _timed_folds(eng.commit_pipe)
     _zero_launches()
     t0 = time.monotonic()
     root = eng.replay(fresh)
@@ -651,14 +685,14 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
     dt = time.monotonic() - t0
     launches = _read_launches()
     eng.close()
-    return eng, root, dt, launches
+    return eng, root, dt, launches, _steady(folds, t0, txs)
 
 
 def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
                   n_keys: int):
     n_blocks = len(blocks)
-    eng, root, dt, launches = _replay_erc20(dev, genesis, blocks, txs,
-                                            device_occ=False)
+    eng, root, dt, launches, steady = _replay_erc20(
+        dev, genesis, blocks, txs, device_occ=False)
     mc = eng.machine_counters()
     if root != blocks[-1].header.root:
         raise AssertionError("machine path: final root differs from the "
@@ -674,7 +708,7 @@ def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
     emit({"phase": "machine", "blocks": n_blocks, "txs_per_block": txs,
           "keys": n_keys, "chain_build_s": round(t_build, 2),
           "replay_s": round(dt, 4),
-          "txs_per_s": round(n_blocks * txs / dt, 1),
+          "txs_per_s": round(n_blocks * txs / dt, 1), **steady,
           "root_matches_header": True, "launches": launches,
           "k5_launches_per_block": launches["step_machine"] / n_blocks,
           "machine": mc, "stats": eng.stats.row(), "card": smi})
@@ -853,8 +887,8 @@ def phase_k6(dev, genesis, blocks):
 
 def phase_window(dev, smi, genesis, blocks, txs: int):
     n_blocks = len(blocks)
-    eng, root, dt, launches = _replay_erc20(dev, genesis, blocks, txs,
-                                            device_occ=True)
+    eng, root, dt, launches, steady = _replay_erc20(
+        dev, genesis, blocks, txs, device_occ=True)
     mc = eng.machine_counters()
     if root != blocks[-1].header.root:
         raise AssertionError("window path: final root differs from the "
@@ -869,7 +903,7 @@ def phase_window(dev, smi, genesis, blocks, txs: int):
                              f"windows, K5 {launches['step_machine']}")
     emit({"phase": "window", "blocks": n_blocks, "txs_per_block": txs,
           "replay_s": round(dt, 4),
-          "txs_per_s": round(n_blocks * txs / dt, 1),
+          "txs_per_s": round(n_blocks * txs / dt, 1), **steady,
           "root_matches_header": True, "launches": launches,
           "k6_launches_per_block": launches["occ_window"] / n_blocks,
           "machine": mc, "stats": eng.stats.row(), "card": smi})
@@ -1059,7 +1093,7 @@ def main() -> int:
     # ---- 9. the machine path (per-block OCC, K5), on the ERC-20 chain
     m_txs, m_keys = 256, 1024
     t0 = time.monotonic()
-    m_genesis, m_blocks = build_erc20_chain(32, m_txs, m_keys)
+    m_genesis, m_blocks = build_erc20_chain(128, m_txs, m_keys)
     t_build = time.monotonic() - t0
     m_launches = phase_machine(dev, smi, m_genesis, m_blocks, t_build,
                                m_txs, m_keys)

@@ -33,6 +33,10 @@ from coreth_tpu_torch.ops import u256
 # miss-and-rerun rounds of one MachineRunner.run before a lane still
 # missing storage goes to the host (the reference's max_rounds default)
 MISS_ROUNDS = 6
+# launches of one MachineWindowRunner window (the first and its
+# discovery re-launches) before keys still missed dirty their blocks
+# (the reference's max_attempts default)
+MAX_WINDOW_ATTEMPTS = 6
 
 
 def addr_word(addr: bytes) -> int:
@@ -593,10 +597,9 @@ class MachineWindowRunner:
 
     def __init__(self, fork: str,
                  storage_resolver: Callable[[bytes, bytes], int],
-                 max_attempts: int = 6, device=None):
+                 device=None):
         self.fork = fork
         self.resolver = storage_resolver
-        self.max_attempts = max_attempts
         self.device = default_device(device)
         self.slot_gid: Dict[Tuple[bytes, bytes], int] = {}
         self.gid_keys: List[Tuple[bytes, bytes]] = []
@@ -1061,7 +1064,7 @@ class MachineWindowRunner:
                             missing = True
                     self._learn_recipes(t, fresh)
             self.t_unpack += time.monotonic() - t1
-            if missing and handle["attempt"] < self.max_attempts:
+            if missing and handle["attempt"] < MAX_WINDOW_ATTEMPTS:
                 # re-run the WHOLE window from the host mirror (the
                 # failed attempt's device table holds partial commits)
                 self.discovery_dispatches += 1

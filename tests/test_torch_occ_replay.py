@@ -27,6 +27,7 @@ from coreth_tpu.replay import ReplayEngine as RReplayEngine
 from coreth_tpu.state import Database
 
 from coreth_tpu_torch.evm.device import adapter as tadapter
+from coreth_tpu_torch.evm.precompiles import BLACKHOLE_ADDR
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
 from coreth_tpu_torch.replay import ReplayEngine, ReplayError
 from coreth_tpu_torch.state import StateStore
@@ -52,13 +53,15 @@ COUNTERS = ("blocks", "rounds", "windows", "window_attempts",
 
 @pytest.fixture
 def reference_env(monkeypatch):
-    """The reference's default machine path without K7."""
+    """The reference's default machine path without K7; returns the
+    monkeypatch for reference-only settings."""
     monkeypatch.setenv("CORETH_DEVICE_OCC", "1")
     monkeypatch.setenv("CORETH_SPECIALIZE", "0")
     monkeypatch.setenv("CORETH_NO_TOKEN_FASTPATH", "1")
     monkeypatch.setenv("CORETH_SERIAL_SHORTCIRCUIT", "0")
     radapter.RECIPES.clear()
     tadapter.RECIPES.clear()
+    return monkeypatch
 
 
 def _record_flushes(pipe):
@@ -76,18 +79,16 @@ def _record_flushes(pipe):
     return roots
 
 
-def _ref_replay(rgen, rblocks, window):
-    if window is not None:
-        os.environ["CORETH_MACHINE_WINDOW"] = str(window)
-    try:
+def _ref_replay(monkeypatch, rgen, rblocks, window):
+    with monkeypatch.context() as mp:
+        if window is not None:
+            mp.setenv("CORETH_MACHINE_WINDOW", str(window))
         db = Database()
         rgb = rgen.to_block(db)
         ref = RReplayEngine(RCFG, db, rgb.root, parent_header=rgb.header,
                             window=4)
         roots = _record_flushes(ref.commit_pipe)
         assert ref.replay(rblocks) == rblocks[-1].header.root
-    finally:
-        os.environ.pop("CORETH_MACHINE_WINDOW", None)
     assert ref.stats.blocks_fallback == 0
     return ref, roots
 
@@ -110,11 +111,11 @@ def _counters(eng, reference: bool) -> dict:
             for k in COUNTERS}
 
 
-def _replay_both(n_blocks, txs_of, extra=None, window=None):
+def _replay_both(env, n_blocks, txs_of, extra=None, window=None):
     """Both engines replay the chain through their window paths; the
     fold roots and the counters must agree.  Returns (ref, port)."""
     rgen, pgen, rblocks = _chains(n_blocks, txs_of, extra)
-    ref, ref_roots = _ref_replay(rgen, rblocks, window)
+    ref, ref_roots = _ref_replay(env, rgen, rblocks, window)
     radapter.RECIPES.clear()
     port = _port_engine(pgen, window)
     port_roots = _record_flushes(port.commit_pipe)
@@ -135,7 +136,7 @@ def test_erc20_machine_window_matches_reference_and_per_block(
     """The benchmark's ERC-20 shape: next-sender links (slow sweep,
     rounds > 1) between fresh-holder transfers; the window run also
     lands the per-block (``device_occ=False``) run's root."""
-    _ref, port = _replay_both(3, _erc20_txs)
+    _ref, port = _replay_both(reference_env, 3, _erc20_txs)
     mx = port._machine
     c = mx.counters()
     assert mx.blocks == 3 and mx.windows >= 1 and mx.rounds > 0
@@ -154,7 +155,7 @@ def test_erc20_machine_window_matches_reference_and_per_block(
 def test_erc20_next_sender_shape(reference_env):
     """Token transfers to the next key in every lane (the reference's
     erc20-machine equivalence shape)."""
-    _ref, port = _replay_both(3, lambda i: [
+    _ref, port = _replay_both(reference_env, 3, lambda i: [
         _tx(k, TOKEN, "transfer", (ADDRS[(k + 1) % 8], 5 + k))
         for k in range(6)])
     assert port._machine.host_txs == 0
@@ -163,7 +164,7 @@ def test_erc20_next_sender_shape(reference_env):
 def test_swap_full_conflict_window_2(reference_env):
     """Every swap conflicts with every other: the window converges on
     the device, one lane per round, across pipelined windows."""
-    _ref, port = _replay_both(5, lambda i: [
+    _ref, port = _replay_both(reference_env, 5, lambda i: [
         _tx(k, POOL, "swap", 1000 + 17 * i + k) for k in range(6)],
         window=2)
     mx = port._machine
@@ -172,7 +173,7 @@ def test_swap_full_conflict_window_2(reference_env):
 
 
 def test_mixed_shape(reference_env):
-    _replay_both(3, lambda i: [
+    _replay_both(reference_env, 3, lambda i: [
         _tx(0, POOL, "swap", 500 + i),
         _tx(1, TOKEN, "transfer", (b"\x45" * 20, 77)),
         _tx(2, bytes([0x46]) * 20, "raw", b"", 21_000, 5),
@@ -183,7 +184,7 @@ def test_table_growth_across_pipelined_windows(reference_env):
     """Fresh slots every block push the table past its 64-row floor
     while windows pipeline; senders' slots are rewritten every block,
     so a table or mirror lagging a window would break a root."""
-    _ref, port = _replay_both(8, lambda i: [
+    _ref, port = _replay_both(reference_env, 8, lambda i: [
         _tx(k, TOKEN, "transfer",
             (bytes([0x60 + i]) + bytes([k]) * 19, 3 + k))
         for k in range(8)], window=2)
@@ -195,7 +196,7 @@ def test_table_growth_across_pipelined_windows(reference_env):
 def test_predicted_premap(reference_env):
     """Fresh recipients every block: after the first window's discovery
     the learned recipes premap every lane's keys before launch."""
-    _ref, port = _replay_both(8, lambda i: [
+    _ref, port = _replay_both(reference_env, 8, lambda i: [
         _tx(k, TOKEN, "transfer",
             (bytes([0x80 + i]) + bytes([k]) * 19, 3 + k))
         for k in range(6)], window=2)
@@ -209,7 +210,7 @@ def test_nested_premap_allowance(reference_env):
     """Allowance-style nested-mapping keys learn as second-level
     recipes."""
     extra = {ALLOW: (0, 1, ALLOW_RUNTIME)}
-    _ref, port = _replay_both(8, lambda i: [
+    _ref, port = _replay_both(reference_env, 8, lambda i: [
         _tx(k, ALLOW, "raw",
             spend_calldata(bytes([0xB0 + i]) + bytes([k]) * 19, 5 + k))
         for k in range(6)], extra=extra, window=2)
@@ -222,12 +223,38 @@ def test_array_premap(reference_env):
     """Dynamic-array element keys (keccak(slot) + i) learn as array
     recipes."""
     extra = {ARR: (0, 1, ARR_RUNTIME)}
-    _ref, port = _replay_both(8, lambda i: [
+    _ref, port = _replay_both(reference_env, 8, lambda i: [
         _tx(k, ARR, "raw", setat_calldata(1000 * i + 7 * k, 5 + k))
         for k in range(6)], extra=extra, window=2)
     c = port._machine.counters()
     assert c["premap_array"] > 0 and c["premap_hits"] > 0
     assert c["discovery_dispatches"] <= 2
+
+
+def test_transfer_blocks_stop_machine_runs(reference_env):
+    """Pure value-transfer blocks inside one machine lookahead end each
+    machine run and go to the transfer path.  The transfer classifier
+    first indexes the coinbase (funded at genesis) while looking ahead,
+    before the run's machine blocks have paid it their fees; the folds
+    must replace that staged genesis balance before the transfer block
+    reads it.  The transfer blocks also pay an address that the first
+    machine block pays."""
+    payee = b"\x43" * 20
+    extra = {BLACKHOLE_ADDR: (10**18, 0, b"")}
+
+    def txs(i):
+        if i % 3 == 2:
+            return [_tx(k, payee if k % 2 else bytes([0x60 + k]) * 20,
+                        "raw", b"", 21_000, 999 + k) for k in range(4, 8)]
+        out = [_tx(k, POOL, "swap", 100 + 11 * i + k) for k in range(4)]
+        if i == 0:
+            out.append(_tx(5, payee, "raw", b"", 21_000, 12345))
+        return out
+
+    _ref, port = _replay_both(reference_env, 7, txs, extra=extra)
+    mx = port._machine
+    assert port.stats.blocks_device == 7
+    assert mx.blocks == 5 and mx.windows == 3 and mx.dirty_blocks == 0
 
 
 def test_host_escape_raises_where_reference_falls_back(reference_env):
