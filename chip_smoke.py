@@ -55,14 +55,35 @@ Phases, each printing one JSON line:
    per round), (c) three blocks of 16 ERC-20 transfers with a HOST lane,
    an unpremapped lane and five trailing inactive blocks; per-launch ms
    (CUDA events), device ms (``torch.profiler``), rounds per block,
-   lane-steps;
-11. window — the same ERC-20 chain through ``ReplayEngine(device="cuda",
-   device_occ=True)``, the reference's default machine path: one K6
-   launch per window of 8 blocks, the final root equal to the last
-   header's, no dirty block, K6 launched at least once per window and
-   the step machine never; txs/s over the whole replay and after the
-   first window's fold, which holds the discovery re-launches
-   (``steady_txs_per_s``).
+   lane-steps, and the bound from the bytes this window's lanes need
+   (``_window_bound``);
+11. k7    — K6+K7, the variants generated for each window's program set
+   (built by nvcc in parallel first; build seconds and ``ptxas`` lines),
+   against the plain version with the same plain programs (tolerance 0:
+   table, packed rows, lane-steps) on five windows: (a) window (a) of
+   phase k6 with every lane traced, also run through the generic library
+   with every prog_id -1 (its time beside; equal results), (b) the swap
+   window, (c) two blocks of 16 lanes mixing token transfers, a transfer
+   over the balance (REVERT), swaps and computed-jump lanes that stay on
+   the interpreter, (d) 16 lanes of the keccak fan (ten host-evaluable
+   keccaks, two past the kdig slots, and a device keccak), (e) lanes
+   whose storage cache fills (HOST) and lanes out of gas at the first
+   lumped flush; per-launch ms, device ms, bound, plain ms;
+12. window, spec — the same ERC-20 chain through ``ReplayEngine(device=
+   "cuda", device_occ=True)`` four times, in the order window, spec,
+   spec, window: without K7 (``specialize=False``, phase window) and
+   with it (``specialize=True``, phase spec, the reference's default
+   machine path).  Each run: the final root equal to the last header's,
+   no dirty block, K6 launched at least once per window and the step
+   machine never, no kernel built inside the timed replay; without K7 no
+   variant launch, with it every lane traced (``lanes_specialized`` =
+   blocks x txs, no escape, one program) and every window launch on the
+   variant.  Each prints txs/s, ``steady_txs_per_s`` (after the first
+   window's fold, which holds the discovery re-launches) and the host
+   spans of ``HostSpans``: seconds and calls of the window path's host
+   functions and the garbage collector's pauses, up to the first fold
+   and over the replay.  A last line ``ab`` lists the four first-fold
+   times and steady rates in order.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -618,7 +639,7 @@ def _zero_launches() -> None:
     from coreth_tpu_torch.ops import u256x
     from coreth_tpu_torch.replay import engine as E
     E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
-    K.LAUNCHES = u256x.LAUNCHES = 0
+    M.SPEC_LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
 
 
 def _read_launches() -> dict:
@@ -628,13 +649,15 @@ def _read_launches() -> dict:
     from coreth_tpu_torch.ops import u256x
     from coreth_tpu_torch.replay import engine as E
     return {"step_machine": M.LAUNCHES, "occ_window": M.OCC_LAUNCHES,
+            "occ_window_spec": M.SPEC_LAUNCHES,
             "secp_recover": S.LAUNCHES, "transfer_window": E.LAUNCHES,
             "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
 
 
-def _timed_folds(pipe) -> list:
+def _timed_folds(pipe, on_first=None) -> list:
     """Wrap a commit pipeline's flush to record (monotonic time, blocks
-    folded) for every fold that folds blocks."""
+    folded) for every fold that folds blocks; ``on_first`` is called
+    right after the first such fold."""
     folds = []
     flush = pipe.flush
 
@@ -643,9 +666,83 @@ def _timed_folds(pipe) -> list:
         root = flush()
         if n:
             folds.append((time.monotonic(), n))
+            if len(folds) == 1 and on_first is not None:
+                on_first()
         return root
     pipe.flush = timed
     return folds
+
+
+class HostSpans:
+    """Wall seconds and calls of named host functions of the window
+    path, and the garbage collector's pauses, over one replay, with a
+    snapshot taken at the first fold (``mark``): what the first window
+    spends where.  Each function is wrapped in place for the replay
+    (nested functions count in each of their callers too) and restored
+    by ``close``."""
+
+    def __init__(self):
+        import gc
+        from coreth_tpu_torch import kernels
+        from coreth_tpu_torch.evm.device import adapter as A
+        from coreth_tpu_torch.evm.device import machine as M
+        from coreth_tpu_torch.evm.device import specialize as SP
+        from coreth_tpu_torch.replay import engine as E
+        from coreth_tpu_torch.replay import machine_block as MB
+        targets = [(MB.MachineBlockExecutor, n) for n in
+                   ("classify", "_window_items", "_finish_block", "execute")]
+        targets += [(A.MachineWindowRunner, n) for n in
+                    ("pack", "issue", "complete", "_premaps", "_spec_id")]
+        targets += [(A, "fill_kdig"), (M, "run_occ_window"),
+                    (SP, "occ_library"), (SP, "trace_eligible"),
+                    (SP, "spec_requests"), (kernels, "load"),
+                    (E.ReplayEngine, "_classify"),
+                    (E.ReplayEngine, "warm_senders")]
+        self.tot, self.first, self._undo = {}, None, []
+        for owner, attr in targets:
+            fn = getattr(owner, attr)
+            label = f"{getattr(owner, '__name__', '?').split('.')[-1]}." \
+                f"{attr}"
+            setattr(owner, attr, self._wrap(fn, label))
+            self._undo.append((owner, attr, fn))
+        self._gc_t0 = 0.0
+        self._gc = gc
+        gc.callbacks.append(self._on_gc)
+
+    def _wrap(self, fn, label):
+        tot = self.tot
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                s = tot.setdefault(label, [0.0, 0])
+                s[0] += time.perf_counter() - t0
+                s[1] += 1
+        return timed
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        else:
+            s = self.tot.setdefault(f"gc.gen{info['generation']}", [0.0, 0])
+            s[0] += time.perf_counter() - self._gc_t0
+            s[1] += 1
+
+    def mark(self) -> None:
+        self.first = {k: list(v) for k, v in self.tot.items()}
+
+    def close(self) -> None:
+        for owner, attr, fn in self._undo:
+            setattr(owner, attr, fn)
+        self._gc.callbacks.remove(self._on_gc)
+
+    def row(self) -> dict:
+        def fmt(d):
+            return {k: [round(v[0], 4), v[1]] for k, v in sorted(d.items())}
+        return {"first_window": fmt(self.first or {}),
+                "whole_replay": fmt(self.tot)}
 
 
 def _steady(folds, t0: float, txs: int) -> dict:
@@ -660,11 +757,13 @@ def _steady(folds, t0: float, txs: int) -> dict:
             if later else None}
 
 
-def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
+def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
+                  specialize: bool = False):
     """Replay the ERC-20 chain from fresh decodes (no cached senders),
     the launch counters zeroed just before and read just after; returns
     the engine, the root, the replay's seconds, the launches and the
-    steady-state split of ``_steady``."""
+    steady-state split of ``_steady`` (on the window path with the host
+    spans of ``HostSpans``)."""
     import torch
     from coreth_tpu_torch.evm.device import adapter as A
     from coreth_tpu_torch.replay import engine as E
@@ -675,17 +774,25 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool):
     gblock = genesis.to_block(store)
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
                          batch_pad=txs, window=16, device=dev,
-                         device_occ=device_occ)
+                         device_occ=device_occ, specialize=specialize)
     A.RECIPES.clear()      # learned premaps start empty: discovery counts
-    folds = _timed_folds(eng.commit_pipe)
+    spans = HostSpans() if device_occ else None
+    folds = _timed_folds(eng.commit_pipe, spans and spans.mark)
     _zero_launches()
     t0 = time.monotonic()
-    root = eng.replay(fresh)
-    torch.cuda.synchronize()
+    try:
+        root = eng.replay(fresh)
+        torch.cuda.synchronize()
+    finally:
+        if spans is not None:
+            spans.close()
     dt = time.monotonic() - t0
     launches = _read_launches()
     eng.close()
-    return eng, root, dt, launches, _steady(folds, t0, txs)
+    steady = _steady(folds, t0, txs)
+    if spans is not None:
+        steady["host_spans"] = spans.row()
+    return eng, root, dt, launches, steady
 
 
 def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
@@ -715,6 +822,46 @@ def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
     return launches
 
 
+# ------------------------------------------------------------ K7 inputs
+
+def _push(v: int) -> str:
+    raw = v.to_bytes((max(v.bit_length(), 1) + 7) // 8, "big")
+    return f"{0x5F + len(raw):02x}" + raw.hex()
+
+
+def _keccak_fan_code() -> bytes:
+    """The sum of ten keccak(caller || k) stored at slot 0 — ten
+    host-evaluable requests, two more than KDIG_CAP, so the last two run
+    on the device — then keccak(calldata word 0 + 1) (an arithmetic
+    result: a device keccak) stored at slot 1 and logged as LOG1's topic
+    over that word."""
+    code = _push(0)
+    for k in range(10):
+        code += "33" + _push(0) + "52" + _push(k) + _push(32) + "52"
+        code += _push(64) + _push(0) + "20" + "01"
+    code += _push(0) + "55"
+    code += _push(1) + _push(4) + "35" + "01" + _push(0) + "52"
+    code += _push(32) + _push(0) + "20" + "80" + _push(1) + "55"
+    code += _push(32) + _push(0) + "a1" + "00"
+    return bytes.fromhex(code)
+
+
+def _slot_fan_code(n: int = 40) -> bytes:
+    """SSTOREs of 1 to ``n`` slots computed from calldata word 0 (no
+    static premap): every one a fresh cache entry, so the lane escapes
+    HOST (R_SCACHE) once its storage cache is full."""
+    code = "".join(_push(1) + _push(k) + _push(4) + "35" + "01" + "55"
+                   for k in range(n))
+    return bytes.fromhex(code + "00")
+
+
+KECCAK_FAN_CODE = _keccak_fan_code()
+SLOT_FAN_CODE = _slot_fan_code()
+# PUSH1 0; CALLDATALOAD; JUMP; JUMPDEST; STOP: a computed jump, so the
+# tracer rejects it and its lanes stay on the interpreter
+JUMPER_CODE = bytes.fromhex("600035565b00")
+
+
 # ------------------------------------------------------------ K6 inputs
 
 def _block_env(i: int):
@@ -726,10 +873,12 @@ def _block_env(i: int):
                     base_fee=25 * GWEI + i)
 
 
-def window_from_chain(dev, genesis, blocks):
-    """K6 window (a): the chain's first 8 blocks as the window runner
-    packs them, with the premaps it learned from one discovery pass
-    over them (the table rebuilt from the genesis mirror)."""
+def window_from_chain(dev, genesis, blocks, specialize: bool = False):
+    """K6 window (a): the chain's first 8 blocks as a window runner
+    packs them, with the premaps learned from one discovery pass of
+    generic K6 over them; with ``specialize`` the packing runner gives
+    the token lanes their traced program (K7 window (a))."""
+    from coreth_tpu_torch.evm.device.adapter import MachineWindowRunner
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.state import StateStore
     from coreth_tpu_torch.types import Block
@@ -737,19 +886,24 @@ def window_from_chain(dev, genesis, blocks):
     gblock = genesis.to_block(store)
     fresh = [Block.decode(b.encode()) for b in blocks[:8]]
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
-                         batch_pad=256, device=dev)
+                         batch_pad=256, device=dev, specialize=False)
     eng.warm_senders(fresh)
     mx = eng._machine_executor()
     items = mx._window_items([(b, mx.classify(b)) for b in fresh])
     runner = mx._window_runner()
     runner.complete(runner.issue(items))
-    runner.invalidate()
+    # the learned premaps are process-wide (adapter.RECIPES): a fresh
+    # runner over the same (still genesis) state packs with them
+    runner = MachineWindowRunner(runner.fork, mx._base_value, device=dev,
+                                 specialize=specialize)
+    runner.seed_window_hint(8)
     pk = runner.pack(items)
     eng.close()
     return pk
 
 
-def swap_window(dev, n_blocks: int = 2, lanes: int = 8):
+def swap_window(dev, n_blocks: int = 2, lanes: int = 8,
+                specialize: bool = False):
     """K6 window (b): blocks of swaps into one pool, every pair in
     conflict through the two reserve slots."""
     from coreth_tpu_torch.evm.device.adapter import (
@@ -760,7 +914,7 @@ def swap_window(dev, n_blocks: int = 2, lanes: int = 8):
                 (1).to_bytes(32, "big"): 10**15}
     runner = MachineWindowRunner("durango",
                                  lambda a, k: reserves.get(k, 0),
-                                 device=dev)
+                                 device=dev, specialize=specialize)
     items = []
     for i in range(n_blocks):
         specs = []
@@ -812,9 +966,105 @@ def escape_window(dev, rng, lanes: int = 16):
         items.append((_block_env(i), specs))
     runner = MachineWindowRunner("durango",
                                  lambda a, k: committed.get(k, 0),
-                                 device=dev)
+                                 device=dev, specialize=False)
     runner.seed_window_hint(8)
     return runner.pack(items)
+
+
+def _token_lane(rng, committed, sender, to, amount, gas=100_000):
+    """An ERC-20 transfer() TxSpec with both balance slots premapped
+    (their committed balances drawn once)."""
+    from coreth_tpu_torch.evm.device.adapter import TxSpec
+    from coreth_tpu_torch.state import normalize_state_key
+    from coreth_tpu_torch.workloads.erc20 import (
+        TOKEN_RUNTIME, balance_slot, transfer_calldata)
+    keys = [normalize_state_key(balance_slot(a)) for a in (sender, to)]
+    for k in keys:
+        committed.setdefault((TOKEN, k), int(rng.integers(10**6, 10**9)))
+    return TxSpec(code=TOKEN_RUNTIME, calldata=transfer_calldata(to, amount),
+                  gas=gas, value=0, caller=sender, address=TOKEN,
+                  origin=sender, gas_price=25 * GWEI,
+                  storage={k: (0, 0) for k in keys})
+
+
+def _call_lane(code, data, gas, address, caller):
+    from coreth_tpu_torch.evm.device.adapter import TxSpec
+    return TxSpec(code=code, calldata=data, gas=gas, value=0,
+                  caller=caller, address=address, origin=caller,
+                  gas_price=25 * GWEI)
+
+
+def _spec_runner(dev, committed):
+    from coreth_tpu_torch.evm.device.adapter import MachineWindowRunner
+    runner = MachineWindowRunner(
+        "durango", lambda a, k: committed.get((a, k), 0), device=dev)
+    runner.seed_window_hint(8)
+    return runner
+
+
+def mixed_window(dev, rng, lanes: int = 16):
+    """K7 window (c): two blocks of 16 lanes mixing token transfers, one
+    transfer whose amount exceeds the balance (the traced REVERT leaf),
+    swaps into one pool, and lanes of a computed-jump contract (trace-
+    ineligible: K5's interpreter in the same window)."""
+    from coreth_tpu_torch.workloads.swap import POOL_RUNTIME, swap_calldata
+    pool, jumper = b"\x74" * 20, b"\x79" * 20
+    committed = {(pool, (0).to_bytes(32, "big")): 10**15,
+                 (pool, (1).to_bytes(32, "big")): 10**15}
+    items = []
+    for i in range(2):
+        specs = []
+        for j in range(lanes):
+            who = (0x7400 + 32 * i + j).to_bytes(2, "big") * 10
+            to = (0x7500 + 32 * i + j).to_bytes(2, "big") * 10
+            kind = j % 8
+            if kind in (1, 6):
+                specs.append(_call_lane(POOL_RUNTIME,
+                                        swap_calldata(1000 + 7 * j + i),
+                                        200_000, pool, who))
+            elif kind == 7:
+                specs.append(_call_lane(JUMPER_CODE,
+                                        (4).to_bytes(32, "big"), 50_000,
+                                        jumper, who))
+            else:
+                amount = 10**12 if kind == 3 else 10 + j
+                specs.append(_token_lane(rng, committed, who, to, amount))
+        items.append((_block_env(i), specs))
+    return _spec_runner(dev, committed).pack(items)
+
+
+def keccak_fan_window(dev, rng, lanes: int = 16):
+    """K7 window (d): one block of the keccak fan (ten host-evaluable
+    keccaks, two past the kdig slots, and a device keccak of an
+    arithmetic result); every lane writes the same two slots, so the
+    block converges one lane per round."""
+    fan = b"\x7b" * 20
+    specs = [_call_lane(KECCAK_FAN_CODE,
+                        int(rng.integers(0, 1 << 62)).to_bytes(32, "big"),
+                        200_000, fan,
+                        (0x7600 + j).to_bytes(2, "big") * 10)
+             for j in range(lanes)]
+    return _spec_runner(dev, {}).pack([(_block_env(0), specs)])
+
+
+def escape_lanes_window(dev, rng, lanes: int = 8):
+    """K7 window (e): one block with slot-fan lanes (their storage cache
+    fills: HOST, R_SCACHE) and token transfers out of gas at the first
+    lumped flush (40 gas), between ordinary transfers."""
+    fan = b"\x7c" * 20
+    committed = {}
+    specs = []
+    for j in range(lanes):
+        who = (0x7700 + j).to_bytes(2, "big") * 10
+        to = (0x7780 + j).to_bytes(2, "big") * 10
+        if j in (1, 5):
+            specs.append(_call_lane(SLOT_FAN_CODE,
+                                    (1000 * j).to_bytes(32, "big"),
+                                    1_000_000, fan, who))
+        else:
+            specs.append(_token_lane(rng, committed, who, to, 10 + j,
+                                     gas=40 if j in (2, 6) else 100_000))
+    return _spec_runner(dev, committed).pack([(_block_env(0), specs)])
 
 
 def phase_k6(dev, genesis, blocks):
@@ -844,16 +1094,7 @@ def phase_k6(dev, genesis, blocks):
         dev_ms = kernel_ms(lambda: M.run_occ_window(*args), "occ_window",
                            reps=5)
         extra = got["packed"][:, :, -4:].cpu().numpy()
-        rounds = extra[:, 0, 3].tolist()
-        lane_steps = int(got["steps"].sum())
-        n_bytes = sum(t.numel() * t.element_size()
-                      for t in pk["inputs"].values()) \
-            + 2 * pk["table"].numel() * 4 + pk["key_tab"].numel() * 4 \
-            + got["packed"].numel() * 4 + got["steps"].numel() * 4
-        sweep_ops = sum(rounds) * p.batch * p.scache_cap \
-            * M.OPS_PER_SWEEP_ENTRY
-        bound_ms, bound_by = bound(
-            n_bytes, lane_steps * M.OPS_PER_STEP + sweep_ops)
+        bound_ms, bound_by, lane_steps, rounds = _window_bound(pk, got)
         n_active = int(pk["inputs"]["active"].sum())
         if name == "b_swap_conflict" and rounds[:2] != [8, 8]:
             raise AssertionError(f"K6 swap window rounds {rounds}")
@@ -885,29 +1126,218 @@ def phase_k6(dev, genesis, blocks):
     return k6
 
 
-def phase_window(dev, smi, genesis, blocks, txs: int):
+def phase_window(dev, smi, genesis, blocks, txs: int, specialize: bool,
+                 order: int):
+    """The ERC-20 chain through the window path: without K7 (phase
+    window) or with it (phase spec, the reference's default machine
+    configuration; its variant was built by phase k7).  ``order`` is the
+    run's place in the window/spec A/B."""
+    from coreth_tpu_torch import kernels
     n_blocks = len(blocks)
+    name = "spec" if specialize else "window"
+    built = dict(kernels.BUILD_SECONDS)
     eng, root, dt, launches, steady = _replay_erc20(
-        dev, genesis, blocks, txs, device_occ=True)
+        dev, genesis, blocks, txs, device_occ=True, specialize=specialize)
     mc = eng.machine_counters()
     if root != blocks[-1].header.root:
-        raise AssertionError("window path: final root differs from the "
+        raise AssertionError(f"{name} path: final root differs from the "
                              "header")
     if mc["blocks"] != n_blocks or mc["dirty_blocks"] != 0:
-        raise AssertionError(f"window path: {mc['blocks']} of {n_blocks} "
+        raise AssertionError(f"{name} path: {mc['blocks']} of {n_blocks} "
                              f"blocks, {mc['dirty_blocks']} dirty")
     if launches["occ_window"] < mc["windows"] or mc["windows"] < 1 \
             or launches["step_machine"] != 0:
-        raise AssertionError(f"window path: K6 launches "
+        raise AssertionError(f"{name} path: K6 launches "
                              f"{launches['occ_window']} for {mc['windows']} "
                              f"windows, K5 {launches['step_machine']}")
-    emit({"phase": "window", "blocks": n_blocks, "txs_per_block": txs,
-          "replay_s": round(dt, 4),
+    if specialize:
+        if mc["lanes_specialized"] != n_blocks * txs \
+                or mc["specialize_escapes"] != 0 \
+                or mc["programs_traced"] != 1:
+            raise AssertionError(f"spec path counters: {mc}")
+        if launches["occ_window_spec"] != launches["occ_window"]:
+            raise AssertionError(f"spec path launches: {launches}")
+    elif launches["occ_window_spec"] != 0 or mc["lanes_specialized"] != 0:
+        raise AssertionError("window path without specialisation ran "
+                             f"traced lanes: {launches}")
+    if kernels.BUILD_SECONDS != built:
+        raise AssertionError(f"{name} path: a kernel was built inside the "
+                             "timed replay")
+    emit({"phase": name, "order": order, "blocks": n_blocks,
+          "txs_per_block": txs, "replay_s": round(dt, 4),
           "txs_per_s": round(n_blocks * txs / dt, 1), **steady,
           "root_matches_header": True, "launches": launches,
           "k6_launches_per_block": launches["occ_window"] / n_blocks,
           "machine": mc, "stats": eng.stats.row(), "card": smi})
-    return launches
+    return launches, steady
+
+
+def _window_bound(pk, got):
+    """(bound_ms, bound_by, lane_steps, rounds) of one window launch.
+
+    Bytes: what this window's lanes need moved.  An inactive lane reads
+    only its ``active`` flag.  An active lane reads its scalar and word
+    inputs, its storage-cache row of table ids and its calldata up to
+    ``data_len``; on the interpreter (prog_id -1) also its code and
+    jump-table rows up to ``code_len``; on a traced program instead its
+    program's kdig slots (the generated code reads no bytecode).  Then
+    the block inputs, the table read and written whole (the output is a
+    full copy), the key-table rows the lanes reference, and the packed
+    rows and step counts written.  Operations: the interpreted lanes'
+    steps x ``OPS_PER_STEP`` and the sweeps' entries x
+    ``OPS_PER_SWEEP_ENTRY``; a traced lane's steps are left out (its
+    ALU work is not counted, which can only lower the bound)."""
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device import specialize as SP
+    p, occ, inp = pk["p"], pk["occ"], pk["inputs"]
+    W, B, G = occ.blocks, p.batch, occ.table_cap
+    extra = got["packed"][:, :, -4:].cpu().numpy()
+    rounds = extra[:, 0, 3].tolist()
+    host = {k: inp[k].cpu().numpy() for k in
+            ("active", "prog_id", "code_len", "data_len", "sgid")}
+    act = host["active"].astype(bool)
+    pid = np.where(act, host["prog_id"], -2)
+    traced, interp = pid >= 0, pid == -1
+    n_req = np.array([len(SP.spec_requests(prog.code, prog.fork))
+                      for prog in pk["spec"]] + [0], dtype=np.int64)
+    n_bytes = 0
+    for k, t in inp.items():
+        if k not in M._OCC_LANE_INPUTS:
+            n_bytes += t.numel() * t.element_size()      # block inputs
+            continue
+        es = t.element_size()
+        per_lane = t[0, 0].numel() * es
+        if k == "active":
+            n_bytes += W * B * per_lane
+        elif k in ("code", "jdest"):
+            n_bytes += int(host["code_len"][interp].sum()) * es
+        elif k == "code_len":
+            n_bytes += int(interp.sum()) * per_lane
+        elif k == "calldata":
+            n_bytes += int(host["data_len"][act].sum()) * es
+        elif k == "kdig":
+            n_bytes += int(n_req[pid[traced]].sum()) * M.LIMBS * es
+        else:
+            n_bytes += int(act.sum()) * per_lane
+    gids = host["sgid"][act]
+    n_bytes += 2 * pk["table"].numel() * 4 \
+        + np.unique(gids[gids < G]).size * M.LIMBS * 4 \
+        + got["packed"].numel() * 4 + got["steps"].numel() * 4
+    steps = got["steps"].cpu().numpy()
+    lane_steps = int(steps.sum())
+    sweep_ops = sum(rounds) * p.batch * p.scache_cap * M.OPS_PER_SWEEP_ENTRY
+    bound_ms, bound_by = bound(
+        n_bytes, int(steps[interp].sum()) * M.OPS_PER_STEP + sweep_ops)
+    return bound_ms, bound_by, lane_steps, rounds
+
+
+def _kernel_ptxas(path: str):
+    """The ``-Xptxas -v`` lines of a K6 library's kernel entry: its
+    stack frame and spills, and its registers."""
+    out, take = [], False
+    with open(path) as f:
+        for ln in f:
+            if take or "registers" in ln:
+                out.append(ln.strip())
+            take = "Function properties for" in ln \
+                and "occ_window_kernel" in ln
+    return out
+
+
+def phase_k7(dev, genesis, blocks):
+    """K6+K7 (the specialised variants) against the plain version with
+    the same plain programs, tolerance 0, on five windows; window (a)
+    also through the generic library with every prog_id -1."""
+    import torch
+    from coreth_tpu_torch import kernels
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device import specialize as SP
+    rng = np.random.default_rng(SEED + 7)
+    windows = {"a_erc20_chain": window_from_chain(dev, genesis, blocks,
+                                                  specialize=True),
+               "b_swap_conflict": swap_window(dev, specialize=True),
+               "c_mixed": mixed_window(dev, rng),
+               "d_keccak_fan": keccak_fan_window(dev, rng),
+               "e_escapes": escape_lanes_window(dev, rng)}
+    sets = {name: pk["spec"] for name, pk in windows.items()}
+    t0 = time.monotonic()
+    took = kernels.build_generated(dict(SP.variant(s)
+                                        for s in set(sets.values())))
+    build_s = time.monotonic() - t0
+    variants = {name: SP.variant(spec)[0] for name, spec in sets.items()}
+    ptxas = {v: _kernel_ptxas(kernels.log_path(v))
+             for v in set(variants.values())}
+    rows, k7 = {}, None
+    for name, pk in windows.items():
+        spec = pk["spec"]
+        args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+        got = M.run_occ_window(*args, spec)
+        t0 = time.perf_counter()
+        want = M.occ_run_plain(*args, spec)
+        torch.cuda.synchronize()
+        plain_ms = 1000 * (time.perf_counter() - t0)
+        for k in ("table", "packed", "steps"):
+            if not torch.equal(got[k], want[k]):
+                bad = (got[k] != want[k]).nonzero()[:5].tolist()
+                raise AssertionError(f"K7 {name} {k} differs from the "
+                                     f"plain version at {bad}")
+        err = max_abs_err([got[k] for k in ("table", "packed", "steps")],
+                          [want[k] for k in ("table", "packed", "steps")])
+        ms = cuda_ms(lambda: M.run_occ_window(*args, spec), reps=5, warmup=1)
+        dev_ms = kernel_ms(lambda: M.run_occ_window(*args, spec),
+                           "occ_window", reps=5)
+        bound_ms, bound_by, lane_steps, rounds = _window_bound(pk, got)
+        prog = pk["inputs"]["prog_id"][pk["inputs"]["active"].bool()]
+        extra = got["packed"][:, :, -4:].cpu().numpy()
+        status = got["packed"][:, :, 0][pk["inputs"]["active"].bool()]
+        row = {"blocks": pk["occ"].blocks, "batch": pk["p"].batch,
+               "scache_cap": pk["p"].scache_cap,
+               "programs": len(spec), "variant": variants[name],
+               "traced_lanes": int((prog >= 0).sum()),
+               "generic_lanes": int((prog < 0).sum()),
+               "statuses": {int(k): int(v) for k, v in zip(
+                   *np.unique(status.cpu().numpy(), return_counts=True))},
+               "rounds": rounds, "committed": int(extra[..., 0].sum()),
+               "escaped": int(extra[..., 1].sum()),
+               "lane_steps": lane_steps, "max_abs_err": err,
+               "ms": round(ms, 4), "device_ms": dev_ms,
+               "plain_ms": round(plain_ms, 1),
+               "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
+        if name == "a_erc20_chain":
+            # the same inputs through generic K6: every lane interpreted
+            gen_in = dict(pk["inputs"], prog_id=torch.full_like(
+                pk["inputs"]["prog_id"], -1))
+            gargs = args[:4] + (gen_in,)
+            gen = M.run_occ_window(*gargs)
+            for k in ("table", "packed"):
+                if not torch.equal(gen[k], got[k]):
+                    raise AssertionError(f"K7 window (a): generic K6 {k} "
+                                         "differs from K6+K7")
+            row["generic_ms"] = round(cuda_ms(
+                lambda: M.run_occ_window(*gargs), reps=5, warmup=1), 4)
+            row["generic_device_ms"] = kernel_ms(
+                lambda: M.run_occ_window(*gargs), "occ_window", reps=5)
+            row["generic_lane_steps"] = int(gen["steps"].sum())
+            k7 = {"name": "occ_window_spec", "route": "cuda",
+                  "source": "coreth_tpu_torch/evm/device/specialize.py",
+                  "replaces": "coreth_tpu/evm/device/specialize.py:1152",
+                  "max_abs_err": err, "ms": round(ms, 4),
+                  "plain_ms": round(plain_ms, 1),
+                  "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
+                  "library_ms": None}
+        if name == "c_mixed" and row["generic_lanes"] == 0:
+            raise AssertionError("K7 mixed window has no generic lane")
+        if name == "e_escapes" and (M.HOST not in row["statuses"]
+                                    or M.ERR not in row["statuses"]):
+            raise AssertionError(f"K7 escape window: {row['statuses']}")
+        rows[name] = row
+    k7["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    emit({"phase": "k7", "equal": True, "windows": rows,
+          "variant_build_s": round(build_s, 3), "nvcc_seconds": took,
+          "ptxas": ptxas,
+          "ptxas_generic": _kernel_ptxas(kernels.log_path("occ_window")),
+          "ms_is": "window (a), CUDA events around the wrapper", **k7})
+    return k7
 
 
 def main() -> int:
@@ -1098,16 +1528,31 @@ def main() -> int:
     m_launches = phase_machine(dev, smi, m_genesis, m_blocks, t_build,
                                m_txs, m_keys)
 
-    # ---- 10.-11. K6 against its plain version, then the window path
+    # ---- 10.-11. K6, then K6+K7, against their plain versions
     k6 = phase_k6(dev, m_genesis, m_blocks)
-    w_launches = phase_window(dev, smi, m_genesis, m_blocks, m_txs)
+    k7 = phase_k7(dev, m_genesis, m_blocks)
+
+    # ---- 12. the window path without K7 (window) and with it (spec,
+    # the reference's default), in the order window, spec, spec, window
+    runs = []
+    for order, specialize in enumerate((False, True, True, False), 1):
+        runs.append((specialize, *phase_window(
+            dev, smi, m_genesis, m_blocks, m_txs, specialize, order)))
+    w_launches = next(ln for sp, ln, _s in runs if not sp)
+    s_launches = next(ln for sp, ln, _s in runs if sp)
+    emit({"phase": "ab", "order": ["window", "spec", "spec", "window"],
+          "first_fold_s": [st["first_fold_s"] for _sp, _ln, st in runs],
+          "steady_txs_per_s": [st["steady_txs_per_s"]
+                               for _sp, _ln, st in runs]})
 
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
     k5["launches"] = m_launches["step_machine"]
     k6["launches"] = w_launches["occ_window"]
-    k3["launches"] = k4["launches"] = "in K5 and K6"
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
+    k7["launches"] = s_launches["occ_window_spec"]
+    k3["launches"] = k4["launches"] = "in K5, K6 and K7"
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

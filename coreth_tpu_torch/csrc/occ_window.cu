@@ -14,11 +14,17 @@
 // blocks are sequential (block w's base table is block w-1's result), so
 // the CTA walks them in a loop; lanes are strided over the CTA's
 // threads.  Per round:
-//   exec   — every thread runs its pending lanes to completion with K5's
-//            lane interpreter (step_machine.cuh sm_run_lane, with K4
-//            u256x.cuh and K3 keccak.cuh inside), writing straight into
-//            the lane's row of the window's packed output, so rows of
-//            lanes that are not pending keep their last result;
+//   exec   — every thread runs its pending lanes to completion, writing
+//            straight into the lane's row of the window's packed output,
+//            so rows of lanes that are not pending keep their last
+//            result.  A lane with prog_id < 0 runs K5's lane interpreter
+//            (step_machine.cuh sm_run_lane, with K4 u256x.cuh and K3
+//            keccak.cuh inside); a lane with prog_id = k runs traced
+//            program k (K7) through spec_dispatch.  The generic build
+//            (this file alone) has no program; the specialised build is
+//            a generated translation unit that defines OCC_SPEC, the
+//            programs and spec_dispatch (coreth_tpu_torch/evm/device/
+//            specialize.py cuda_source) and then includes this file;
 //   sweep  — warp 0 validates the lanes one at a time in tx order, a
 //            lane's cache entries across the warp's threads: the exact
 //            sequential sweep of the reference (its disjoint fast path
@@ -44,22 +50,37 @@
 // copy of the input table), packed (W, B, width + 4) int32 rows in the
 // reference layout with the committed / escape / pending / rounds
 // columns, and steps (W, B) int32, the lane-steps each lane executed
-// over all rounds (for the roofline).
+// over all rounds (a traced lane counts its leaf's traced steps), for
+// the roofline.
 
 #include <cuda_runtime.h>
 
 #include "step_machine.cuh"
 
+#ifndef OCC_SPEC
+// The generic build has no traced program: the window runner gives
+// every lane prog_id -1 (machine.run_occ_window picks this build only
+// for an empty program set), so a lane that came here anyway is a
+// caller's fault and traps (the launch fails; it does not escape).
+__device__ __forceinline__ int spec_dispatch(int, const MachineIn&,
+                                             const MachineDims&, int,
+                                             int32_t*, const int32_t*) {
+  __trap();
+  return 0;
+}
+#endif
+
 namespace {
 
 constexpr int kMaxThreads = 256;
+constexpr int kKdigCap = 8;  // specialize.KDIG_CAP digest slots per lane
 
 struct OccDims {
   int W, G, R;
 };
 
 struct OccBuf {
-  const int32_t *sgid, *active, *env, *scal, *key_tab;
+  const int32_t *sgid, *active, *prog_id, *kdig, *env, *scal, *key_tab;
   int32_t *table, *packed, *steps, *skey0, *seeds, *sflag0, *lanes, *ov,
       *stamp;
   uint8_t* arena;
@@ -207,10 +228,16 @@ __global__ void __launch_bounds__(kMaxThreads)
     bool go = __syncthreads_or(act) != 0;
     int rnd = 0;
     while (go) {
-      for (int i = tid; i < B; i += nt)
-        if (pend[i])
-          b.steps[wb + i] += sm_run_lane(bi, bd, i, pk + (size_t)i * PW,
-                                         b.arena + (size_t)i * d.arena_w);
+      for (int i = tid; i < B; i += nt) {
+        if (!pend[i]) continue;
+        const int pid = b.prog_id[wb + i];
+        int32_t* row = pk + (size_t)i * PW;
+        b.steps[wb + i] +=
+            pid < 0 ? sm_run_lane(bi, bd, i, row,
+                                  b.arena + (size_t)i * d.arena_w)
+                    : spec_dispatch(pid, bi, bd, i, row,
+                                    b.kdig + (wb + i) * kKdigCap * 16);
+      }
       __syncthreads();
       ++sweep;
       if (tid < 32) {
@@ -248,11 +275,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 // dims: host int32[21] = the 18 MachineDims fields (B, stack_cap,
 // mem_cap, code_cap, data_cap, S, TC, LC, LD, keccak_cap, copy_cap,
 // max_steps, refunds, timestamp, number, gaslimit, width, arena_w; the
-// three block words are per block, in `scal`), then W, G, R.
+// three block words are per block, in `scal`), then W, G, R.  prog_id
+// (W, B) int32 selects each lane's traced program (-1: the interpreter),
+// kdig (W, B, 8, 16) int32 holds its host-evaluated keccak digests.
 extern "C" int occ_window_launch(
     const void* code, const void* jdest, const void* code_len,
     const void* calldata, const void* data_len, const void* start_gas,
-    const void* active, const void* sgid, const void* callvalue,
+    const void* active, const void* sgid, const void* prog_id,
+    const void* kdig, const void* callvalue,
     const void* caller, const void* address, const void* origin,
     const void* gasprice, const void* env, const void* scal,
     const void* tables, const void* key_tab, const void* dims, void* table,
@@ -280,6 +310,8 @@ extern "C" int occ_window_launch(
   OccBuf b;
   b.sgid = (const int32_t*)sgid;
   b.active = (const int32_t*)active;
+  b.prog_id = (const int32_t*)prog_id;
+  b.kdig = (const int32_t*)kdig;
   b.env = (const int32_t*)env;
   b.scal = (const int32_t*)scal;
   b.key_tab = (const int32_t*)key_tab;

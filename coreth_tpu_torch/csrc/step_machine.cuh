@@ -84,17 +84,54 @@ __device__ __forceinline__ u256 sm_scalar(int v) {
   return u256_small((uint32_t)v);
 }
 
+// The packed row's column offsets (pack_result): status, gas, refund,
+// host reason, cache count, then the cache flags, keys, values and
+// originals, the log pool's topic counts, data lengths, count, topics
+// and data.
+struct RowLayout {
+  int SFLAG, SKEY, SVAL, SORIG, LOGNT, LOGDLEN, LOGCNT, LOGTOP, LOGDATA;
+};
+
+__device__ __forceinline__ RowLayout sm_row_layout(const MachineDims& d) {
+  RowLayout o;
+  o.SFLAG = 5;
+  o.SKEY = o.SFLAG + d.S;
+  o.SVAL = o.SKEY + 16 * d.S;
+  o.SORIG = o.SVAL + 16 * d.S;
+  o.LOGNT = o.SORIG + 16 * d.S;
+  o.LOGDLEN = o.LOGNT + d.LC;
+  o.LOGCNT = o.LOGDLEN + d.LC;
+  o.LOGTOP = o.LOGCNT + 1;
+  o.LOGDATA = o.LOGTOP + d.LC * 64;
+  return o;
+}
+
+// A lane's row before it runs: the storage cache is the lane's seeded
+// input, the log pool empty.
+__device__ __forceinline__ void sm_seed_row(const MachineIn& in,
+                                            const MachineDims& d, int i,
+                                            int32_t* row) {
+  const int S = d.S;
+  const RowLayout o = sm_row_layout(d);
+  for (int j = 0; j < S; ++j) row[o.SFLAG + j] = in.sflag[i * S + j];
+  for (int k = 0; k < 16 * S; ++k) {
+    row[o.SKEY + k] = in.skey[(size_t)i * 16 * S + k];
+    row[o.SVAL + k] = in.sval[(size_t)i * 16 * S + k];
+    row[o.SORIG + k] = in.sorig[(size_t)i * 16 * S + k];
+  }
+  for (int k = o.LOGNT; k < d.width; ++k) row[k] = 0;
+}
+
 // Run lane i; returns the steps it executed.  `row` is the lane's
 // packed output row, `arena` its scratch bytes.
 __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
                            int32_t* row, uint8_t* arena) {
   const int S = d.S, LC = d.LC, LD = d.LD, TC = d.TC;
   const int CW = d.code_cap + 33;
-  // packed row layout (pack_result)
-  const int O_SFLAG = 5, O_SKEY = O_SFLAG + S, O_SVAL = O_SKEY + 16 * S,
-            O_SORIG = O_SVAL + 16 * S, O_LOGNT = O_SORIG + 16 * S,
-            O_LOGDLEN = O_LOGNT + LC, O_LOGCNT = O_LOGDLEN + LC,
-            O_LOGTOP = O_LOGCNT + 1, O_LOGDATA = O_LOGTOP + LC * 64;
+  const RowLayout o = sm_row_layout(d);
+  const int O_SFLAG = o.SFLAG, O_SKEY = o.SKEY, O_SVAL = o.SVAL,
+            O_SORIG = o.SORIG, O_LOGNT = o.LOGNT, O_LOGDLEN = o.LOGDLEN,
+            O_LOGCNT = o.LOGCNT, O_LOGTOP = o.LOGTOP, O_LOGDATA = o.LOGDATA;
   const int32_t* code = in.code + (size_t)i * CW;
   const int32_t* jdest = in.jdest + (size_t)i * d.code_cap;
   const int32_t* cdata = in.calldata + (size_t)i * d.data_cap;
@@ -111,14 +148,7 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
   for (int k = 0; k < d.mem_cap / 4; ++k) ((uint32_t*)mem)[k] = 0;
   for (int k = 0; k < d.stack_cap; ++k) stack[k] = u256_zero();
 
-  // the storage cache starts as the lane's seeded input; logs empty
-  for (int j = 0; j < S; ++j) row[O_SFLAG + j] = in.sflag[i * S + j];
-  for (int k = 0; k < 16 * S; ++k) {
-    row[O_SKEY + k] = in.skey[(size_t)i * 16 * S + k];
-    row[O_SVAL + k] = in.sval[(size_t)i * 16 * S + k];
-    row[O_SORIG + k] = in.sorig[(size_t)i * 16 * S + k];
-  }
-  for (int k = O_LOGNT; k < d.width; ++k) row[k] = 0;
+  sm_seed_row(in, d, i, row);
 
   int pc = 0, gas = in.start_gas[i], sp = 0, msize = 0, refund = 0;
   int status = in.active[i] ? SM_RUN : SM_SKIP, hreason = R_NONE;

@@ -1,13 +1,14 @@
 """Shared opcode census for bytecode eligibility decisions.
 
-Port of reference ``evm/census.py``, cut to the census and the static
-storage footprint: ONE walker (PUSH-data-skipping, the
-core/vm/analysis.go codeBitmap walk) feeds both the device classifier
-(``evm/device/tables.scan_code``) and the native host session's
-eligibility check (``evm/hostexec/eligibility``), so the two see the
-same opcode set for a given bytecode.  ``static_storage_keys`` gives
-the fused OCC window's premap the PUSH-constant slots of a contract
-(the swap pool's reserves).
+Port of reference ``evm/census.py``, cut to the census, the
+specialiser's pre-filter and the static storage footprint: ONE walker
+(PUSH-data-skipping, the core/vm/analysis.go codeBitmap walk) feeds the
+device classifier (``evm/device/tables.scan_code``), the native host
+session's eligibility check (``evm/hostexec/eligibility``) and the
+specialiser's ``trace_precheck`` (``evm/device/specialize``), so all
+three see the same opcode set for a given bytecode.
+``static_storage_keys`` gives the fused OCC window's premap the
+PUSH-constant slots of a contract (the swap pool's reserves).
 """
 
 from __future__ import annotations
@@ -39,6 +40,20 @@ def opcode_census(code: bytes) -> Dict[int, int]:
         counts[op] = counts.get(op, 0) + 1
     _CENSUS_CACHE[code] = counts
     return counts
+
+
+def trace_precheck(code: bytes, allowed) -> Tuple[bool, str]:
+    """Cheap static pre-filter for the per-contract specialiser
+    (evm/device/specialize.py): is every EXECUTED-position opcode of
+    `code` inside the specialiser's traced subset?  A rejection here
+    skips the (more expensive) symbolic walk entirely; a pass only
+    means the walk is worth attempting — the walk itself still rejects
+    unresolvable jump structure, symbolic memory offsets, and budget
+    blow-ups."""
+    for op in sorted(opcode_census(code)):
+        if op not in allowed:
+            return False, f"untraced opcode 0x{op:02x}"
+    return True, ""
 
 
 _STATIC_KEYS_CACHE: Dict[bytes, Optional[Tuple[Tuple[bytes, ...],

@@ -9,9 +9,11 @@ Port of reference ``evm/device/adapter.py``, cut to what the port runs:
   (``replay/machine_block``);
 - ``MachineWindowRunner`` drives the fused OCC window (K6): it premaps
   each lane's storage keys onto rows of a slot table that stays on the
-  device, predicting keccak-derived keys from learned recipes, launches
-  one window of blocks, and resolves the keys lanes still missed by
-  re-launching the window from its host mirror.
+  device, predicting keccak-derived keys from learned recipes, gives
+  each lane whose contract traces (``specialize``) its program id and
+  host-evaluated keccak digests (K7), launches one window of blocks,
+  and resolves the keys lanes still missed by re-launching the window
+  from its host mirror.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from coreth_tpu_torch import default_device
 from coreth_tpu_torch.crypto import keccak256, keccak256_many
 from coreth_tpu_torch.evm.census import static_storage_keys
 from coreth_tpu_torch.evm.device import machine as M
+from coreth_tpu_torch.evm.device import specialize as SP
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.ops import u256
 
@@ -37,6 +40,9 @@ MISS_ROUNDS = 6
 # discovery re-launches) before keys still missed dirty their blocks
 # (the reference's max_attempts default)
 MAX_WINDOW_ATTEMPTS = 6
+# contracts one window runner specialises (its sticky program set);
+# lanes of later eligible contracts stay on the generic interpreter
+SPEC_SET_CAP = 8
 
 
 def addr_word(addr: bytes) -> int:
@@ -396,6 +402,88 @@ def miss_keys(out: PackedOut, i: int) -> List[bytes]:
     return keys
 
 
+def _kreq_ctx_bytes(op: int, t: TxSpec, env: BlockEnv) -> bytes:
+    """The 32-byte context word a lane's traced keccak request reads —
+    equal to the device input word bit for bit (``specialize.HOST_CTX``
+    admits only full-width words, so these are plain paddings)."""
+    if op == 0x33:
+        return b"\x00" * 12 + t.caller
+    if op == 0x30:
+        return b"\x00" * 12 + t.address
+    if op == 0x32:
+        return b"\x00" * 12 + t.origin
+    if op == 0x34:
+        return t.value.to_bytes(32, "big")
+    if op == 0x3A:
+        return t.gas_price.to_bytes(32, "big")
+    if op == 0x41:
+        return b"\x00" * 12 + env.coinbase
+    if op == 0x46:
+        return env.chain_id.to_bytes(32, "big")
+    if op == 0x48:
+        return env.base_fee.to_bytes(32, "big")
+    # a HOST_CTX opcode this function does not know would hand the kernel
+    # a wrong keccak input that it trusts
+    raise ValueError(f"unhandled kdig ctx opcode {op:#04x}")
+
+
+def fill_kdig(kdig: np.ndarray, jobs) -> None:
+    """Evaluate collected keccak requests and write their digest limbs.
+
+    jobs: (bi, li, t, env, reqs) per specialised lane.  Requests nest
+    (("kdig", j) words reference earlier slots), so evaluation batches
+    by readiness level — one keccak256_many call per level, one
+    vectorized limb scatter at the end."""
+    if not jobs:
+        return
+    done: List[List[Optional[bytes]]] = [
+        [None] * len(reqs) for (_bi, _li, _t, _env, reqs) in jobs]
+    while True:
+        msgs, where = [], []
+        pending = False
+        for ji, (_bi, _li, t, env, reqs) in enumerate(jobs):
+            for k, desc in enumerate(reqs):
+                if done[ji][k] is not None:
+                    continue
+                parts, ready = [], True
+                for d in desc:
+                    kind = d[0]
+                    if kind == "const":
+                        parts.append(d[1].to_bytes(32, "big"))
+                    elif kind == "ctx":
+                        parts.append(_kreq_ctx_bytes(d[1], t, env))
+                    elif kind == "data":
+                        b = t.calldata[d[1]:d[1] + 32]
+                        parts.append(b + b"\x00" * (32 - len(b)))
+                    else:  # ("kdig", j): an earlier slot's digest
+                        dj = done[ji][d[1]]
+                        if dj is None:
+                            ready = False
+                            break
+                        parts.append(dj)
+                if not ready:
+                    pending = True
+                    continue
+                msgs.append(b"".join(parts))
+                where.append((ji, k))
+        if not msgs:
+            break
+        for (ji, k), dg in zip(where, keccak256_many(msgs)):
+            done[ji][k] = dg
+        if not pending:
+            break
+    fills = [(jobs[ji][0], jobs[ji][1], k, dg)
+             for ji, row in enumerate(done)
+             for k, dg in enumerate(row) if dg is not None]
+    if fills:
+        idx = np.array([(bi, li, k) for bi, li, k, _ in fills],
+                       dtype=np.int64)
+        blob = b"".join(dg[::-1] for _bi, _li, _k, dg in fills)
+        limbs = np.frombuffer(blob, dtype=np.uint16).reshape(
+            -1, u256.LIMBS).astype(np.int32)
+        kdig[idx[:, 0], idx[:, 1], idx[:, 2]] = limbs
+
+
 def result_from_row(out: PackedOut, i: int) -> TxResult:
     """One lane's TxResult from a PackedOut row."""
     return results_for_rows(out, [i])[0]
@@ -581,12 +669,22 @@ class MachineWindowRunner:
     - ``common``: per-contract keys every lane touched so far (the
       residue prediction cannot derive).  A key still outside the premap
       surfaces as an F_MISS escape and resolves through the bounded
-      re-launch loop, counted in ``discovery_dispatches``.
+      re-launch loop, counted in ``discovery_dispatches``;
+    - ``_spec_progs``: with ``specialize`` (the reference's
+      ``CORETH_SPECIALIZE``, default on) the sticky program set — each
+      bytecode the tracer accepts gets the next program index at first
+      sighting, up to ``SPEC_SET_CAP``; its lanes run that traced
+      program inside K6 (K7), fed the host-evaluated keccak digests of
+      its ``spec_requests``.  Other lanes stay on the interpreter.
 
     ``launches`` / ``steps`` count K6 launches and the lane-steps they
-    ran; ``t_pack`` (premaps, packing, upload), ``t_machine`` (launch,
-    and the wait for and download of the packed rows) and ``t_unpack``
-    (miss resolution, recipe learning, results) are host-clock seconds.
+    ran; ``lanes_specialized`` / ``specialize_escapes`` the lanes of
+    first attempts that ran a traced program / stayed on the
+    interpreter, ``programs_traced`` the program set's size; ``t_pack``
+    (premaps, packing, upload), ``t_machine`` (launch, and the wait for
+    and download of the packed rows; a new program set's nvcc build
+    included) and ``t_unpack`` (miss resolution, recipe learning,
+    results) are host-clock seconds.
     """
 
     COMMON_CAP = 8   # premapped common keys per contract
@@ -597,10 +695,17 @@ class MachineWindowRunner:
 
     def __init__(self, fork: str,
                  storage_resolver: Callable[[bytes, bytes], int],
-                 device=None):
+                 device=None, specialize: bool = True):
         self.fork = fork
         self.resolver = storage_resolver
         self.device = default_device(device)
+        self.specialize = specialize
+        # code -> program index (sticky: the set only grows); codes the
+        # tracer rejected; code -> its host-evaluated keccak requests
+        self._spec_progs: Dict[bytes, int] = {}
+        self._spec_bad: set = set()
+        self._spec_reqs: Dict[bytes, Tuple] = {}
+        self._kdig_zero: Optional[torch.Tensor] = None
         self.slot_gid: Dict[Tuple[bytes, bytes], int] = {}
         self.gid_keys: List[Tuple[bytes, bytes]] = []
         self.vals: List[int] = []
@@ -627,6 +732,9 @@ class MachineWindowRunner:
         self.premap_nested = 0      # keys derived via 2nd-level recipes
         self.premap_array = 0       # keys derived via array recipes
         self.discovery_dispatches = 0  # re-launches for missed keys
+        self.lanes_specialized = 0  # lanes run on a traced program
+        self.specialize_escapes = 0  # lanes kept on the interpreter
+        self.programs_traced = 0    # contracts traced into programs
         self.launches = 0
         self.steps = 0
         self.t_pack = self.t_machine = self.t_unpack = 0.0
@@ -664,6 +772,48 @@ class MachineWindowRunner:
 
     def _key_mapped(self, contract: bytes, key: bytes) -> bool:
         return (contract, key) in self.slot_gid
+
+    # ----------------------------------------------------- specialisation
+    def _spec_id(self, code: bytes) -> int:
+        """Program index for `code` (-1: the generic interpreter).  The
+        first sighting of eligible code ADDS it to the sticky program
+        set; workloads settle their hot-contract set in the first
+        window, so steady state adds nothing (and builds no variant)."""
+        if not self.specialize:
+            return -1
+        idx = self._spec_progs.get(code)
+        if idx is not None:
+            return idx
+        if code in self._spec_bad \
+                or len(self._spec_progs) >= SPEC_SET_CAP:
+            return -1
+        ok, _reason = SP.trace_eligible(code, self.fork)
+        if not ok:
+            self._spec_bad.add(code)
+            return -1
+        idx = len(self._spec_progs)
+        self._spec_progs[code] = idx
+        self._spec_reqs[code] = SP.spec_requests(code, self.fork)
+        self.programs_traced += 1
+        return idx
+
+    def _zero_kdig(self, W: int, L: int) -> torch.Tensor:
+        """The kdig input of a window with no keccak request (generic
+        lanes, or programs without requests): a device zero tensor kept
+        per shape, since the kernel only reads it."""
+        z = self._kdig_zero
+        if z is None or tuple(z.shape[:2]) != (W, L):
+            z = self._kdig_zero = torch.zeros(
+                (W, L, SP.KDIG_CAP, u256.LIMBS), dtype=torch.int32,
+                device=self.device)
+        return z
+
+    def _spec_key(self) -> Tuple:
+        """The program set: SpecProgram descriptors in program-index
+        order (selects K6's variant)."""
+        return tuple(SP.SpecProgram(code=c, fork=self.fork)
+                     for c, _i in sorted(self._spec_progs.items(),
+                                         key=lambda kv: kv[1]))
 
     def _code_pack(self, code: bytes, code_cap: int) -> Tuple:
         """``code_rows`` of one bytecode under one code_cap (memoized;
@@ -880,6 +1030,7 @@ class MachineWindowRunner:
                 if not info.eligible:
                     raise ValueError(
                         f"TxSpec code not device-eligible: {info.reason}")
+                self._spec_id(t.code)  # the program set settles first
                 max_code = max(max_code, len(t.code))
                 max_data = max(max_data, len(t.calldata))
                 max_slots = max(max_slots, len(pre) + 8)
@@ -965,12 +1116,14 @@ class MachineWindowRunner:
         return self.table, self.key_tab
 
     # ------------------------------------------------------------- issue
-    def pack(self, items, discovered=None) -> dict:
+    def pack(self, items, discovered=None, attempt: int = 1) -> dict:
         """Premap, pack and upload one window: returns the launch's
-        arguments (``p``, ``occ``, ``table``, ``key_tab``, ``inputs``)
-        with the premaps and their predicted subsets.  Maps every
-        premapped key to a table row (resolving new ones) and brings the
-        device tables up to date; launches nothing.
+        arguments (``p``, ``occ``, ``table``, ``key_tab``, ``inputs``,
+        ``spec``) with the premaps and their predicted subsets.  Maps
+        every premapped key to a table row (resolving new ones), gives
+        every lane its program id and keccak digests (counted on the
+        window's first ``attempt``) and brings the device tables up to
+        date; launches nothing.
 
         items: [(BlockEnv, [TxSpec, ...]), ...] in chain order."""
         if discovered is None:
@@ -986,6 +1139,24 @@ class MachineWindowRunner:
                 for j, key in enumerate(block_pre[li]):
                     sgid[bi, li, j] = self._gid(t.address, key)
         arrays["sgid"] = sgid
+        prog_id = np.full((W, L), -1, dtype=np.int32)
+        kjobs: List[Tuple] = []
+        for bi, (env, specs) in enumerate(items):
+            for li, t in enumerate(specs):
+                pid = self._spec_progs.get(t.code, -1)
+                prog_id[bi, li] = pid
+                if pid >= 0 and self._spec_reqs.get(t.code):
+                    kjobs.append((bi, li, t, env, self._spec_reqs[t.code]))
+                if attempt == 1:
+                    if pid >= 0:
+                        self.lanes_specialized += 1
+                    elif self.specialize:
+                        self.specialize_escapes += 1
+        arrays["prog_id"] = prog_id
+        if kjobs:
+            kdig = np.zeros((W, L, SP.KDIG_CAP, u256.LIMBS), dtype=np.int32)
+            fill_kdig(kdig, kjobs)
+            arrays["kdig"] = kdig
         table, key_tab = self._device_tables(G)
         # the lane -> bytecode assignment recurs window after window, and
         # the code / jump-table rows are the largest window inputs: keep
@@ -1006,10 +1177,13 @@ class MachineWindowRunner:
             self._win_code_cache[code_sig] = code_dev
         inputs = {k: _upload(v, self.device)
                   for k, v in arrays.items()}
+        if not kjobs:
+            inputs["kdig"] = self._zero_kdig(W, L)
         inputs.update(zip(("code", "jdest", "code_len"), code_dev))
         return dict(p=p, occ=occ, table=table, key_tab=key_tab,
-                    inputs=inputs, items=items, discovered=discovered,
-                    premaps=premaps, predicted=predicted)
+                    inputs=inputs, spec=self._spec_key(), items=items,
+                    discovered=discovered, premaps=premaps,
+                    predicted=predicted)
 
     def issue(self, items, discovered=None, attempt: int = 1) -> dict:
         """Pack and launch one window; returns a handle for complete().
@@ -1017,11 +1191,11 @@ class MachineWindowRunner:
         callers fold the previous window's tries while this one runs,
         and block only in complete()'s fetch."""
         t0 = time.monotonic()
-        handle = self.pack(items, discovered)
+        handle = self.pack(items, discovered, attempt)
         t1 = time.monotonic()
         handle["out"] = M.run_occ_window(
             handle["p"], handle["occ"], handle.pop("table"),
-            handle.pop("key_tab"), handle.pop("inputs"))
+            handle.pop("key_tab"), handle.pop("inputs"), handle["spec"])
         # the launch's output table (the post-window committed state)
         # replaces the resident one; the stream orders its later uses
         self.table = handle["out"]["table"]

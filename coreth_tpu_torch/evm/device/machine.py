@@ -767,6 +767,8 @@ _EXEC_KEYS = ("code", "jdest", "code_len", "calldata", "data_len",
 OPS_PER_SWEEP_ENTRY = 60
 
 OCC_LAUNCHES = 0
+# launches of K6's specialised variants (K7 inside), also in OCC_LAUNCHES
+SPEC_LAUNCHES = 0
 
 
 def _occ_res0(p: MachineParams, dev) -> dict:
@@ -789,31 +791,49 @@ def _occ_res0(p: MachineParams, dev) -> dict:
 
 
 def occ_run_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
-                  key_tab: torch.Tensor, blocks_in: dict) -> dict:
-    """The plain version of K6: reference ``build_occ_machine``'s
-    ``occ_run`` (machine.py:1024) written out in torch.
+                  key_tab: torch.Tensor, blocks_in: dict,
+                  spec: tuple = ()) -> dict:
+    """The plain version of K6 (with K7's plain programs): reference
+    ``build_occ_machine``'s ``occ_run`` (machine.py:1024) written out in
+    torch.
 
     table   (G, 16) int32 — committed slot values (not modified).
     key_tab (G, 16) int32 — slot-key words per table row.
     blocks_in — per-block inputs with leading axis W: the exec inputs of
       ``run_plain`` (``_EXEC_KEYS`` and ``active``), ``sgid`` (W, B, S)
-      int32, the table row of each lane-cache entry (>= G: unused), and
-      ``chainid_w`` (16,) shared across the window.
+      int32, the table row of each lane-cache entry (>= G: unused),
+      ``prog_id`` (W, B) int32, each lane's index into ``spec`` (-1: the
+      generic interpreter), ``kdig`` (W, B, KDIG_CAP, 16) int32, the
+      lanes' host-evaluated keccak digests, and ``chainid_w`` (16,)
+      shared across the window.
+    spec — ``specialize.SpecProgram`` descriptors, the runner's program
+      set in program-index order.
 
     Returns {"table": (G, 16), "packed": (W, B, width + 4), "steps":
     (W, B)}: per-lane results in the ``pack_result`` layout plus the
     committed / escape / pending / rounds columns, and the lane-steps
-    each lane executed over all rounds.  Blocks after the first dirty
-    block ran against a speculative table; the runner discards them."""
+    each lane executed over all rounds (a traced lane counts its leaf's
+    traced steps).  Blocks after the first dirty block ran against a
+    speculative table; the runner discards them."""
     B, S, G, R = p.batch, p.scache_cap, occ.table_cap, occ.rounds
     dev = table.device
+    if spec:
+        from coreth_tpu_torch.evm.device import specialize as SP
+        spec_fns = tuple(SP.build_spec_exec(prog, p) for prog in spec)
+    else:
+        spec_fns = ()
+    if bool((blocks_in["prog_id"] >= len(spec)).any()):
+        # the kernel traps on such a lane (no program to dispatch to)
+        raise ValueError(f"occ_run_plain: a prog_id past the program set "
+                         f"of {len(spec)}")
     tbl = table.clone()
     packed, steps_all = [], []
     lane_ids = torch.arange(B, dtype=torch.int32,
                             device=dev)[:, None].expand(B, S)
     for w in range(occ.blocks):
-        exec_in = {k: blocks_in[k][w] for k in _EXEC_KEYS}
+        exec_in = {k: blocks_in[k][w] for k in _EXEC_KEYS + ("kdig",)}
         exec_in["chainid_w"] = blocks_in["chainid_w"]
+        prog_id = blocks_in["prog_id"][w]
         sgid = blocks_in["sgid"][w].long()
         active0 = blocks_in["active"][w].bool()
         premapped = sgid < G
@@ -834,9 +854,9 @@ def occ_run_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
         t_out = tbl
         steps = torch.zeros((B,), dtype=torch.int32, device=dev)
         while rnd < R and bool(pending.any()) and not bool(escape.any()):
-            st = run_plain(p, dict(exec_in, skey=skey0, sval=seeds,
-                                   sorig=seeds, sflag=sflag0, scnt=nkeys,
-                                   active=pending))
+            st = _exec_mixed(p, exec_in, (skey0, seeds, seeds, sflag0,
+                                          nkeys), pending, prog_id,
+                             spec_fns)
             res = {f: torch.where(
                 pending.reshape((B,) + (1,) * (res[f].dim() - 1)),
                 st[f], res[f]) for f in _OCC_RES}
@@ -854,6 +874,32 @@ def occ_run_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
         steps_all.append(steps)
     return dict(table=tbl, packed=torch.stack(packed),
                 steps=torch.stack(steps_all))
+
+
+def _exec_mixed(p: MachineParams, exec_in: dict, storage, active,
+                prog_id, spec_fns) -> dict:
+    """One round's exec (reference ``exec_mixed``, machine.py:1004): the
+    generic interpreter on the lanes with ``prog_id < 0``, traced
+    program k on the lanes with ``prog_id == k``, merged by lane mask."""
+    skey, sval, sorig, sflag, scnt = storage
+
+    def generic(mask):
+        return run_plain(p, dict(exec_in, skey=skey, sval=sval,
+                                 sorig=sorig, sflag=sflag, scnt=scnt,
+                                 active=mask))
+    if not spec_fns:
+        return generic(active)
+    out = generic(active & (prog_id < 0))
+    out = {f: out[f] for f in _OCC_RES + ("steps",)}
+    for k, fn in enumerate(spec_fns):
+        mk = active & (prog_id == k)
+        if not bool(mk.any()):
+            continue
+        stk = fn(exec_in, storage, mk)
+        for f in out:
+            m = mk.reshape((p.batch,) + (1,) * (out[f].dim() - 1))
+            out[f] = torch.where(m, stk[f], out[f])
+    return out
 
 
 def _occ_sweep(res, tbl, sgid, sgc, premapped, seeds, active0, lane_ids,
@@ -915,11 +961,17 @@ def _occ_sweep(res, tbl, sgid, sgc, premapped, seeds, active0, lane_ids,
 
 
 def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
-                   key_tab: torch.Tensor, blocks_in: dict) -> dict:
-    """K6: one fused OCC window.  CUDA inputs launch
-    ``csrc/occ_window.cu`` (asynchronous, current stream: nothing here
-    waits for the card); CPU inputs run ``occ_run_plain``.  Same
-    arguments and result as ``occ_run_plain``."""
+                   key_tab: torch.Tensor, blocks_in: dict,
+                   spec: tuple = ()) -> dict:
+    """K6: one fused OCC window.  CUDA inputs launch ``csrc/occ_window.cu``
+    — its generic build for an empty program set, else the specialised
+    variant generated for ``spec`` (K7 inside; built by nvcc at its
+    first use, synchronously) — asynchronously on the current stream:
+    nothing here waits for the card.  CPU inputs run ``occ_run_plain``.
+    Same arguments and result as ``occ_run_plain``; ``prog_id`` must
+    index ``spec`` or be -1 (else the plain version raises and the
+    kernel traps, which fails the launch)."""
+    from coreth_tpu_torch.evm.device import specialize as SP
     dev = table.device
     B, S, W, G = p.batch, p.scache_cap, occ.blocks, occ.table_cap
     if table.shape != (G, LIMBS) or key_tab.shape != (G, LIMBS):
@@ -928,8 +980,10 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
     shapes = {"code": (W, B, p.code_cap + 33), "jdest": (W, B, p.code_cap),
               "calldata": (W, B, p.data_cap), "sgid": (W, B, S),
               "active": (W, B), "timestamp": (W,),
-              "chainid_w": (LIMBS,), "coinbase_w": (W, LIMBS)}
-    for k in _EXEC_KEYS + ("active", "sgid", "chainid_w"):
+              "chainid_w": (LIMBS,), "coinbase_w": (W, LIMBS),
+              "prog_id": (W, B), "kdig": (W, B, SP.KDIG_CAP, LIMBS)}
+    for k in _EXEC_KEYS + ("active", "sgid", "prog_id", "kdig",
+                           "chainid_w"):
         t = blocks_in[k]
         if t.device != dev or t.dtype not in (torch.int32, torch.bool):
             raise ValueError(f"run_occ_window: {k} must be int32 on {dev}")
@@ -937,14 +991,34 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
             raise ValueError(f"run_occ_window: {k} {tuple(t.shape)} != "
                              f"{shapes[k]}")
     if dev.type == "cpu":
-        return occ_run_plain(p, occ, table, key_tab, blocks_in)
+        return occ_run_plain(p, occ, table, key_tab, blocks_in, spec)
     if dev.type != "cuda":
         raise ValueError(f"run_occ_window: unsupported device {dev}")
     if S * LIMBS * 4 > 48 * 1024:
         raise ValueError(f"run_occ_window: scache_cap {S} exceeds the "
                          "sweep's shared-memory row buffer")
-    global OCC_LAUNCHES
-    lib = kernels.load("occ_window")
+    global OCC_LAUNCHES, SPEC_LAUNCHES
+    if spec:
+        lib = SP.occ_library(spec)
+    else:
+        lib = kernels.load("occ_window")
+    args, out = occ_launch_args(p, occ, table, key_tab, blocks_in)
+    rc = lib.occ_window_launch(
+        *pointers(args), torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(rc, "occ_window")
+    OCC_LAUNCHES += 1
+    SPEC_LAUNCHES += bool(spec)
+    return out
+
+
+def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
+                    key_tab: torch.Tensor, blocks_in: dict):
+    """``occ_window_launch``'s arguments but the stream (arrays on the
+    inputs' device; ``pointers`` gives the launch's addresses) and its
+    outputs {"table", "packed", "steps"}: the wrapper allocates the
+    outputs and every scratch buffer, the kernel nothing."""
+    dev = table.device
+    B, S, W, G = p.batch, p.scache_cap, occ.blocks, occ.table_cap
     lane = [blocks_in[k].to(torch.int32).contiguous()
             for k in _OCC_LANE_INPUTS]
     env = torch.stack([blocks_in["coinbase_w"],
@@ -980,19 +1054,19 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
                      p.copy_cap, p.max_steps, int(p.refunds), 0, 0, 0,
                      p.width, arena.shape[1], W, G, occ.rounds],
                     dtype=np.int32)
-    rc = lib.occ_window_launch(
-        *(t.data_ptr() for t in lane), env.data_ptr(), scal.data_ptr(),
-        tables.data_ptr(), key_tab.data_ptr(), dims.ctypes.data,
-        out_table.data_ptr(), packed.data_ptr(), steps.data_ptr(),
-        arena.data_ptr(), skey0.data_ptr(), seeds.data_ptr(),
-        sflag0.data_ptr(), lanes_i.data_ptr(), ov.data_ptr(),
-        stamp.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(rc, "occ_window")
-    OCC_LAUNCHES += 1
-    return dict(table=out_table, packed=packed, steps=steps)
+    args = lane + [env, scal, tables, key_tab, dims, out_table, packed,
+                   steps, arena, skey0, seeds, sflag0, lanes_i, ov, stamp]
+    return args, dict(table=out_table, packed=packed, steps=steps)
+
+
+def pointers(args):
+    """The addresses of launch arguments (tensors and host arrays)."""
+    return [a.ctypes.data if isinstance(a, np.ndarray) else a.data_ptr()
+            for a in args]
 
 
 # Per-lane inputs of a window, in the order K6 takes them.
 _OCC_LANE_INPUTS = ("code", "jdest", "code_len", "calldata", "data_len",
-                    "start_gas", "active", "sgid", "callvalue",
-                    "caller_w", "address_w", "origin_w", "gasprice_w")
+                    "start_gas", "active", "sgid", "prog_id", "kdig",
+                    "callvalue", "caller_w", "address_w", "origin_w",
+                    "gasprice_w")

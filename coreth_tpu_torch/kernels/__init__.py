@@ -7,11 +7,18 @@ ctypes: no PyTorch headers, so a build takes seconds.  Libraries go to
 when their source is newer.  Stale sources build in parallel, one
 ``nvcc`` each, under a file lock shared by every process of the
 checkout.  Importing this module builds nothing and needs no CUDA.
+
+A *generated* kernel (K6's specialised variants: repo code writes a
+translation unit from contract bytecode, ``evm/device/specialize.py``)
+builds the same way from ``csrc/build/<name>.cu``, with ``csrc/`` on
+the include path; its name carries a hash of its source and of every
+``csrc/*.cu``/``*.cuh``, so a changed source is a new library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -35,6 +42,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# seconds each kernel's nvcc took in this process (0.0: already built)
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def lib_path(name: str) -> str:
@@ -74,19 +83,52 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     (0.0 for one already fresh).  Raises with nvcc's output on failure.
     ``-Xptxas -v`` (registers, spills) goes to ``csrc/build/<name>.log``."""
     names = list(SOURCES if names is None else names)
-    took = {n: 0.0 for n in names}
     with BuildLock("kernels"):
-        todo = [n for n in names if _stale(n)]
-        if not todo:
-            return took
+        todo = {n: os.path.join(CSRC, SOURCES[n]) for n in names
+                if _stale(n)}
+        return _nvcc_all(names, todo)
+
+
+def generated_name(prefix: str, source: str) -> str:
+    """``<prefix>_<sha12>``: the hash covers the generated source and
+    every ``csrc/*.cu``/``*.cuh`` it may include."""
+    h = hashlib.sha256(source.encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn.endswith((".cu", ".cuh")):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + b"\0" + f.read())
+    return f"{prefix}_{h.hexdigest()[:12]}"
+
+
+def build_generated(sources: Dict[str, str]) -> Dict[str, float]:
+    """Write each generated translation unit {name: source} to
+    ``csrc/build/<name>.cu`` and build the missing ones in parallel;
+    returns {name: seconds} like ``build``."""
+    with BuildLock("kernels"):
+        todo = {}
+        for n, src in sources.items():
+            if os.path.exists(lib_path(n)):
+                continue
+            path = os.path.join(BUILD_DIR, f"{n}.cu")
+            with open(path, "w") as f:
+                f.write(src)
+            todo[n] = path
+        return _nvcc_all(list(sources), todo)
+
+
+def _nvcc_all(names, todo: Dict[str, str]) -> Dict[str, float]:
+    """One nvcc per {name: source path} of ``todo``, all started
+    together (the caller holds the build lock)."""
+    took = {n: 0.0 for n in names}
+    if todo:
         nvcc = _nvcc()
         procs = {}
         t0 = time.monotonic()
-        for n in todo:
+        for n, src in todo.items():
             tmp = lib_path(n) + f".{os.getpid()}.tmp"
             cmd = [nvcc, ARCH, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp,
-                   os.path.join(CSRC, SOURCES[n])]
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
+                   "-o", tmp, src]
             log = open(log_path(n), "w")
             procs[n] = (subprocess.Popen(cmd, stdout=log,
                                          stderr=subprocess.STDOUT),
@@ -106,6 +148,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
                 with open(log_path(n)) as f:
                     msgs.append(f"--- {n} ---\n{f.read()}")
             raise RuntimeError("nvcc failed:\n" + "\n".join(msgs))
+    BUILD_SECONDS.update({n: t for n, t in took.items() if t})
     return took
 
 
@@ -128,17 +171,21 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "step_machine":
         lib.step_machine_launch.argtypes = [P] * 24
         lib.step_machine_launch.restype = I
-    elif name == "occ_window":
-        lib.occ_window_launch.argtypes = [P] * 29
+    elif name == "occ_window" or name.startswith("occ_window_spec_"):
+        lib.occ_window_launch.argtypes = [P] * 31
         lib.occ_window_launch.restype = I
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, building it first if needed."""
+def load(name: str, source: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded kernel library ``name``, building it first if needed:
+    from ``csrc/`` or, with ``source``, from that generated unit."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
+            if source is None:
+                build([name])
+            else:
+                build_generated({name: source})
             lib = ctypes.CDLL(lib_path(name))
             _declare(name, lib)
             _libs[name] = lib

@@ -29,9 +29,11 @@ A block the transfer classifier rejects goes to the machine path:
 or a call into device-eligible contract code.  With ``device_occ`` the
 engine collects up to ``LOOKAHEAD`` consecutive such blocks and runs
 them in windows of the fused OCC kernel (K6, with K5's lane interpreter,
-the K4 ALU and K3 keccak inside); without it, each block runs on the
-step machine (K5) with miss-and-rerun storage rounds, OCC validation on
-the host, and the conflict suffix on the native host session.  A block
+the K4 ALU and K3 keccak inside, and with ``specialize`` the traced
+programs of the contracts the tracer accepts, K7); without it, each
+block runs on the step machine (K5) with miss-and-rerun storage rounds,
+OCC validation on the host, and the conflict suffix on the native host
+session.  A block
 neither path takes — contract creation, host-only opcodes, a lane that
 escapes the machine — or whose device ``ok`` flag is 0, or that fails a
 consensus check, raises
@@ -512,7 +514,11 @@ class ReplayEngine:
     ``device`` defaults to ``"cuda"`` and raises without a card;
     ``device="cpu"`` runs the kernels' plain versions.  ``device_occ``
     (the reference's ``CORETH_DEVICE_OCC``, default on) runs machine
-    blocks in fused OCC windows; off, one block at a time."""
+    blocks in fused OCC windows; off, one block at a time.
+    ``specialize`` (the reference's ``CORETH_SPECIALIZE``, default on)
+    runs the lanes of traceable contracts in those windows on their
+    straight-line programs; the per-block path has no specialisation,
+    as in the reference."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -523,9 +529,10 @@ class ReplayEngine:
                  parent_header=None, batch_pad: int = 1024,
                  capacity: int = 1 << 14, window: int = 16,
                  slot_capacity: Optional[int] = None, device=None,
-                 device_occ: bool = True):
+                 device_occ: bool = True, specialize: bool = True):
         self.device = default_device(device)
         self.device_occ = device_occ
+        self.specialize = specialize
         self.config = config
         self.store = state
         self.trie = self.store.trie

@@ -7,11 +7,13 @@ block-start state, and cross-tx ordering is repaired Block-STM style.
 Two execution paths, chosen by the engine's ``device_occ``:
 
 - ``execute_run`` (``device_occ=True``, the reference's default
-  ``CORETH_DEVICE_OCC=1`` with ``CORETH_SPECIALIZE=0``): WINDOWS of up to
-  ``WINDOW`` consecutive machine blocks run in one launch of the fused
-  OCC kernel (K6, ``adapter.MachineWindowRunner``): the round loop,
-  validation and the cross-block state fold stay on the device, against
-  a slot table that lives there.  The next window is launched before the
+  ``CORETH_DEVICE_OCC=1``; with the engine's ``specialize``, its default
+  ``CORETH_SPECIALIZE=1``): WINDOWS of up to ``WINDOW`` consecutive
+  machine blocks run in one launch of the fused OCC kernel (K6,
+  ``adapter.MachineWindowRunner``; lanes of traced contracts run their
+  straight-line programs inside it, K7): the round loop, validation and
+  the cross-block state fold stay on the device, against a slot table
+  that lives there.  The next window is launched before the
   previous one's tries fold.  A block the kernel marks dirty (a lane
   that escaped) goes to ``execute`` and ends the run.
 - ``execute`` (``device_occ=False``, the reference's
@@ -68,10 +70,12 @@ from coreth_tpu_torch.types import (
 DEVICE_ROUNDS = 2
 
 # window-runner counters that accumulate across runner rebuilds: the
-# premap and discovery counts (reported as they are), then K6's launches,
-# lane-steps and host-clock split
+# premap, discovery and specialisation counts (reported as they are),
+# then K6's launches, lane-steps and host-clock split
 _PREMAP_COUNTERS = ("premap_predicted", "premap_hits", "premap_nested",
-                    "premap_array", "discovery_dispatches")
+                    "premap_array", "discovery_dispatches",
+                    "lanes_specialized", "specialize_escapes",
+                    "programs_traced")
 _RUNNER_COUNTERS = _PREMAP_COUNTERS + ("launches", "steps", "t_pack",
                                        "t_machine", "t_unpack")
 
@@ -511,7 +515,8 @@ class MachineBlockExecutor:
                 for k in self._runner_totals:
                     self._runner_totals[k] += getattr(self._runner, k)
             self._runner = MachineWindowRunner(
-                self._fork, self._base_value, device=self.e.device)
+                self._fork, self._base_value, device=self.e.device,
+                specialize=self.e.specialize)
             self._runner.seed_window_hint(self.WINDOW)
             self._runner_fork = self._fork
         return self._runner

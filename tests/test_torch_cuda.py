@@ -180,13 +180,15 @@ def test_erc20_replay_on_the_card(cuda, device_occ):
 
 
 def _occ_both(pk, occ=None):
-    """K6 and its plain version on one packed window (card tensors)."""
+    """K6 (with K7 for the window's program set) and its plain version
+    on one packed window (card tensors)."""
     from coreth_tpu_torch.evm.device import machine as M
     args = (pk["p"], occ or pk["occ"], pk["table"], pk["key_tab"],
-            pk["inputs"])
-    launches = M.OCC_LAUNCHES
+            pk["inputs"], pk["spec"])
+    launches = M.OCC_LAUNCHES, M.SPEC_LAUNCHES
     got = M.run_occ_window(*args)
-    assert M.OCC_LAUNCHES == launches + 1
+    assert (M.OCC_LAUNCHES, M.SPEC_LAUNCHES) == (
+        launches[0] + 1, launches[1] + bool(pk["spec"]))
     want = M.occ_run_plain(*args)
     for k in ("table", "packed", "steps"):
         assert torch.equal(got[k], want[k]), k
@@ -223,7 +225,7 @@ def test_occ_window_kernel_wide_cache_and_many_lanes(cuda):
     blocks = C.wide_cache_window()
     runner = A.MachineWindowRunner(
         "durango", C.resolver_for([ln for b in blocks for ln in b]),
-        device=cuda)
+        device=cuda, specialize=False)
     pk = runner.pack(C.window_items(blocks, A.TxSpec, A.BlockEnv))
     assert pk["p"].scache_cap == 64
     _occ_both(pk)
@@ -240,3 +242,52 @@ def test_occ_window_kernel_on_chip_smoke_windows(cuda):
     for pk in (chip_smoke.swap_window(cuda),
                chip_smoke.escape_window(cuda, rng)):
         _occ_both(pk)
+
+
+# ------------------------------------------------------------------- K7
+@pytest.mark.parametrize("name", sorted(C.WINDOW_CASES))
+def test_occ_spec_kernel_matches_plain(cuda, name):
+    """K6+K7 (the variant for the shared program set) equals the plain
+    version with the plain programs on every window case."""
+    pk = C.pack_window(name, device=cuda, spec_codes=C.SPEC_CODES)
+    assert len(pk["spec"]) == len(C.SPEC_CODES)
+    _occ_both(pk)
+
+
+def test_occ_spec_kernel_on_k7_windows(cuda):
+    """The mixed window of the CPU tests with its kdig-overflow and
+    full-cache lanes, and chip_smoke.py's K7 windows at small widths:
+    traced beside interpreted lanes, REVERT and flush-OOG leaves, device
+    keccaks, HOST escapes."""
+    rng = np.random.default_rng(11)
+    for pk in (C.pack_window(C.k7_window(), device=cuda,
+                             spec_codes=C.k7_spec_codes()),
+               chip_smoke.swap_window(cuda, specialize=True),
+               chip_smoke.mixed_window(cuda, rng, lanes=8),
+               chip_smoke.keccak_fan_window(cuda, rng, lanes=6),
+               chip_smoke.escape_lanes_window(cuda, rng)):
+        assert pk["spec"]
+        _occ_both(pk)
+
+
+def test_spec_replay_on_the_card(cuda):
+    """ERC-20 transfer() blocks through the window path with K7: every
+    lane traced, every window launch on the specialised variant."""
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_erc20_chain(3, 32, 16)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=32, capacity=256, device=cuda)
+    occ, spec = M.OCC_LAUNCHES, M.SPEC_LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root
+    mc = eng.machine_counters()
+    assert mc["lanes_specialized"] == 3 * 32
+    assert mc["specialize_escapes"] == 0 and mc["programs_traced"] == 1
+    assert M.SPEC_LAUNCHES - spec == M.OCC_LAUNCHES - occ \
+        == mc["window_launches"] >= 1

@@ -2,8 +2,8 @@
 reference.
 
 Chains of contract calls (ERC-20 ``transfer()``/``balanceOf()``, swaps
-into the shared-slot pool, reverts, transfers in between) come from
-both chain builders and must be the same blocks.  The reference
+into the shared-slot pool, reverts, transfers in between) come from both
+chain builders and must be the same blocks. The reference
 ``ReplayEngine`` (``CORETH_NO_TOKEN_FASTPATH=1``, and
 ``CORETH_SERIAL_SHORTCIRCUIT=0`` so swaps take OCC too) and the port's
 engine (``device="cpu"``: the kernels' plain versions) replay the same
@@ -11,10 +11,10 @@ blocks one by one, both in the per-block OCC configuration
 (``CORETH_DEVICE_OCC=0`` / ``device_occ=False``: K5) and, where a case
 holds in both, also in the fused window configuration
 (``CORETH_DEVICE_OCC=1`` with ``CORETH_SPECIALIZE=0`` /
-``device_occ=True``: K6, one-block windows): the roots must agree with
-each other and with the headers after every block, and the machine
-counters (blocks, OCC rounds, conflict-suffix txs) must agree.  Mirrors
-tests/test_machine_block.py.
+``device_occ=True, specialize=False``: K6, one-block windows): the roots
+must agree with each other and with the headers after every block, and
+the machine counters (blocks, OCC rounds, conflict-suffix txs) must
+agree. Mirrors tests/test_machine_block.py.
 """
 
 import os
@@ -141,7 +141,8 @@ def _replay_both(n_blocks, txs_of, extra=None, device_occ=False):
     store = StateStore()
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
-                        batch_pad=64, device="cpu", device_occ=device_occ)
+                        batch_pad=64, device="cpu", device_occ=device_occ,
+                        specialize=False)
     for rb in rblocks:
         ref.replay_block(rb)
         port.replay_block(Block.decode(rb.encode()))

@@ -303,6 +303,49 @@ WINDOW_CASES: Dict[str, List[List[dict]]] = {
 }
 
 
+# The program set every WINDOW_CASES window shares when it specialises
+# (the reference compiles its window program once for all of them):
+# each eligible code of the cases, in a fixed order.
+BLIND_SSTORE_CODE = bytes.fromhex(push(9) + push(3) + "55" + "00")
+SPEC_CODES = (TOKEN_RUNTIME, POOL_RUNTIME, _context(0)["code"],
+              bytes.fromhex("0100"), bytes.fromhex("6001fe"),
+              bytes.fromhex("5f00"), BLIND_SSTORE_CODE)
+
+
+def k7_window(fans: bool = True) -> List[List[dict]]:
+    """Traced and generic lanes in one window: token transfers, one
+    whose amount exceeds the balance (the traced REVERT leaf) and one
+    out of gas at the first lumped flush, swaps, lanes of a computed-jump
+    contract (trace-ineligible: the interpreter) and, with ``fans``
+    (program set ``k7_spec_codes()``), the keccak fan (more
+    host-evaluable keccaks than kdig slots, plus a device keccak) and, in
+    the last block, the slot fan (a full storage cache: HOST)."""
+    from chip_smoke import JUMPER_CODE, KECCAK_FAN_CODE, SLOT_FAN_CODE
+    jumper = dict(lane(JUMPER_CODE, (4).to_bytes(32, "big"), gas=50_000,
+                       address=_addr(12)), caller=_holder(70))
+    fan = [lane(KECCAK_FAN_CODE, (77 + i).to_bytes(32, "big"),
+                gas=200_000, address=_addr(13), caller=_holder(71 + i),
+                premap=[_k(0), _k(1)]) for i in range(2)]
+    slots = lane(SLOT_FAN_CODE, (1000).to_bytes(32, "big"), gas=1_000_000,
+                 address=_addr(14), caller=_holder(73))
+    blocks = [
+        [_xfer(80, 81, 5), _swap(1111, 82), _xfer(83, 84, 10**12),
+         jumper, fan[0], _xfer(85, 86, 6), _swap(2222, 87),
+         _xfer(88, 89, 7, gas=40)],
+        [_xfer(81, 90, 8), fan[1], _swap(3333, 91), dict(jumper),
+         _xfer(92, 93, 9), slots],
+    ]
+    if not fans:
+        blocks = [[ln for ln in b if ln["code"] not in (
+            KECCAK_FAN_CODE, SLOT_FAN_CODE)] for b in blocks]
+    return blocks
+
+
+def k7_spec_codes() -> tuple:
+    from chip_smoke import KECCAK_FAN_CODE, SLOT_FAN_CODE
+    return (TOKEN_RUNTIME, POOL_RUNTIME, KECCAK_FAN_CODE, SLOT_FAN_CODE)
+
+
 def wide_cache_window() -> List[List[dict]]:
     """Two blocks of lanes with 40 premapped slots each (a 64-entry
     storage cache: more entries than a warp has threads), every lane
@@ -341,14 +384,24 @@ WINDOW_SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
 WINDOW_BLOCKS = 4
 
 
-def pack_window(name: str, device="cpu") -> dict:
+def pack_window(name: str, device="cpu", spec_codes=None) -> dict:
     """Window case ``name`` packed by the port's ``MachineWindowRunner``
-    at ``WINDOW_SHAPE``: {p, occ, table, key_tab, inputs, ...}."""
+    at ``WINDOW_SHAPE``: {p, occ, table, key_tab, inputs, spec, ...}.
+    Without ``spec_codes`` every lane runs the generic interpreter
+    (prog_id -1); with it, the runner specialises, its program set
+    seeded with those codes in that order (so every case can share one
+    set), and the lanes of any further eligible code join it.  The
+    process-wide learned premap recipes are cleared first: a lane the
+    case leaves unpremapped must miss, whatever an earlier replay in the
+    process learned."""
     from coreth_tpu_torch.evm.device import adapter as A
-    blocks = WINDOW_CASES[name]
+    A.RECIPES.clear()
+    blocks = WINDOW_CASES[name] if isinstance(name, str) else name
     runner = A.MachineWindowRunner(
         "durango", resolver_for([ln for b in blocks for ln in b]),
-        device=device)
+        device=device, specialize=spec_codes is not None)
+    for code in spec_codes or ():
+        runner._spec_id(code)
     runner._hw.update(blocks=WINDOW_BLOCKS, **WINDOW_SHAPE)
     return runner.pack(window_items(blocks, A.TxSpec, A.BlockEnv))
 
