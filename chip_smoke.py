@@ -85,6 +85,24 @@ Phases, each printing one JSON line:
    and over the replay.  A last line ``ab`` lists the four first-fold
    times and steady rates in order.
 
+Beside them, for the sharded transfer path (n = 2, 4 and 8 shards on
+the one card):
+
+3b. k8     — the sharded window (one cluster launch of n CTAs) against its
+   plain version on phase k1's window, in both exchange modes: tables,
+   fetch rows and every shard's working set equal (tolerance 0), the n
+   working sets equal, the fetch rows equal to K1's; ms beside K1's on
+   the same window, the exchange bytes, and K1's bound;
+4b. k8r    — the sharded ladder (K2 on each of n slices, each on its own
+   stream) against K2 on phase k2's signatures: rows equal;
+5b. shard  — phase main's chain (fresh decodes from the wire) through
+   ``ReplayEngine(mesh=make_mesh(n))``: root equal to the header, every
+   block on the device, K8 and K8r launched and K1 not; txs/s, the
+   ``ReplayStats`` and the real txs per shard per block;
+13. shard_erc20 — the ERC-20 chain through the window path with K7 on a
+   4-shard engine (machine blocks keep the single-chip window runner):
+   root equal, no dirty block.
+
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 nonzero; without a card, or without the package beside this script, it
@@ -638,8 +656,10 @@ def _zero_launches() -> None:
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.ops import u256x
     from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay import shard as SH
     E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
     M.SPEC_LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
+    SH.LAUNCHES = S.SHARD_LAUNCHES = 0
 
 
 def _read_launches() -> dict:
@@ -648,10 +668,13 @@ def _read_launches() -> dict:
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.ops import u256x
     from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay import shard as SH
     return {"step_machine": M.LAUNCHES, "occ_window": M.OCC_LAUNCHES,
             "occ_window_spec": M.SPEC_LAUNCHES,
             "secp_recover": S.LAUNCHES, "transfer_window": E.LAUNCHES,
-            "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES}
+            "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES,
+            "sharded_window": SH.LAUNCHES,
+            "sharded_recover": S.SHARD_LAUNCHES}
 
 
 def _timed_folds(pipe, on_first=None) -> list:
@@ -758,7 +781,7 @@ def _steady(folds, t0: float, txs: int) -> dict:
 
 
 def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
-                  specialize: bool = False):
+                  specialize: bool = False, mesh=None):
     """Replay the ERC-20 chain from fresh decodes (no cached senders),
     the launch counters zeroed just before and read just after; returns
     the engine, the root, the replay's seconds, the launches and the
@@ -774,7 +797,8 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
     gblock = genesis.to_block(store)
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
                          batch_pad=txs, window=16, device=dev,
-                         device_occ=device_occ, specialize=specialize)
+                         device_occ=device_occ, specialize=specialize,
+                         mesh=mesh)
     A.RECIPES.clear()      # learned premaps start empty: discovery counts
     spans = HostSpans() if device_occ else None
     folds = _timed_folds(eng.commit_pipe, spans and spans.mark)
@@ -1340,6 +1364,202 @@ def phase_k7(dev, genesis, blocks):
     return k7
 
 
+# ------------------------------------------------------------ K8, K8r
+
+SHARD_WIDTHS = (2, 4, 8)
+# the width whose numbers stand in the kernels line
+HEADLINE_WIDTH = 4
+
+
+def exchange_bytes(n: int, K: int, L: int, SL: int) -> int:
+    """Bytes a sharded window's reduces carry in the reference: every
+    shard's contribution to the gather's replicating reduce (L x 17 and
+    SL x 16 words) and, per block, to the packed effect reduce (L x 49
+    and SL x 32 words and the nonce flag)."""
+    gather = L * 17 + SL * 16
+    per_block = L * 49 + SL * 32 + 1
+    return 4 * n * (gather + K * per_block)
+
+
+def phase_k8(dev, win, k1, k1_fetches):
+    """K8 against its plain version on phase k1's window (128 blocks x
+    128 lanes, 16,384 window locals; the rows lie uniformly over the
+    table, so every shard owns about 1/n of them), at every width in
+    both modes: tables, fetches and each shard's working set equal
+    (tolerance 0), and the n working sets equal.  Times beside K1's on
+    the same window, un-sharded; the bound is K1's (the same function:
+    on one card no exchange is necessary work)."""
+    import torch
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay import shard as SH
+    args = [torch.from_numpy(a).to(dev) for a in win]
+    K, pad = win[5].shape[:2]
+    L, SL = win[3].shape[0], win[4].shape[0]
+    k1_ms = cuda_ms(lambda: E._transfer_window(*args))
+    rows, k8 = {}, None
+    for n in SHARD_WIDTHS:
+        perm = torch.from_numpy(SH.interleave_txs(pad, n)).to(dev)
+        sargs = args[:5] + [args[5][:, perm].contiguous()] + args[6:]
+        for mode in ("psum", "ppermute"):
+            got = SH.sharded_transfer_window(*sargs, n=n, mode=mode,
+                                             return_replicas=True)
+            t0 = time.perf_counter()
+            want = SH._sharded_window_plain(*sargs, n, mode,
+                                            return_replicas=True)
+            torch.cuda.synchronize()
+            plain_ms = 1000 * (time.perf_counter() - t0)
+            for g, w, what in zip(got[:4] + got[4], want[:4] + want[4],
+                                  ("balances", "nonces", "slot_vals",
+                                   "fetches", "replica balances",
+                                   "replica nonces", "replica slots")):
+                if not torch.equal(g, w):
+                    bad = (g != w).nonzero()[:5].tolist()
+                    raise AssertionError(f"K8 n={n} {mode}: {what} differ "
+                                         f"from the plain version at {bad}")
+            for g in got[4]:
+                if not torch.equal(g, g[:1].expand_as(g)):
+                    raise AssertionError(f"K8 n={n} {mode}: the shards' "
+                                         "working sets differ")
+            if not torch.equal(got[3], k1_fetches):
+                raise AssertionError(f"K8 n={n} {mode}: fetches differ from "
+                                     "K1's")
+            err = max_abs_err(got[:4] + got[4], want[:4] + want[4])
+            ms = cuda_ms(lambda: SH.sharded_transfer_window(
+                *sargs, n=n, mode=mode))
+            row = {"ms": round(ms, 4), "plain_ms": round(plain_ms, 1),
+                   "max_abs_err": err,
+                   "exchange_bytes": exchange_bytes(n, K, L, SL)}
+            rows[f"n{n}_{mode}"] = row
+            if n == HEADLINE_WIDTH and mode == "psum":
+                k8 = {"name": "sharded_window", "route": "cuda",
+                      "source": "coreth_tpu_torch/csrc/sharded_window.cu",
+                      "replaces": "coreth_tpu/replay/shard.py:85",
+                      "max_abs_err": err, "ms": round(ms, 4),
+                      "plain_ms": round(plain_ms, 1),
+                      "bound_ms": k1["bound_ms"],
+                      "bound_by": k1["bound_by"], "library_ms": None}
+    k8["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    emit({"phase": "k8", "equal": True, "K": K, "pad": pad, "L": L,
+          "SL": SL, "k1_ms_same_window": round(k1_ms, 4), "widths": rows,
+          "ms_is": f"n={HEADLINE_WIDTH}, psum, CUDA events around the "
+          "wrapper", "bound_is": "K1's on the same window", **k8})
+    return k8
+
+
+def phase_k8r(dev, dargs, k2):
+    """K8r (K2 on each of n slices, each on its own stream) against K2
+    on phase k2's 4096 signatures at every width: rows equal
+    (tolerance 0).  The plain version (the plain ladder per slice) is
+    timed at the headline width; the bound is K2's (the same work)."""
+    import torch
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.parallel import make_mesh
+    want = S.recover_kernel(*dargs)
+    rows, k8r = {}, None
+    for n in SHARD_WIDTHS:
+        fn = S.sharded_recover(make_mesh(n))
+        got = fn(*dargs)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
+            raise AssertionError(f"K8r n={n} rows differ from K2's at {bad}")
+        rows[f"n{n}"] = {"ms": round(cuda_ms(lambda: fn(*dargs)), 4)}
+        if n == HEADLINE_WIDTH:
+            plain_ms = once_ms(lambda: S.sharded_recover_plain(*dargs, n))
+            k8r = {"name": "sharded_recover", "route": "cuda",
+                   "source": "coreth_tpu_torch/ops/secp.py (K2's "
+                   "csrc/secp_recover.cu per shard)",
+                   "replaces": "coreth_tpu/parallel/mesh.py:202",
+                   "max_abs_err": max_abs_err([got], [want]),
+                   "ms": rows[f"n{n}"]["ms"], "plain_ms": round(plain_ms, 1),
+                   "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+                   "library_ms": None}
+    emit({"phase": "k8r", "equal": True, "rows": int(dargs[0].shape[0]),
+          "k2_ms": k2["ms"], "widths": rows,
+          "ms_is": f"n={HEADLINE_WIDTH}, CUDA events around the wrapper",
+          "bound_is": "K2's on the same batch", **k8r})
+    return k8r
+
+
+def phase_shard(dev, smi, genesis, wire, txs: int, capacity: int):
+    """The main path's transfer chain through ``ReplayEngine(mesh=
+    make_mesh(n))`` at every width, from fresh decodes, the first block
+    alone before the timed replay as in phase main; the launch counters
+    zeroed just before each engine's first block and read after its
+    last.  Returns {width: launches}."""
+    import torch
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    out = {}
+    for n in SHARD_WIDTHS:
+        fresh = [Block.decode(w) for w in wire]
+        store = StateStore()
+        gblock = genesis.to_block(store)
+        eng = E.ReplayEngine(genesis.config, store,
+                             parent_header=gblock.header, batch_pad=txs,
+                             capacity=capacity, window=128, device=dev,
+                             mesh=make_mesh(n))
+        _zero_launches()
+        eng.replay_block(fresh[0])
+        t1 = time.monotonic()
+        root = eng.replay(fresh[1:])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        launches = _read_launches()
+        eng.close()
+        if root != fresh[-1].header.root:
+            raise AssertionError(f"shard n={n}: final root differs from "
+                                 "the header")
+        if eng.stats.blocks_device != len(fresh):
+            raise AssertionError(f"shard n={n}: {eng.stats.blocks_device} "
+                                 f"of {len(fresh)} blocks on the device")
+        if launches["sharded_window"] < 1 or launches["transfer_window"] \
+                or launches["sharded_recover"] < 1:
+            raise AssertionError(f"shard n={n}: launches {launches}")
+        per_shard = [sum(len(range(d, len(b.transactions), n))
+                         for b in fresh) / len(fresh) for d in range(n)]
+        replayed = sum(len(b.transactions) for b in fresh[1:])
+        emit({"phase": "shard", "n_shards": n, "blocks": len(fresh),
+              "txs_per_block": txs, "replay_s": round(dt, 4),
+              "txs_per_s": round(replayed / dt, 1),
+              "real_txs_per_shard_per_block": round(
+                  sum(per_shard) / n, 2),
+              "real_txs_per_shard_per_block_min_max": [min(per_shard),
+                                                       max(per_shard)],
+              "root_matches_header": True, "launches": launches,
+              "stats": eng.stats.row(), "card": smi})
+        out[n] = launches
+    return out
+
+
+def phase_shard_erc20(dev, smi, genesis, blocks, txs: int):
+    """The ERC-20 chain through the window path with K7 on a 4-shard
+    engine (machine blocks on the single-chip window runner over the
+    sharded tables): root equal, no dirty block."""
+    from coreth_tpu_torch.parallel import make_mesh
+    eng, root, dt, launches, steady = _replay_erc20(
+        dev, genesis, blocks, txs, device_occ=True, specialize=True,
+        mesh=make_mesh(HEADLINE_WIDTH))
+    mc = eng.machine_counters()
+    if root != blocks[-1].header.root:
+        raise AssertionError("shard_erc20: final root differs from the "
+                             "header")
+    if mc["blocks"] != len(blocks) or mc["dirty_blocks"] != 0:
+        raise AssertionError(f"shard_erc20: {mc['blocks']} blocks, "
+                             f"{mc['dirty_blocks']} dirty")
+    if launches["occ_window_spec"] < mc["windows"] \
+            or launches["sharded_recover"] < 1:
+        raise AssertionError(f"shard_erc20: launches {launches}")
+    emit({"phase": "shard_erc20", "n_shards": HEADLINE_WIDTH,
+          "blocks": len(blocks), "txs_per_block": txs,
+          "replay_s": round(dt, 4),
+          "txs_per_s": round(len(blocks) * txs / dt, 1), **steady,
+          "root_matches_header": True, "launches": launches, "machine": mc,
+          "stats": eng.stats.row(), "card": smi})
+
+
 def main() -> int:
     try:
         import torch
@@ -1437,6 +1657,9 @@ def main() -> int:
     emit({"phase": "k1", "equal": True, "K": K, "pad": pad, "L": L,
           "ok_flags_0_4": oks[:4].tolist(), **k1})
 
+    # ---- 3b. K8 against its plain version on the same window
+    k8 = phase_k8(dev, win, k1, got[3])
+
     # ---- 4. K2 against its plain version, 4096 signatures
     n_sig = 4096
     packed, kin = signature_batch(n_sig, SEED)
@@ -1473,6 +1696,9 @@ def main() -> int:
           "library_ms": None}
     emit({"phase": "k2", "equal": True, "rows": n_sig,
           "valid_sigs": sum(okb), "imads": k2_imads, **k2})
+
+    # ---- 4b. K8r against K2 on the same signatures
+    k8r = phase_k8r(dev, dargs, k2)
 
     # ---- 5. the main path
     n_blocks, txs, n_keys = 256, 128, 1024
@@ -1515,6 +1741,9 @@ def main() -> int:
           "root_matches_header": True, "launches": launches,
           "stats": eng.stats.row(), "card": smi})
 
+    # ---- 5b. the same chain on 2, 4 and 8 shards (K8, K8r)
+    shard_launches = phase_shard(dev, smi, genesis, wire, txs, capacity)
+
     # ---- 6.-8. K3, K4, K5 against their plain versions
     k3 = phase_k3(dev, rng)
     k4 = phase_k4(dev, rng)
@@ -1545,13 +1774,18 @@ def main() -> int:
           "steady_txs_per_s": [st["steady_txs_per_s"]
                                for _sp, _ln, st in runs]})
 
+    # ---- 13. the window path with K7 on a 4-shard engine
+    phase_shard_erc20(dev, smi, m_genesis, m_blocks, m_txs)
+
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
     k5["launches"] = m_launches["step_machine"]
     k6["launches"] = w_launches["occ_window"]
     k7["launches"] = s_launches["occ_window_spec"]
     k3["launches"] = k4["launches"] = "in K5, K6 and K7"
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7]}),
+    k8["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_window"]
+    k8r["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_recover"]
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r]}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,16 +43,20 @@ def _pad_pow2(n: int, floor: int = 64) -> int:
 
 
 def issue_recover(hashes: bytes, rs: bytes, ss: bytes, recids: bytes,
-                  device: torch.device) -> list:
+                  device: torch.device, kernel=None) -> list:
     """Host prep + asynchronous kernel launch for a packed signature
-    batch on ``device``; pass the result to ``complete_recover``."""
+    batch on ``device``; pass the result to ``complete_recover``.
+    ``kernel`` (default ``ops.secp.recover_kernel``) runs the ladder on a
+    chunk: the engine passes the sharded ladder (``sharded_recover``)
+    on a mesh."""
     n = len(recids)
     ctxs = []
     for lo in range(0, n, MAX_CHUNK):
         hi = min(lo + MAX_CHUNK, n)
         ctxs.append(_issue_chunk(
             hashes[32 * lo:32 * hi], rs[32 * lo:32 * hi],
-            ss[32 * lo:32 * hi], recids[lo:hi], device))
+            ss[32 * lo:32 * hi], recids[lo:hi], device,
+            kernel or S.recover_kernel))
     return ctxs
 
 
@@ -68,7 +72,7 @@ def complete_recover(ctxs: list) -> Tuple[bytes, bytes]:
 
 
 def _issue_chunk(hashes: bytes, rs: bytes, ss: bytes, recids: bytes,
-                 device: torch.device) -> dict:
+                 device: torch.device, kernel) -> dict:
     n = len(recids)
     xs_le, u1_le, u2_le, okb = native.recover_prep(hashes, rs, ss, recids)
     pad = _pad_pow2(n)
@@ -87,7 +91,7 @@ def _issue_chunk(hashes: bytes, rs: bytes, ss: bytes, recids: bytes,
         np.frombuffer(u2_le, dtype="<u4").reshape(n, 8).astype(np.int32))
     host = (x, parity, u1, u2)
     dev_in = [t.to(device, non_blocking=True) for t in host]
-    out = S.recover_kernel(*dev_in)
+    out = kernel(*dev_in)
     event = None
     if cuda:
         rows = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)

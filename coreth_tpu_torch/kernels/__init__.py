@@ -37,6 +37,7 @@ SOURCES = {
     "u256x_eval": "u256x_eval.cu",
     "step_machine": "step_machine.cu",
     "occ_window": "occ_window.cu",
+    "sharded_window": "sharded_window.cu",
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -156,9 +157,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == "transfer_window":
         lib.transfer_window_launch.argtypes = [
-            P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I,
-            P, P, P, P, P, P, P, P, P, P]
+            P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I] + [P] * 9
         lib.transfer_window_launch.restype = I
+    elif name == "sharded_window":
+        lib.sharded_window_launch.argtypes = [
+            I, P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I] + [P] * 12
+        lib.sharded_window_launch.restype = I
     elif name == "secp_recover":
         lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
         lib.secp_recover_launch.restype = I

@@ -325,3 +325,69 @@ def recover_kernel(x_bytes: torch.Tensor, parity: torch.Tensor,
     kernels.check(rc, "secp_recover")
     LAUNCHES += 1
     return out
+
+
+# ------------------------------------------------ sharded ladder (K8r)
+# Port of reference parallel/mesh.py:202 sharded_recover: the batch
+# splits into n contiguous equal slices (the reference's PS("dp")), and
+# each shard runs the ladder on its slice with no collective.  On one
+# card a shard is K2's kernel on its own CUDA stream, forked from the
+# current stream and joined back with events.
+
+SHARD_LAUNCHES = 0
+
+
+def sharded_recover_plain(x_bytes, parity, u1w, u2w, n: int) -> torch.Tensor:
+    """Plain version of the sharded ladder: ``recover_kernel_plain`` on
+    each of the n slices, the rows concatenated."""
+    B = x_bytes.shape[0]
+    m = B // n
+    return torch.cat([recover_kernel_plain(x_bytes[i:i + m], parity[i:i + m],
+                                           u1w[i:i + m], u2w[i:i + m])
+                      for i in range(0, B, m)])
+
+
+def sharded_recover(mesh):
+    """The recovery ladder over ``mesh.n_shards`` slices of the batch
+    (the reference's ``sharded_recover(mesh)``): returns a function with
+    ``recover_kernel``'s signature.  On CUDA tensors it launches K2 once
+    per slice, each on its own stream (``SHARD_LAUNCHES`` counts the
+    sharded calls); on CPU tensors it runs the plain version.  The batch
+    must divide by the width."""
+    n = mesh.n_shards
+    streams = {}     # device -> the shards' streams, made at first use
+
+    def recover(x_bytes, parity, u1w, u2w):
+        global SHARD_LAUNCHES
+        B = _check_inputs(x_bytes, parity, u1w, u2w)
+        if B % n:
+            raise ValueError(f"sharded_recover: a batch of {B} does not "
+                             f"divide by {n} shards")
+        dev = x_bytes.device
+        if dev.type == "cpu":
+            return sharded_recover_plain(x_bytes, parity, u1w, u2w, n)
+        if dev.type != "cuda":
+            raise ValueError(f"sharded_recover: unsupported device {dev}")
+        args = [t.contiguous() for t in (x_bytes, parity, u1w, u2w)]
+        main = torch.cuda.current_stream(dev)
+        fork = torch.cuda.Event()
+        fork.record(main)
+        m = B // n
+        outs = []
+        if dev not in streams:
+            streams[dev] = [torch.cuda.Stream(dev) for _ in range(n)]
+        for i, s in enumerate(streams[dev]):
+            s.wait_event(fork)
+            with torch.cuda.stream(s):
+                part = [t[i * m:(i + 1) * m] for t in args]
+                out = recover_kernel(*part)
+                for t in part:
+                    t.record_stream(s)
+                out.record_stream(main)
+                done = torch.cuda.Event()
+                done.record(s)
+            main.wait_event(done)
+            outs.append(out)
+        SHARD_LAUNCHES += 1
+        return torch.cat(outs)
+    return recover

@@ -62,6 +62,9 @@ from coreth_tpu_torch.evm.precompiles import (
 )
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.ops import u256
+from coreth_tpu_torch.parallel.shard import (
+    account_bucket, contract_bucket, remap_rows,
+)
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
 from coreth_tpu_torch.state import StateStore
@@ -102,6 +105,10 @@ class ReplayStats:
     # native host batch
     sigs_device: int = 0
     sigs_host: int = 0
+    # the mesh width, and the transfer windows each exchange mode carried
+    n_shards: int = 1
+    exchange_psum: int = 0
+    exchange_ppermute: int = 0
 
     def row(self) -> dict:
         return dict(self.__dict__)
@@ -115,6 +122,8 @@ class ReplayStats:
 TXD_COLS = 72
 # the kernel's uint32 limb sums take 2 * pad adds of < 2^16
 MAX_PAD = 1 << 14
+# a kernel accumulator row: debit | required | credit | send count
+ACCW = 3 * u256.LIMBS + 1
 
 
 def pack_txd(batch: dict, B: int, pad: int) -> np.ndarray:
@@ -246,6 +255,33 @@ def _transfer_window_plain(balances, nonces, slot_vals, acct_gids,
 LAUNCHES = 0
 
 
+def check_window_args(what: str, args) -> torch.device:
+    """The checks every transfer-window wrapper makes on (balances,
+    nonces, slot_vals, acct rows, slot rows, txds, t_idxs, s_idxs):
+    int32 on one device, the pack_txd layout, consistent shapes, and on
+    CUDA the kernel's limits.  Returns the device."""
+    balances, nonces, slot_vals, acct_gids, slot_gids, txds, t_idxs, \
+        s_idxs = args
+    dev = balances.device
+    for t in args:
+        if t.dtype != torch.int32 or t.device != dev:
+            raise ValueError(f"{what}: every input must be int32 on {dev}, "
+                             f"got {t.dtype} on {t.device}")
+    K, pad, cols = txds.shape
+    if (cols != TXD_COLS or balances.shape[1:] != (u256.LIMBS,)
+            or slot_vals.shape[1:] != (u256.LIMBS,)
+            or nonces.shape != balances.shape[:1]
+            or t_idxs.shape[0] != K or s_idxs.shape[0] != K):
+        raise ValueError(f"{what}: malformed shapes")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if dev.type == "cuda" and (pad > MAX_PAD or acct_gids.shape[0] < 1
+                               or slot_gids.shape[0] < 1):
+        raise ValueError(f"{what}: pad {pad} > {MAX_PAD} or an empty local "
+                         "table")
+    return dev
+
+
 def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
                      txds, t_idxs, s_idxs):
     """One window of blocks: the CUDA kernel (``csrc/transfer_window.cu``)
@@ -253,26 +289,12 @@ def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
     version for CPU tensors.  The input tables are not modified."""
     args = (balances, nonces, slot_vals, acct_gids, slot_gids, txds,
             t_idxs, s_idxs)
-    dev = balances.device
-    for t in args:
-        if t.dtype != torch.int32 or t.device != dev:
-            raise ValueError("_transfer_window: every input must be int32 "
-                             f"on {dev}, got {t.dtype} on {t.device}")
-    K, pad, cols = txds.shape
-    L, SL = acct_gids.shape[0], slot_gids.shape[0]
-    if (cols != TXD_COLS or balances.shape[1:] != (u256.LIMBS,)
-            or slot_vals.shape[1:] != (u256.LIMBS,)
-            or nonces.shape != balances.shape[:1]
-            or t_idxs.shape[0] != K or s_idxs.shape[0] != K):
-        raise ValueError("_transfer_window: malformed shapes")
+    dev = check_window_args("_transfer_window", args)
     if dev.type == "cpu":
         return _transfer_window_plain(*args)
-    if dev.type != "cuda":
-        raise ValueError(f"_transfer_window: unsupported device {dev}")
-    if pad > MAX_PAD or L < 1 or SL < 1:
-        raise ValueError(f"_transfer_window: pad {pad} > {MAX_PAD} or "
-                         "an empty local table")
     global LAUNCHES
+    K, pad = txds.shape[:2]
+    L, SL = acct_gids.shape[0], slot_gids.shape[0]
     lib = kernels.load("transfer_window")
     (acct_gids, slot_gids, txds, t_idxs, s_idxs) = (
         t.contiguous() for t in (acct_gids, slot_gids, txds, t_idxs,
@@ -282,8 +304,7 @@ def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
     lb = torch.empty((L, u256.LIMBS), **i32)
     ln = torch.empty((L,), **i32)
     ls = torch.empty((SL, u256.LIMBS), **i32)
-    acc = torch.empty((L, 3 * u256.LIMBS), **i32)
-    cnt = torch.empty((L,), **i32)
+    acc = torch.empty((L, ACCW), **i32)
     stamp = torch.empty((L,), **i32)
     sacc = torch.empty((SL, 2 * u256.LIMBS), **i32)
     sstamp = torch.empty((SL,), **i32)
@@ -295,8 +316,8 @@ def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
         nsv.shape[0], acct_gids.data_ptr(), L, slot_gids.data_ptr(), SL,
         txds.data_ptr(), K, pad, t_idxs.data_ptr(), t_pad,
         s_idxs.data_ptr(), s_pad, lb.data_ptr(), ln.data_ptr(),
-        ls.data_ptr(), acc.data_ptr(), cnt.data_ptr(), stamp.data_ptr(),
-        sacc.data_ptr(), sstamp.data_ptr(), fetches.data_ptr(), stream)
+        ls.data_ptr(), acc.data_ptr(), stamp.data_ptr(), sacc.data_ptr(),
+        sstamp.data_ptr(), fetches.data_ptr(), stream)
     kernels.check(rc, "transfer_window")
     LAUNCHES += 1
     return nb, nn, nsv, fetches
@@ -321,16 +342,26 @@ class DeviceState:
     """Account- and storage-slot-indexed device tables (the flat-state /
     snapshot analog, resident in device memory).  Slot index 0 is a
     reserved dummy that native-transfer and padding rows target with
-    amount 0.  ``row_of``/``slot_row_of`` carry the gid -> device-row
-    indirection (identity here: one device)."""
+    amount 0.
+
+    With ``n_shards > 1`` (a mesh engine) the tables are shard-major:
+    host indices (gids) stay contiguous in discovery order, but each
+    gid's device row lies in the arena of its owning shard, accounts
+    bucketed by keccak(address)[0], contract storage by the contract's
+    bucket (``parallel/shard.py``).  ``row_of``/``slot_row_of`` carry
+    the gid -> row indirection (identity on one shard); every table
+    scatter and gather goes through it."""
 
     def __init__(self, capacity: int = 1 << 14,
-                 slot_capacity: int = 1 << 14, device="cuda"):
+                 slot_capacity: int = 1 << 14, device="cuda",
+                 n_shards: int = 1):
         self.device = torch.device(device)
         self.index: Dict[bytes, int] = {}
         self.addrs: List[bytes] = []
         self.capacity = capacity
+        self.n_shards = n_shards
         self.row_of: List[int] = []
+        self._arow = [0] * n_shards           # next local row per shard
         self.balances = torch.zeros((capacity, u256.LIMBS),
                                     dtype=torch.int32, device=self.device)
         self.nonces = torch.zeros((capacity,), dtype=torch.int32,
@@ -343,10 +374,13 @@ class DeviceState:
         self.roots: List[bytes] = []
         self.addr_hashes: List[bytes] = []
         self._staged: List[Tuple[int, int, int]] = []
-        # token slots: only the reserved dummy (row 0) until the token
-        # path is ported; the window kernel takes the table regardless
+        # token slots: only the reserved dummy (shard 0, row 0) until the
+        # token path is ported; the window kernels take the table
+        # regardless
         self.slot_capacity = slot_capacity
         self.slot_row_of: List[int] = [0]
+        self._srow = [1 if s == 0 else 0 for s in range(n_shards)]
+        self._cbucket: Dict[bytes, int] = {}  # contract -> owning shard
         self.slot_vals = torch.zeros((slot_capacity, u256.LIMBS),
                                      dtype=torch.int32, device=self.device)
 
@@ -357,8 +391,10 @@ class DeviceState:
         """Tables carried over from another engine (e.g. the JAX
         reference's ``np.asarray(ref.state.balances)`` and friends) plus
         its host index lists: ``addrs``, ``row_of``, ``has_code``,
-        ``multicoin``, ``code_hashes``, ``roots``, ``slot_row_of``."""
-        st = cls(balances.shape[0], slot_vals.shape[0], device)
+        ``multicoin``, ``code_hashes``, ``roots``, ``slot_row_of``, and
+        ``n_shards`` (default 1) with the rows it laid out."""
+        n = index_meta.get("n_shards", 1)
+        st = cls(balances.shape[0], slot_vals.shape[0], device, n)
         st.balances = _upload(balances.astype(np.int32), st.device)
         st.nonces = _upload(nonces.astype(np.int32), st.device)
         st.slot_vals = _upload(slot_vals.astype(np.int32), st.device)
@@ -368,18 +404,97 @@ class DeviceState:
         for key in ("row_of", "has_code", "multicoin", "code_hashes",
                     "roots", "slot_row_of"):
             setattr(st, key, list(index_meta[key]))
+        arena, sarena = st.capacity // n, st.slot_capacity // n
+        st._arow = [sum(1 for r in st.row_of if r // arena == s)
+                    for s in range(n)]
+        st._srow = [sum(1 for r in st.slot_row_of if r // sarena == s)
+                    for s in range(n)]
         return st
+
+    @staticmethod
+    def _regrow(table: torch.Tensor, rows: int, src=None,
+                dst=None) -> torch.Tensor:
+        """``table`` copied into a zeroed table of ``rows`` rows on the
+        device, in stream order: rows ``src`` to ``dst`` (index lists),
+        or the old rows in place."""
+        out = torch.zeros((rows,) + tuple(table.shape[1:]),
+                          dtype=table.dtype, device=table.device)
+        if src is None:
+            out[:table.shape[0]] = table
+        elif src:
+            dev = table.device
+            out.index_copy_(0, _upload(np.asarray(dst, np.int64), dev),
+                            table.index_select(0, _upload(
+                                np.asarray(src, np.int64), dev)))
+        return out
 
     def _grow(self, need: int) -> None:
         while self.capacity < need:
             self.capacity *= 2
-        bal = torch.zeros((self.capacity, u256.LIMBS), dtype=torch.int32,
-                          device=self.device)
-        non = torch.zeros((self.capacity,), dtype=torch.int32,
-                          device=self.device)
-        bal[:self.balances.shape[0]] = self.balances
-        non[:self.nonces.shape[0]] = self.nonces
-        self.balances, self.nonces = bal, non
+        self.balances = self._regrow(self.balances, self.capacity)
+        self.nonces = self._regrow(self.nonces, self.capacity)
+
+    def _grow_slots(self, need: int) -> None:
+        while self.slot_capacity < need:
+            self.slot_capacity *= 2
+        self.slot_vals = self._regrow(self.slot_vals, self.slot_capacity)
+
+    def _grow_sharded(self) -> None:
+        """Double every shard's arena: shard-major rows all move (row =
+        shard*arena + local), so the tables rebuild on the device through
+        ``remap_rows`` — the only point where sharded rows are remapped."""
+        old = self.capacity // self.n_shards
+        self.capacity *= 2
+        new_rows = remap_rows(self.row_of, old,
+                              self.capacity // self.n_shards)
+        self.balances = self._regrow(self.balances, self.capacity,
+                                     self.row_of, new_rows)
+        self.nonces = self._regrow(self.nonces, self.capacity,
+                                   self.row_of, new_rows)
+        self.row_of = new_rows
+
+    def _grow_slots_sharded(self) -> None:
+        old = self.slot_capacity // self.n_shards
+        self.slot_capacity *= 2
+        new_rows = remap_rows(self.slot_row_of, old,
+                              self.slot_capacity // self.n_shards)
+        self.slot_vals = self._regrow(self.slot_vals, self.slot_capacity,
+                                      self.slot_row_of, new_rows)
+        self.slot_row_of = new_rows
+
+    def _alloc_row(self, addr_hash: bytes) -> int:
+        """Device-table row for a new account gid (its bucket's arena on
+        a mesh, the next row otherwise)."""
+        if self.n_shards <= 1:
+            row = len(self.row_of)
+            if row >= self.capacity:
+                self._grow(row + 1)
+            return row
+        s = account_bucket(addr_hash, self.n_shards)
+        if self._arow[s] >= self.capacity // self.n_shards:
+            self._grow_sharded()
+        row = s * (self.capacity // self.n_shards) + self._arow[s]
+        self._arow[s] += 1
+        return row
+
+    def _alloc_slot_row(self, contract: bytes) -> int:
+        """Device-table row for a new storage slot of ``contract`` (the
+        contract's bucket's arena on a mesh); the caller appends it to
+        ``slot_row_of``."""
+        if self.n_shards <= 1:
+            row = len(self.slot_row_of)
+            if row >= self.slot_capacity:
+                self._grow_slots(row + 1)
+            return row
+        s = self._cbucket.get(contract)
+        if s is None:
+            s = contract_bucket(keccak256(contract), self.n_shards)
+            self._cbucket[contract] = s
+        if self._srow[s] >= self.slot_capacity // self.n_shards:
+            self._grow_slots_sharded()
+        row = s * (self.slot_capacity // self.n_shards) + self._srow[s]
+        self._srow[s] += 1
+        return row
 
     def ensure(self, addr: bytes, account: Optional[StateAccount]) -> int:
         idx = self.index.get(addr)
@@ -389,9 +504,9 @@ class DeviceState:
         self.index[addr] = idx
         self.addrs.append(addr)
         self.addr_hashes.append(keccak256(addr))
-        row = len(self.row_of)
-        if row >= self.capacity:
-            self._grow(row + 1)
+        # two statements: _alloc_row may replace row_of (arena growth
+        # remaps rows into a fresh list), so the append binds after it
+        row = self._alloc_row(self.addr_hashes[idx])
         self.row_of.append(row)
         if account is None:
             self.has_code.append(False)
@@ -420,6 +535,14 @@ class DeviceState:
         _scatter_drop(self.balances, didx, _upload(bal, self.device))
         _scatter_drop(self.nonces, didx, _upload(non, self.device))
         self._staged = []
+
+    def read_accounts(self, indices: List[int]) -> List[Tuple[int, int]]:
+        """(balance, nonce) of the given gids, read back to the host."""
+        idx = _upload(np.asarray([self.row_of[i] for i in indices],
+                                 dtype=np.int64), self.device)
+        balances = u256.to_ints(self.balances[idx])
+        non = self.nonces[idx].cpu().numpy()
+        return [(balances[i], int(non[i])) for i in range(len(indices))]
 
     def set_accounts(self, accounts: Dict[bytes, Tuple[int, int]]) -> None:
         """Write ``addr -> (balance, nonce)`` for indexed accounts, in
@@ -471,8 +594,8 @@ class _SenderPipeline:
         if n and eng._device_recover(n):
             eng.stats.sigs_device += n
             h["kind"] = "device"
-            h["ctxs"] = secp_device.issue_recover(hashes, rs, ss, recids,
-                                                  eng.device)
+            h["ctxs"] = secp_device.issue_recover(
+                hashes, rs, ss, recids, eng.device, eng._recover_kernel())
         elif n:
             eng.stats.sigs_host += n
             h["kind"] = "host"
@@ -518,7 +641,20 @@ class ReplayEngine:
     ``specialize`` (the reference's ``CORETH_SPECIALIZE``, default on)
     runs the lanes of traceable contracts in those windows on their
     straight-line programs; the per-block path has no specialisation,
-    as in the reference."""
+    as in the reference.
+
+    ``mesh`` (``parallel.make_mesh(n)``, n > 1) shards the state tables
+    over n shards of the one card: transfer windows run on the sharded
+    window kernel (K8, ``replay/shard.py``) over shard-major tables, and
+    device sender recovery on the sharded ladder (K8r).  ``capacity``,
+    ``slot_capacity`` and ``batch_pad`` must divide by n.  Machine
+    blocks keep the single-chip window runner over the sharded tables
+    (the reference's ``CORETH_SHARD_OCC=0``).  ``exchange`` ("psum" or
+    "ppermute", the reference's ``CORETH_EXCHANGE``) forces the
+    exchange's collective; None picks it per window by the touched
+    set's density.  ``shard_recover`` (``CORETH_SHARD_RECOVER``) sends
+    every sender segment to the sharded ladder, however small, on any
+    device."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -529,7 +665,9 @@ class ReplayEngine:
                  parent_header=None, batch_pad: int = 1024,
                  capacity: int = 1 << 14, window: int = 16,
                  slot_capacity: Optional[int] = None, device=None,
-                 device_occ: bool = True, specialize: bool = True):
+                 device_occ: bool = True, specialize: bool = True,
+                 mesh=None, exchange: Optional[str] = None,
+                 shard_recover: bool = False):
         self.device = default_device(device)
         self.device_occ = device_occ
         self.specialize = specialize
@@ -537,11 +675,41 @@ class ReplayEngine:
         self.store = state
         self.trie = self.store.trie
         self.root = self.trie.hash()
-        self.state = DeviceState(capacity, slot_capacity or capacity,
-                                 self.device)
+        slot_capacity = slot_capacity or capacity
+        if exchange not in (None, "psum", "ppermute"):
+            raise ValueError(f"exchange={exchange!r}: None, 'psum' or "
+                             "'ppermute'")
+        self.exchange = exchange
+        self.mesh = None
+        self.n_shards = 1
+        self._mesh_recover = None
+        if mesh is not None and mesh.n_shards > 1:
+            n = mesh.n_shards
+            if mesh.device is not None \
+                    and mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, engine on "
+                                 f"{self.device}")
+            for name, dim in (("capacity", capacity),
+                              ("slot_capacity", slot_capacity),
+                              ("batch_pad", batch_pad)):
+                if dim % n:
+                    raise ValueError(
+                        f"{name}={dim} must divide by the mesh width {n} "
+                        "(rows and txs shard over it; doubling keeps it)")
+            self.mesh = mesh
+            self.n_shards = n
+            # the recover pad is a power of two of at least 64
+            if 64 % n == 0:
+                from coreth_tpu_torch.ops.secp import sharded_recover
+                self._mesh_recover = sharded_recover(mesh)
+        if shard_recover and self._mesh_recover is None:
+            raise ValueError("shard_recover needs a mesh of more than one shard")
+        self.shard_recover = shard_recover
+        self.state = DeviceState(capacity, slot_capacity, self.device,
+                                 self.n_shards)
         self.signer = LatestSigner(config.chain_id)
         self.engine = DummyEngine()
-        self.stats = ReplayStats()
+        self.stats = ReplayStats(n_shards=self.n_shards)
         self.batch_pad = batch_pad
         self.window = window
         self.parent_header = parent_header
@@ -621,7 +789,13 @@ class ReplayEngine:
                     tx.set_sender(out[i * 20:(i + 1) * 20])
 
     def _device_recover(self, n: int) -> bool:
-        return self.recover_device and n >= self.DEVICE_RECOVER_MIN
+        return self.shard_recover or (
+            self.recover_device and n >= self.DEVICE_RECOVER_MIN)
+
+    def _recover_kernel(self):
+        """The device ladder: the sharded one (K8r) on a mesh, else None
+        (``secp_device``'s default, K2)."""
+        return self._mesh_recover
 
     def _recover_pool_get(self) -> ThreadPoolExecutor:
         if self._recover_pool is None:
@@ -638,7 +812,7 @@ class ReplayEngine:
         if n and self._device_recover(n):
             self.stats.sigs_device += n
             out, ok = secp_device.complete_recover(secp_device.issue_recover(
-                hashes, rs, ss, recids, self.device))
+                hashes, rs, ss, recids, self.device, self._recover_kernel()))
         elif n:
             self.stats.sigs_host += n
             out, ok = native.recover_addresses_batch(hashes, rs, ss, recids)
@@ -777,6 +951,8 @@ class ReplayEngine:
         """One kernel launch for a whole run of transfer blocks: upload
         the stacked batches, launch, and start the fetch tensor's copy
         back into pinned memory (an event marks its arrival)."""
+        if self.mesh is not None:
+            return self._issue_window_mesh(items)
         t0 = time.monotonic()
         (txds, t_idxs, s_idxs, acct_gids, slot_gids,
          touched_lists) = self._prepare_window(items)
@@ -785,6 +961,43 @@ class ReplayEngine:
                for a in (acct_gids, slot_gids, txds, t_idxs, s_idxs)]
         st.balances, st.nonces, st.slot_vals, fetches = _transfer_window(
             st.balances, st.nonces, st.slot_vals, *ups)
+        return self._fetch_window(items, fetches, touched_lists, ups, t0)
+
+    def _issue_window_mesh(self, items: List[Tuple[Block, dict]]) -> dict:
+        """The window on the sharded kernel (K8, one cluster launch): the
+        window locals' rows are already shard-major device rows
+        (``row_of``), the tx axis is interleaved over the shards, and the
+        exchange's collective follows ``exchange`` or the touched set's
+        density against the tables.  The fetch tensor has the
+        single-device layout, so ``_complete_window_run`` is shared."""
+        from coreth_tpu_torch.parallel.shard import exchange_mode
+        from coreth_tpu_torch.replay.shard import (
+            interleave_txs, sharded_transfer_window)
+        t0 = time.monotonic()
+        (txds, t_idxs, s_idxs, acct_rows, slot_rows,
+         touched_lists) = self._prepare_window(items)
+        st = self.state
+        n = self.n_shards
+        mode = exchange_mode(acct_rows.shape[0] + slot_rows.shape[0],
+                             st.capacity + st.slot_capacity, n,
+                             forced=self.exchange)
+        perm = interleave_txs(txds.shape[1], n)
+        ups = [_upload(a, self.device) for a in
+               (acct_rows, slot_rows, txds[:, perm], t_idxs, s_idxs)]
+        st.balances, st.nonces, st.slot_vals, fetches = \
+            sharded_transfer_window(st.balances, st.nonces, st.slot_vals,
+                                    *ups, n=n, mode=mode)
+        if mode == "psum":
+            self.stats.exchange_psum += 1
+        else:
+            self.stats.exchange_ppermute += 1
+        return self._fetch_window(items, fetches, touched_lists, ups, t0)
+
+    def _fetch_window(self, items, fetches, touched_lists, ups,
+                      t0: float) -> dict:
+        """Start the fetch tensor's copy into pinned memory with an
+        event marking its arrival; the window handle for
+        ``_complete_window_run``."""
         event = None
         if self.device.type == "cuda":
             host = torch.empty(fetches.shape, dtype=torch.int32,

@@ -72,6 +72,71 @@ def test_replay_on_the_card(cuda):
     assert eng.stats.sigs_device == 4 * 32
 
 
+@pytest.mark.parametrize("mode", ["psum", "ppermute"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_window_kernel_matches_plain(cuda, n, mode):
+    """K8 (one cluster of n CTAs) against its plain version on a window
+    with an insolvent and a nonce-mismatch block: tables, fetches and
+    every shard's working set equal, and the n working sets equal."""
+    from coreth_tpu_torch.replay import shard as SH
+    rng = np.random.default_rng(10 + n)
+    win = chip_smoke.random_window(rng, 8, 64, 48, cap=1024, scap=64,
+                                   n_acct=300, n_slot=10, L=512, SL=16,
+                                   t_pad=128, s_pad=16)
+    perm = SH.interleave_txs(64, n)
+    win = win[:5] + (np.ascontiguousarray(win[5][:, perm]),) + win[6:]
+    args = [torch.from_numpy(a).to(cuda) for a in win]
+    launches = SH.LAUNCHES
+    got = SH.sharded_transfer_window(*args, n=n, mode=mode,
+                                     return_replicas=True)
+    assert SH.LAUNCHES == launches + 1
+    want = SH._sharded_window_plain(*args, n, mode, return_replicas=True)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[4], want[4]):
+        assert torch.equal(g, w)
+        assert torch.equal(g, g[:1].expand_as(g))
+    oks = got[3][:, -1, 0].tolist()
+    assert oks[1] == 0 and oks[2] == 0 and sum(oks) == 6
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_recover_matches_k2(cuda, n):
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.parallel import make_mesh
+    _packed, kin = chip_smoke.signature_batch(256, 6)
+    args = [torch.from_numpy(a).to(cuda) for a in kin]
+    launches = S.SHARD_LAUNCHES
+    rows = S.sharded_recover(make_mesh(n))(*args)
+    assert S.SHARD_LAUNCHES == launches + 1
+    assert torch.equal(rows, S.recover_kernel(*args))
+
+
+def test_mesh_replay_on_the_card(cuda):
+    """A transfer chain on a 4-shard engine: every window on K8, every
+    sender on K8r, K1 never."""
+    from coreth_tpu_torch.ops import secp as S
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay import shard as SH
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_chain(6, 32, 16)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=32, capacity=256, window=4, device=cuda,
+                       mesh=make_mesh(4), shard_recover=True)
+    k1, k8, k8r = E.LAUNCHES, SH.LAUNCHES, S.SHARD_LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root
+    assert E.LAUNCHES == k1 and SH.LAUNCHES == k8 + 2
+    assert S.SHARD_LAUNCHES > k8r
+    assert eng.stats.sigs_device == 6 * 32
+
+
 def test_keccak_kernel_matches_plain(cuda):
     from coreth_tpu_torch.crypto import keccak256_py
     from coreth_tpu_torch.ops import keccak as K
