@@ -99,9 +99,29 @@ the one card):
    ``ReplayEngine(mesh=make_mesh(n))``: root equal to the header, every
    block on the device, K8 and K8r launched and K1 not; txs/s, the
    ``ReplayStats`` and the real txs per shard per block;
+12b. k9    — the sharded OCC window (one cluster launch of n CTAs) against
+   its plain version on phase k6's window (a) packed by sharded runners at
+   n = 2, 4 and 8, with key-range placement off (the token on its
+   contract bucket, no sync set) and on (the token hot, with the sync
+   set), in both modes, through the token's K7 variant and through the
+   generic library: tables and packed rows equal (tolerance 0), lane-steps
+   too on the variant; ms per window, the bound over the shards' lanes
+   and arenas (``_window_bound``), plain ms;
+12c. k9x   — the flags reduce against its plain version on every phase-k9
+   output: (W, 2) flags equal; ms and the byte bound;
 13. shard_erc20 — the ERC-20 chain through the window path with K7 on a
-   4-shard engine (machine blocks keep the single-chip window runner):
-   root equal, no dirty block.
+   4-shard engine four times, in the order sharded, single, single,
+   sharded: the sharded runner (the reference default: K9 at least once
+   a window, K9x, the single-chip K6/K7 never, ``kr_lanes`` > 0) and the
+   single-chip runner over the sharded tables (``shard_occ=False``: K6+K7,
+   K9 never); root equal, no dirty block, nothing built inside the timed
+   replay; then a closing ``shard_erc20_ab`` line;
+14. hot    — the single-hot-contract chain at the reference bench's shape
+   (64 blocks x 128 txs, 256 keys, Zipf alpha 1.1, seed 20260804; one
+   ERC-20-shaped contract takes every tx) replayed as the bench does on
+   one shard and at n = 2 and 4: root equal, every block on the machine
+   path with no dirty block; txs/s, ``load_imbalance``, ``kr_lanes``,
+   ``cross_shard`` and the exchange counts.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -660,6 +680,7 @@ def _zero_launches() -> None:
     E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
     M.SPEC_LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
     SH.LAUNCHES = S.SHARD_LAUNCHES = 0
+    M.OCC_SHARDED_LAUNCHES = M.SHARD_FLAGS_LAUNCHES = 0
 
 
 def _read_launches() -> dict:
@@ -674,7 +695,9 @@ def _read_launches() -> dict:
             "secp_recover": S.LAUNCHES, "transfer_window": E.LAUNCHES,
             "keccak256_blocks": K.LAUNCHES, "u256x_eval": u256x.LAUNCHES,
             "sharded_window": SH.LAUNCHES,
-            "sharded_recover": S.SHARD_LAUNCHES}
+            "sharded_recover": S.SHARD_LAUNCHES,
+            "occ_sharded": M.OCC_SHARDED_LAUNCHES,
+            "shard_flags": M.SHARD_FLAGS_LAUNCHES}
 
 
 def _timed_folds(pipe, on_first=None) -> list:
@@ -709,6 +732,7 @@ class HostSpans:
         from coreth_tpu_torch import kernels
         from coreth_tpu_torch.evm.device import adapter as A
         from coreth_tpu_torch.evm.device import machine as M
+        from coreth_tpu_torch.evm.device import shard as SHR
         from coreth_tpu_torch.evm.device import specialize as SP
         from coreth_tpu_torch.replay import engine as E
         from coreth_tpu_torch.replay import machine_block as MB
@@ -716,6 +740,10 @@ class HostSpans:
                    ("classify", "_window_items", "_finish_block", "execute")]
         targets += [(A.MachineWindowRunner, n) for n in
                     ("pack", "issue", "complete", "_premaps", "_spec_id")]
+        targets += [(SHR.ShardedWindowRunner, n) for n in
+                    ("pack", "issue", "poll_clean", "can_pipeline",
+                     "_placements")]
+        targets += [(M, "run_occ_sharded"), (M, "shard_flags")]
         targets += [(A, "fill_kdig"), (M, "run_occ_window"),
                     (SP, "occ_library"), (SP, "trace_eligible"),
                     (SP, "spec_requests"), (kernels, "load"),
@@ -781,7 +809,7 @@ def _steady(folds, t0: float, txs: int) -> dict:
 
 
 def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
-                  specialize: bool = False, mesh=None):
+                  specialize: bool = False, mesh=None, shard_occ=True):
     """Replay the ERC-20 chain from fresh decodes (no cached senders),
     the launch counters zeroed just before and read just after; returns
     the engine, the root, the replay's seconds, the launches and the
@@ -798,7 +826,7 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
                          batch_pad=txs, window=16, device=dev,
                          device_occ=device_occ, specialize=specialize,
-                         mesh=mesh)
+                         mesh=mesh, shard_occ=shard_occ)
     A.RECIPES.clear()      # learned premaps start empty: discovery counts
     spans = HostSpans() if device_occ else None
     folds = _timed_folds(eng.commit_pipe, spans and spans.mark)
@@ -1196,8 +1224,9 @@ def phase_window(dev, smi, genesis, blocks, txs: int, specialize: bool,
     return launches, steady
 
 
-def _window_bound(pk, got):
-    """(bound_ms, bound_by, lane_steps, rounds) of one window launch.
+def _window_bound(pk, got, n: int = 1):
+    """(bound_ms, bound_by, lane_steps, rounds) of one window launch; with
+    ``n`` shards (K9) over the union of the shards' lanes and arenas.
 
     Bytes: what this window's lanes need moved.  An inactive lane reads
     only its ``active`` flag.  An active lane reads its scalar and word
@@ -1209,14 +1238,17 @@ def _window_bound(pk, got):
     full copy), the key-table rows the lanes reference, and the packed
     rows and step counts written.  Operations: the interpreted lanes'
     steps x ``OPS_PER_STEP`` and the sweeps' entries x
-    ``OPS_PER_SWEEP_ENTRY``; a traced lane's steps are left out (its
-    ALU work is not counted, which can only lower the bound)."""
+    ``OPS_PER_SWEEP_ENTRY`` (each shard's sweep walks its B lanes each
+    round of its own); a traced lane's steps are left out (its ALU work
+    is not counted, which can only lower the bound).  ``rounds``: per
+    block, the largest of the shards'."""
     from coreth_tpu_torch.evm.device import machine as M
     from coreth_tpu_torch.evm.device import specialize as SP
     p, occ, inp = pk["p"], pk["occ"], pk["inputs"]
     W, B, G = occ.blocks, p.batch, occ.table_cap
     extra = got["packed"][:, :, -4:].cpu().numpy()
-    rounds = extra[:, 0, 3].tolist()
+    shard_rounds = extra[:, ::B, 3]                            # (W, n)
+    rounds = shard_rounds.max(axis=1).tolist()
     host = {k: inp[k].cpu().numpy() for k in
             ("active", "prog_id", "code_len", "data_len", "sgid")}
     act = host["active"].astype(bool)
@@ -1232,7 +1264,7 @@ def _window_bound(pk, got):
         es = t.element_size()
         per_lane = t[0, 0].numel() * es
         if k == "active":
-            n_bytes += W * B * per_lane
+            n_bytes += W * n * B * per_lane
         elif k in ("code", "jdest"):
             n_bytes += int(host["code_len"][interp].sum()) * es
         elif k == "code_len":
@@ -1243,13 +1275,18 @@ def _window_bound(pk, got):
             n_bytes += int(n_req[pid[traced]].sum()) * M.LIMBS * es
         else:
             n_bytes += int(act.sum()) * per_lane
-    gids = host["sgid"][act]
+    # the key-table rows the lanes reference, each shard in its arena
+    shard = np.broadcast_to((np.arange(n * B) // B)[None, :, None],
+                            host["sgid"].shape)
+    gids, shards = host["sgid"][act], shard[act]
+    rows = (shards * G + gids)[gids < G]
     n_bytes += 2 * pk["table"].numel() * 4 \
-        + np.unique(gids[gids < G]).size * M.LIMBS * 4 \
+        + np.unique(rows).size * M.LIMBS * 4 \
         + got["packed"].numel() * 4 + got["steps"].numel() * 4
     steps = got["steps"].cpu().numpy()
     lane_steps = int(steps.sum())
-    sweep_ops = sum(rounds) * p.batch * p.scache_cap * M.OPS_PER_SWEEP_ENTRY
+    sweep_ops = int(shard_rounds.sum()) * B * p.scache_cap \
+        * M.OPS_PER_SWEEP_ENTRY
     bound_ms, bound_by = bound(
         n_bytes, int(steps[interp].sum()) * M.OPS_PER_STEP + sweep_ops)
     return bound_ms, bound_by, lane_steps, rounds
@@ -1534,30 +1571,289 @@ def phase_shard(dev, smi, genesis, wire, txs: int, capacity: int):
     return out
 
 
-def phase_shard_erc20(dev, smi, genesis, blocks, txs: int):
-    """The ERC-20 chain through the window path with K7 on a 4-shard
-    engine (machine blocks on the single-chip window runner over the
-    sharded tables): root equal, no dirty block."""
+# ------------------------------------------------------------ K9, K9x
+
+def sharded_windows(dev, genesis, blocks):
+    """K9 windows: phase k6's window (a) (the ERC-20 chain's first 8
+    blocks x 256 lanes) packed by fresh sharded runners at n = 2, 4 and
+    8, with key-range placement off (the token's 256 lanes on its
+    contract bucket, no sync set) and on (the token hot: its lanes spread
+    by conflict component, the keys of several shards in the sync set),
+    every lane traced (K7), with the premap recipes one discovery pass of
+    K6 learns.  Returns {(n, keyrange): pack}."""
+    from coreth_tpu_torch.evm.device.shard import ShardedWindowRunner
     from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    fresh = [Block.decode(b.encode()) for b in blocks[:8]]
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         batch_pad=256, device=dev, specialize=False)
+    eng.warm_senders(fresh)
+    mx = eng._machine_executor()
+    items = mx._window_items([(b, mx.classify(b)) for b in fresh])
+    runner = mx._window_runner()
+    runner.complete(runner.issue(items))
+    out = {}
+    for n in SHARD_WIDTHS:
+        for keyrange in (False, True):
+            r = ShardedWindowRunner(runner.fork, mx._base_value, make_mesh(n),
+                                    device=dev, specialize=True,
+                                    keyrange=keyrange)
+            r.seed_window_hint(8)
+            out[(n, keyrange)] = r.pack(items)
+    eng.close()
+    return out
+
+
+def phase_k9(dev, windows):
+    """K9 against its plain version on every window of
+    ``sharded_windows``, in both modes, through the variant (K7 inside)
+    and the generic library (every prog_id -1): tables and packed rows
+    equal (tolerance 0), lane-steps too on the variant.  The plain
+    version runs once per window: its result does not depend on the mode
+    (integer sums and maxes; tests/test_torch_shard_occ.py holds both
+    modes against the reference).  Returns (the kernels-line entry, the
+    K9 outputs for phase k9x)."""
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    rows, k9, outs = {}, None, {}
+    for (n, keyrange), pk in windows.items():
+        args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+        spec, sync = pk["spec"], pk["sync_rows"]
+        t0 = time.perf_counter()
+        want = M.occ_sharded_plain(*args, spec, n, sync, "psum")
+        torch.cuda.synchronize()
+        plain_ms = 1000 * (time.perf_counter() - t0)
+        gen_in = dict(pk["inputs"], prog_id=torch.full_like(
+            pk["inputs"]["prog_id"], -1))
+        gargs = args[:4] + (gen_in,)
+        occupancy = pk["inputs"]["active"].reshape(
+            pk["occ"].blocks, n, -1).sum(dim=(0, 2)).tolist()
+        for mode in ("psum", "ppermute"):
+            got = M.run_occ_sharded(*args, spec, n, sync, mode)
+            gen = M.run_occ_sharded(*gargs, (), n, sync, mode)
+            for what, g, keys in (("variant", got, ("table", "packed",
+                                                    "steps")),
+                                  ("generic", gen, ("table", "packed"))):
+                for k in keys:
+                    if not torch.equal(g[k], want[k]):
+                        bad = (g[k] != want[k]).nonzero()[:5].tolist()
+                        raise AssertionError(
+                            f"K9 n={n} keyrange={keyrange} {mode} {what}: "
+                            f"{k} differs from the plain version at {bad}")
+            err = max_abs_err([got[k] for k in ("table", "packed", "steps")],
+                              [want[k] for k in ("table", "packed", "steps")])
+            ms = cuda_ms(lambda: M.run_occ_sharded(*args, spec, n, sync, mode),
+                         reps=5, warmup=1)
+            gen_ms = cuda_ms(lambda: M.run_occ_sharded(*gargs, (), n, sync,
+                                                       mode),
+                             reps=5, warmup=1)
+            bound_ms, bound_by, lane_steps, rounds = _window_bound(pk, got, n)
+            extra = got["packed"][:, :, -4:].cpu().numpy()
+            key = f"n{n}_{'keyrange' if keyrange else 'bucket'}_{mode}"
+            rows[key] = {
+                "batch_per_shard": pk["p"].batch,
+                "table_cap_per_shard": pk["occ"].table_cap,
+                "sync_rows": 0 if sync is None else int(sync.shape[0]),
+                "sync_keys": pk["sync"], "lanes_per_shard": occupancy,
+                "rounds": rounds, "committed": int(extra[..., 0].sum()),
+                "lane_steps": lane_steps,
+                "generic_lane_steps": int(gen["steps"].sum()),
+                "max_abs_err": err, "ms": round(ms, 4),
+                "generic_ms": round(gen_ms, 4),
+                "plain_ms": round(plain_ms, 1),
+                "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
+            outs[(n, keyrange, mode)] = (got["packed"], pk["inputs"]["active"])
+            if n == HEADLINE_WIDTH and keyrange and mode == "psum":
+                k9 = {"name": "occ_sharded", "route": "cuda",
+                      "source": "coreth_tpu_torch/csrc/occ_window.cu",
+                      "replaces": "coreth_tpu/evm/device/shard.py:151",
+                      "max_abs_err": err, "ms": round(ms, 4),
+                      "plain_ms": round(plain_ms, 1),
+                      "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
+                      "library_ms": None}
+                rows[key]["device_ms"] = kernel_ms(
+                    lambda: M.run_occ_sharded(*args, spec, n, sync, mode),
+                    "occ_sharded", reps=5)
+            if keyrange == (sync is None):
+                raise AssertionError(f"K9 n={n} keyrange={keyrange}: sync "
+                                     f"rows {sync is not None}")
+    k9["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    emit({"phase": "k9", "equal": True, "windows": rows,
+          "ms_is": f"n={HEADLINE_WIDTH}, key range, psum, K7 variant, CUDA "
+          "events around the wrapper", "bound_is": "K6's over the union of "
+          "the shards' lanes and arenas", **k9})
+    return k9, outs
+
+
+def phase_k9x(dev, outs):
+    """K9x against its plain version on every K9 output of phase k9, in
+    its mode: (W, 2) flags equal.  Bound: bytes, ``active`` read once,
+    the packed rows' three flag columns of the active lanes only (an
+    inactive lane reads nothing more), the flags written."""
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    rows, k9x = {}, None
+    for (n, keyrange, mode), (packed, active) in outs.items():
+        got = M.shard_flags(packed, active, n, mode)
+        t0 = time.perf_counter()
+        want = M.shard_flags_plain(packed, active, n, mode)
+        torch.cuda.synchronize()
+        plain_ms = 1000 * (time.perf_counter() - t0)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K9x n={n} {mode}: {got.tolist()} != "
+                                 f"{want.tolist()}")
+        W, NB = active.shape
+        ms = cuda_ms(lambda: M.shard_flags(packed, active, n, mode))
+        n_act = int((active != 0).sum())
+        bound_ms, bound_by = bound(active.numel() * 4 + n_act * 3 * 4
+                                   + W * 2 * 4, active.numel() + n_act * 3)
+        key = f"n{n}_{'keyrange' if keyrange else 'bucket'}_{mode}"
+        rows[key] = {"flags": got.tolist(), "ms": round(ms, 4),
+                     "plain_ms": round(plain_ms, 3),
+                     "bound_ms": round(bound_ms, 6), "bound_by": bound_by}
+        if n == HEADLINE_WIDTH and keyrange and mode == "psum":
+            k9x = {"name": "shard_flags", "route": "cuda",
+                   "source": "coreth_tpu_torch/csrc/occ_window.cu",
+                   "replaces": "coreth_tpu/evm/device/shard.py:267",
+                   "max_abs_err": max_abs_err([got], [want]),
+                   "ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
+                   "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
+                   "library_ms": None}
+    emit({"phase": "k9x", "equal": True, "windows": rows,
+          "ms_is": f"n={HEADLINE_WIDTH}, key range, psum, CUDA events "
+          "around the wrapper", **k9x})
+    return k9x
+
+
+def phase_shard_erc20(dev, smi, genesis, blocks, txs: int, shard_occ: bool,
+                      order: int):
+    """The ERC-20 chain through the window path with K7 on a 4-shard
+    engine: with ``shard_occ`` (the default) on the sharded runner (K9
+    launched at least once a window, K9x too, the single-chip K6/K7
+    never, the token hot: ``kr_lanes`` > 0), without it on the
+    single-chip runner over the sharded tables (K9 never).  Root equal,
+    no dirty block, no kernel built inside the timed replay.  ``order``:
+    the run's place in the sharded/single A/B."""
+    from coreth_tpu_torch import kernels
+    from coreth_tpu_torch.parallel import make_mesh
+    built = dict(kernels.BUILD_SECONDS)
     eng, root, dt, launches, steady = _replay_erc20(
         dev, genesis, blocks, txs, device_occ=True, specialize=True,
-        mesh=make_mesh(HEADLINE_WIDTH))
+        mesh=make_mesh(HEADLINE_WIDTH), shard_occ=shard_occ)
     mc = eng.machine_counters()
+    name = "sharded" if shard_occ else "single"
     if root != blocks[-1].header.root:
-        raise AssertionError("shard_erc20: final root differs from the "
-                             "header")
+        raise AssertionError(f"shard_erc20 {name}: final root differs from "
+                             "the header")
     if mc["blocks"] != len(blocks) or mc["dirty_blocks"] != 0:
-        raise AssertionError(f"shard_erc20: {mc['blocks']} blocks, "
+        raise AssertionError(f"shard_erc20 {name}: {mc['blocks']} blocks, "
                              f"{mc['dirty_blocks']} dirty")
-    if launches["occ_window_spec"] < mc["windows"] \
-            or launches["sharded_recover"] < 1:
-        raise AssertionError(f"shard_erc20: launches {launches}")
-    emit({"phase": "shard_erc20", "n_shards": HEADLINE_WIDTH,
-          "blocks": len(blocks), "txs_per_block": txs,
-          "replay_s": round(dt, 4),
+    if shard_occ:
+        ok = (launches["occ_sharded"] >= mc["windows"] >= 1
+              and launches["shard_flags"] >= 1
+              and launches["occ_window_spec"] == 0
+              and launches["occ_window"] == 0 and mc["kr_lanes"] > 0)
+    else:
+        ok = (launches["occ_window_spec"] >= mc["windows"] >= 1
+              and launches["occ_sharded"] == 0
+              and launches["shard_flags"] == 0)
+    if not ok or launches["sharded_recover"] < 1 \
+            or launches["step_machine"] != 0:
+        raise AssertionError(f"shard_erc20 {name}: launches {launches}, "
+                             f"counters {mc}")
+    if kernels.BUILD_SECONDS != built:
+        raise AssertionError(f"shard_erc20 {name}: a kernel was built "
+                             "inside the timed replay")
+    emit({"phase": "shard_erc20", "runner": name, "order": order,
+          "n_shards": HEADLINE_WIDTH, "blocks": len(blocks),
+          "txs_per_block": txs, "replay_s": round(dt, 4),
           "txs_per_s": round(len(blocks) * txs / dt, 1), **steady,
           "root_matches_header": True, "launches": launches, "machine": mc,
           "stats": eng.stats.row(), "card": smi})
+    return launches, steady
+
+
+# the reference bench's hot-contract shape (bench.py:1375-1380)
+HOT_BLOCKS, HOT_TXS, HOT_KEYS, HOT_SEED, HOT_ALPHA = 64, 128, 256, \
+    20260804, 1.1
+
+
+def phase_hot(dev, smi):
+    """The single-hot-contract chain (one ERC-20-shaped contract takes
+    every tx, Zipf senders and recipients) at the reference bench's
+    shape, replayed as the bench does (capacity 8192, batch_pad = txs,
+    window 16, the first block alone before the timed replay) on one
+    shard and at n = 2 and 4: root equal to the header, every block on
+    the machine path, no dirty block; on the mesh the token hot (key
+    range), K9 and K9x launched and the single-chip K6/K7 not.  Returns
+    {n: launches}."""
+    import torch
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    from coreth_tpu_torch.workloads.hot_contract import build_hot_chain
+    t0 = time.monotonic()
+    genesis, blocks = build_hot_chain(CFG, HOT_BLOCKS, HOT_TXS,
+                                      n_keys=HOT_KEYS, alpha=HOT_ALPHA,
+                                      seed=HOT_SEED)
+    t_build = time.monotonic() - t0
+    wire = [b.encode() for b in blocks]
+    out = {}
+    for n in (1, 2, 4):
+        fresh = [Block.decode(w) for w in wire]
+        store = StateStore()
+        gblock = genesis.to_block(store)
+        eng = E.ReplayEngine(CFG, store, parent_header=gblock.header,
+                             capacity=1 << 13, slot_capacity=1 << 13,
+                             batch_pad=HOT_TXS, window=16, device=dev,
+                             mesh=make_mesh(n) if n > 1 else None)
+        A.RECIPES.clear()
+        _zero_launches()
+        eng.replay_block(fresh[0])
+        t1 = time.monotonic()
+        root = eng.replay(fresh[1:])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        launches = _read_launches()
+        eng.close()
+        mc = eng.machine_counters()
+        if root != fresh[-1].header.root:
+            raise AssertionError(f"hot n={n}: final root differs from the "
+                                 "header")
+        if mc["blocks"] != len(fresh) or mc["dirty_blocks"]:
+            raise AssertionError(f"hot n={n}: {mc['blocks']} machine "
+                                 f"blocks, {mc['dirty_blocks']} dirty")
+        if n > 1:
+            ok = (launches["occ_sharded"] >= mc["windows"] >= 1
+                  and launches["shard_flags"] >= 1 and mc["kr_lanes"] > 0
+                  and launches["occ_window"] + launches["occ_window_spec"]
+                  == 0)
+        else:
+            ok = launches["occ_window_spec"] >= mc["windows"] >= 1
+        if not ok:
+            raise AssertionError(f"hot n={n}: launches {launches}, "
+                                 f"counters {mc}")
+        replayed = sum(len(b.transactions) for b in fresh[1:])
+        emit({"phase": "hot", "n_shards": n, "blocks": len(fresh),
+              "txs_per_block": HOT_TXS, "keys": HOT_KEYS,
+              "alpha": HOT_ALPHA, "seed": HOT_SEED,
+              "chain_build_s": round(t_build, 2), "replay_s": round(dt, 4),
+              "txs_per_s": round(replayed / dt, 1),
+              "load_imbalance": eng.stats.load_imbalance,
+              "kr_lanes": mc["kr_lanes"], "cross_shard": mc["cross_shard"],
+              "exchange_psum": mc["exchange_psum"],
+              "exchange_ppermute": mc["exchange_ppermute"],
+              "root_matches_header": True, "launches": launches,
+              "machine": mc, "stats": eng.stats.row(), "card": smi})
+        out[n] = launches
+    return out
 
 
 def main() -> int:
@@ -1774,8 +2070,28 @@ def main() -> int:
           "steady_txs_per_s": [st["steady_txs_per_s"]
                                for _sp, _ln, st in runs]})
 
-    # ---- 13. the window path with K7 on a 4-shard engine
-    phase_shard_erc20(dev, smi, m_genesis, m_blocks, m_txs)
+    # ---- 12b. K9 and K9x against their plain versions (phase k7 built
+    # the token's variant, which holds K9 too)
+    k9, k9_outs = phase_k9(dev, sharded_windows(dev, m_genesis, m_blocks))
+    k9x = phase_k9x(dev, k9_outs)
+    del k9_outs
+
+    # ---- 13. the window path with K7 on a 4-shard engine: the sharded
+    # runner (the reference default) against the single-chip one, in the
+    # order sharded, single, single, sharded
+    ab = []
+    for order, shard_occ in enumerate((True, False, False, True), 1):
+        ab.append((shard_occ, *phase_shard_erc20(
+            dev, smi, m_genesis, m_blocks, m_txs, shard_occ, order)))
+    sh_launches = next(ln for so, ln, _s in ab if so)
+    emit({"phase": "shard_erc20_ab",
+          "order": ["sharded", "single", "single", "sharded"],
+          "first_fold_s": [st["first_fold_s"] for _so, _ln, st in ab],
+          "steady_txs_per_s": [st["steady_txs_per_s"]
+                               for _so, _ln, st in ab]})
+
+    # ---- 14. the hot-contract chain on one shard and on 2 and 4
+    phase_hot(dev, smi)
 
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
@@ -1785,8 +2101,10 @@ def main() -> int:
     k3["launches"] = k4["launches"] = "in K5, K6 and K7"
     k8["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_window"]
     k8r["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_recover"]
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r]}),
-          flush=True)
+    k9["launches"] = sh_launches["occ_sharded"]
+    k9x["launches"] = sh_launches["shard_flags"]
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r, k9,
+                                  k9x]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

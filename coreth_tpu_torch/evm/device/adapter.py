@@ -563,11 +563,15 @@ class WindowResult:
     attempts: int                       # launches this window took
 
 
-def window_arrays(p: M.MachineParams, W: int, items) -> Dict[str, np.ndarray]:
+def window_arrays(p: M.MachineParams, W: int, items,
+                  lanes: Optional[Tuple] = None) -> Dict[str, np.ndarray]:
     """The per-lane and per-block inputs of one window (numpy, padding
     lanes and blocks inactive), the code rows excepted (``code_arrays``).
-    ``items`` is [(BlockEnv, [TxSpec, ...]), ...] in chain order."""
-    L = p.batch
+    ``items`` is [(BlockEnv, [TxSpec, ...]), ...] in chain order.  Tx li
+    of block bi sits at lane li of ``p.batch`` lanes, or with ``lanes`` =
+    (L, lane_map) at lane ``lane_map[bi][li]`` of L (the sharded
+    runner's placement)."""
+    L, lane_map = lanes or (p.batch, None)
     calldata = np.zeros((W, L, p.data_cap), dtype=np.int32)
     data_len = np.zeros((W, L), dtype=np.int32)
     start_gas = np.zeros((W, L), dtype=np.int32)
@@ -588,16 +592,17 @@ def window_arrays(p: M.MachineParams, W: int, items) -> Dict[str, np.ndarray]:
         basefee_w[bi] = word16(env.base_fee)
         chain_id = env.chain_id
         for li, t in enumerate(specs):
+            fl = li if lane_map is None else lane_map[bi][li]
             db = np.frombuffer(t.calldata, dtype=np.uint8)
-            calldata[bi, li, :len(db)] = db
-            data_len[bi, li] = len(db)
-            start_gas[bi, li] = t.gas
-            active[bi, li] = 1
-            words["callvalue"][bi, li] = word16c(t.value)
-            words["caller_w"][bi, li] = word16c(addr_word(t.caller))
-            words["address_w"][bi, li] = word16c(addr_word(t.address))
-            words["origin_w"][bi, li] = word16c(addr_word(t.origin))
-            words["gasprice_w"][bi, li] = word16c(t.gas_price)
+            calldata[bi, fl, :len(db)] = db
+            data_len[bi, fl] = len(db)
+            start_gas[bi, fl] = t.gas
+            active[bi, fl] = 1
+            words["callvalue"][bi, fl] = word16c(t.value)
+            words["caller_w"][bi, fl] = word16c(addr_word(t.caller))
+            words["address_w"][bi, fl] = word16c(addr_word(t.address))
+            words["origin_w"][bi, fl] = word16c(addr_word(t.origin))
+            words["gasprice_w"][bi, fl] = word16c(t.gas_price)
     return dict(calldata=calldata, data_len=data_len, start_gas=start_gas,
                 active=active, coinbase_w=coinbase_w, basefee_w=basefee_w,
                 chainid_w=word16(chain_id), **words, **block)
@@ -616,19 +621,21 @@ def code_rows(code: bytes, code_cap: int, fork: str) -> Tuple:
 
 
 def code_arrays(p: M.MachineParams, W: int, items,
-                rows_of: Callable[[bytes], Tuple]) -> Dict[str, np.ndarray]:
+                rows_of: Callable[[bytes], Tuple],
+                lanes: Optional[Tuple] = None) -> Dict[str, np.ndarray]:
     """The window's code, jdest and code_len arrays; ``rows_of(code)``
-    gives one bytecode's ``code_rows``."""
-    L = p.batch
+    gives one bytecode's ``code_rows``; ``lanes`` as ``window_arrays``."""
+    L, lane_map = lanes or (p.batch, None)
     code = np.zeros((W, L, p.code_cap + 33), dtype=np.int32)
     code_len = np.zeros((W, L), dtype=np.int32)
     jdest = np.zeros((W, L, p.code_cap), dtype=np.int32)
     for bi, (_env, specs) in enumerate(items):
         for li, t in enumerate(specs):
+            fl = li if lane_map is None else lane_map[bi][li]
             cb, jd, ln = rows_of(t.code)
-            code[bi, li] = cb
-            jdest[bi, li] = jd
-            code_len[bi, li] = ln
+            code[bi, fl] = cb
+            jdest[bi, fl] = jd
+            code_len[bi, fl] = ln
     return dict(code=code, jdest=jdest, code_len=code_len)
 
 
@@ -735,11 +742,26 @@ class MachineWindowRunner:
         self.lanes_specialized = 0  # lanes run on a traced program
         self.specialize_escapes = 0  # lanes kept on the interpreter
         self.programs_traced = 0    # contracts traced into programs
+        # the sharded runner's placement and exchange counters (0 here)
+        self.kr_lanes = 0           # lanes placed by key-range bucket
+        self.cross_shard = 0        # lanes whose caller's account bucket
+        #                             is not their contract's shard
+        self.load_imb_sum = 0       # per-window max/mean shard lanes,
+        self.load_imb_windows = 0   # permille, and the windows summed
+        self.exchange_psum = 0      # key-range windows by sync mode
+        self.exchange_ppermute = 0
         self.launches = 0
         self.steps = 0
         self.t_pack = self.t_machine = self.t_unpack = 0.0
 
     # ------------------------------------------------------------ state
+    def poll_clean(self, handle: dict) -> bool:
+        """Whether the window is known clean before its packed rows are
+        fetched, so that the next window may launch first: never here,
+        since one card's window has no flags reduce (the sharded runner
+        fetches K9x's)."""
+        return False
+
     def invalidate(self) -> None:
         """The device table no longer matches the committed state (a
         dirty window left partial writes in it); the next issue()
@@ -1126,27 +1148,30 @@ class MachineWindowRunner:
         date; launches nothing.
 
         items: [(BlockEnv, [TxSpec, ...]), ...] in chain order."""
-        if discovered is None:
-            discovered = [[{} for _t in specs] for _env, specs in items]
-        premaps, predicted = self._premaps(items, discovered)
-        p, occ = self._occ_params(items, premaps)
-        W, L, S, G = occ.blocks, p.batch, p.scache_cap, occ.table_cap
-        arrays = window_arrays(p, W, items)
+        discovered, premaps, predicted, p, occ = self._prepare(
+            items, discovered)
+        W, S, G = occ.blocks, p.scache_cap, occ.table_cap
+        L = self._lane_count(p)
+        lane_map = self._lane_map(items, premaps, p, attempt)
+        lanes = None if lane_map is None else (L, lane_map)
+        arrays = window_arrays(p, W, items, lanes)
         sgid = np.full((W, L, S), G, dtype=np.int32)
         for bi, ((_env, specs), block_pre) in enumerate(
                 zip(items, premaps)):
             for li, t in enumerate(specs):
+                fl = li if lane_map is None else lane_map[bi][li]
                 for j, key in enumerate(block_pre[li]):
-                    sgid[bi, li, j] = self._gid(t.address, key)
+                    sgid[bi, fl, j] = self._lane_gid(t.address, key, fl, p)
         arrays["sgid"] = sgid
         prog_id = np.full((W, L), -1, dtype=np.int32)
         kjobs: List[Tuple] = []
         for bi, (env, specs) in enumerate(items):
             for li, t in enumerate(specs):
+                fl = li if lane_map is None else lane_map[bi][li]
                 pid = self._spec_progs.get(t.code, -1)
-                prog_id[bi, li] = pid
+                prog_id[bi, fl] = pid
                 if pid >= 0 and self._spec_reqs.get(t.code):
-                    kjobs.append((bi, li, t, env, self._spec_reqs[t.code]))
+                    kjobs.append((bi, fl, t, env, self._spec_reqs[t.code]))
                 if attempt == 1:
                     if pid >= 0:
                         self.lanes_specialized += 1
@@ -1163,11 +1188,12 @@ class MachineWindowRunner:
         # them on the device while the assignment signature repeats
         code_sig = (W, L, p.code_cap,
                     tuple(tuple(t.code for t in specs)
-                          for _env, specs in items))
+                          for _env, specs in items),
+                    lane_map and tuple(map(tuple, lane_map)))
         code_dev = self._win_code_cache.get(code_sig)
         if code_dev is None:
             ca = code_arrays(p, W, items,
-                             lambda c: self._code_pack(c, p.code_cap))
+                             lambda c: self._code_pack(c, p.code_cap), lanes)
             code_dev = tuple(_upload(ca[k], self.device)
                              for k in ("code", "jdest", "code_len"))
             if len(self._win_code_cache) >= 2:
@@ -1183,7 +1209,48 @@ class MachineWindowRunner:
         return dict(p=p, occ=occ, table=table, key_tab=key_tab,
                     inputs=inputs, spec=self._spec_key(), items=items,
                     discovered=discovered, premaps=premaps,
-                    predicted=predicted)
+                    predicted=predicted, lane_map=lane_map)
+
+    # ------------------------------------------------ sharding hooks
+    # The identities of one card; the sharded runner (evm/device/shard.py
+    # ShardedWindowRunner) places lanes on shards through them.
+    def _prepare(self, items, discovered):
+        """(discovered, premaps, predicted, p, occ) of a window."""
+        if discovered is None:
+            discovered = [[{} for _t in specs] for _env, specs in items]
+        premaps, predicted = self._premaps(items, discovered)
+        p, occ = self._occ_params(items, premaps)
+        return discovered, premaps, predicted, p, occ
+
+    def _lane_count(self, p: M.MachineParams) -> int:
+        """Lanes of one block row of the window's lane tensors."""
+        return p.batch
+
+    def _lane_map(self, items, premaps, p: M.MachineParams,
+                  attempt: int) -> Optional[List[List[int]]]:
+        """Lane of each tx (``[bi][li]``); None: tx li at lane li."""
+        return None
+
+    def _lane_gid(self, contract: bytes, key: bytes, lane: int,
+                  p: M.MachineParams) -> int:
+        """Table row lane ``lane`` reads ``key`` at."""
+        return self._gid(contract, key)
+
+    def _block_stride(self, handle: dict) -> int:
+        """Packed rows per block (the lane axis's width)."""
+        return handle["p"].batch
+
+    def _lane_idx(self, handle: dict, bi: int, li: int) -> int:
+        """Lane of tx li of block bi."""
+        return li
+
+    def _on_result_fetch(self, handle: dict) -> None:
+        """Called once the packed rows of a launch are on the host."""
+
+    def _discover_key(self, handle: dict, bi: int, li: int,
+                      contract: bytes, key: bytes) -> None:
+        """Map a key the F_MISS escape of tx li of block bi found."""
+        self._gid(contract, key)
 
     def issue(self, items, discovered=None, attempt: int = 1) -> dict:
         """Pack and launch one window; returns a handle for complete().
@@ -1214,9 +1281,10 @@ class MachineWindowRunner:
         while True:
             t0 = time.monotonic()
             p = handle["p"]
-            L = p.batch
+            Lp = self._block_stride(handle)
             packed = handle["out"]["packed"].cpu().numpy()
             self.steps += int(handle["out"]["steps"].sum())
+            self._on_result_fetch(handle)
             t1 = time.monotonic()
             self.t_machine += t1 - t0
             pw = packed.shape[2] - 4
@@ -1225,13 +1293,15 @@ class MachineWindowRunner:
             missing = False
             for bi, (_env, specs) in enumerate(handle["items"]):
                 for li, t in enumerate(specs):
-                    if not extra[bi, li, 1]:
+                    fl = self._lane_idx(handle, bi, li)
+                    if not extra[bi, fl, 1]:
                         continue  # escaped lanes only carry misses
                     disc = handle["discovered"][bi][li]
                     fresh: List[bytes] = []
-                    for key in miss_keys(pout, bi * L + li):
+                    for key in miss_keys(pout, bi * Lp + fl):
                         if not self._key_mapped(t.address, key):
-                            self._gid(t.address, key)
+                            self._discover_key(handle, bi, li, t.address,
+                                               key)
                         if key not in disc:
                             disc[key] = None
                             fresh.append(key)
@@ -1251,14 +1321,17 @@ class MachineWindowRunner:
         results, committed, escape, clean, rounds = [], [], [], [], []
         for bi, (_env, specs) in enumerate(handle["items"]):
             n = len(specs)
-            res = results_for_rows(pout, np.arange(n) + bi * L)
-            com = extra[bi, :n, 0].astype(bool)
-            esc = (extra[bi, :n, 1] | extra[bi, :n, 2]).astype(bool)
+            lanes = np.array([self._lane_idx(handle, bi, li)
+                              for li in range(n)], dtype=np.int64)
+            res = results_for_rows(pout, lanes + bi * Lp)
+            com = extra[bi, lanes, 0].astype(bool)
+            esc = (extra[bi, lanes, 1] | extra[bi, lanes, 2]).astype(bool)
             results.append(res)
             committed.append(com)
             escape.append(esc)
             clean.append(bool(com.all()))
-            rounds.append(int(extra[bi, :n, 3].max()) if n else 0)
+            # per-shard round counts may differ: the block's is the max
+            rounds.append(int(extra[bi, lanes, 3].max()) if n else 0)
         self._update_common(handle, pout, clean)
         self.t_unpack += time.monotonic() - t2
         return WindowResult(results=results, committed=committed,
@@ -1270,14 +1343,14 @@ class MachineWindowRunner:
         """Count predicted-premap keys and hits (against the final
         attempt's prediction sets), and narrow each contract's
         common-key residue to the keys EVERY lane touched."""
-        L = handle["p"].batch
+        Lp = self._block_stride(handle)
         predicted = handle["predicted"]
         kb = pout.key_blob()
         for bi, (_env, specs) in enumerate(handle["items"]):
             if not clean[bi]:
                 continue
             for li, t in enumerate(specs):
-                row = bi * L + li
+                row = bi * Lp + self._lane_idx(handle, bi, li)
                 touched: Dict[bytes, None] = {}
                 flags = pout.sflag[row]
                 for j in range(int(pout.scnt[row])):

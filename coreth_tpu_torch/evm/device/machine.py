@@ -31,7 +31,7 @@ Reference: core/vm/interpreter.go:121 (Run).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from coreth_tpu_torch import kernels
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.ops import u256, u256x
 from coreth_tpu_torch.ops.keccak import keccak256_blocks_plain
+from coreth_tpu_torch.parallel.mesh import MAX_SHARDS, collective_reduce_plain
 from coreth_tpu_torch.params import protocol as P
 
 # lane status
@@ -960,6 +961,39 @@ def _occ_sweep(res, tbl, sgid, sgc, premapped, seeds, active0, lane_ids,
     return t2, ok, pend2, seeds2, hosty & active0
 
 
+def _check_window(what: str, p: MachineParams, occ: OccParams,
+                  table: torch.Tensor, key_tab: torch.Tensor,
+                  blocks_in: dict, n: int = 1) -> torch.device:
+    """Raise ValueError unless the window's tensors have K6's shapes
+    (K9's with ``n`` shards: lanes ``n * batch``, tables ``n * table_cap``
+    rows) and lie on one CPU or CUDA device; returns the device."""
+    from coreth_tpu_torch.evm.device import specialize as SP
+    dev = table.device
+    B, S, W, G = n * p.batch, p.scache_cap, occ.blocks, n * occ.table_cap
+    if table.shape != (G, LIMBS) or key_tab.shape != (G, LIMBS):
+        raise ValueError(f"{what}: tables {tuple(table.shape)}, "
+                         f"{tuple(key_tab.shape)} != ({G}, {LIMBS})")
+    shapes = {"code": (W, B, p.code_cap + 33), "jdest": (W, B, p.code_cap),
+              "calldata": (W, B, p.data_cap), "sgid": (W, B, S),
+              "active": (W, B), "timestamp": (W,),
+              "chainid_w": (LIMBS,), "coinbase_w": (W, LIMBS),
+              "prog_id": (W, B), "kdig": (W, B, SP.KDIG_CAP, LIMBS)}
+    for k in _EXEC_KEYS + ("active", "sgid", "prog_id", "kdig",
+                           "chainid_w"):
+        t = blocks_in[k]
+        if t.device != dev or t.dtype not in (torch.int32, torch.bool):
+            raise ValueError(f"{what}: {k} must be int32 on {dev}")
+        if k in shapes and tuple(t.shape) != shapes[k]:
+            raise ValueError(f"{what}: {k} {tuple(t.shape)} != "
+                             f"{shapes[k]}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if dev.type == "cuda" and S * LIMBS * 4 > 48 * 1024:
+        raise ValueError(f"{what}: scache_cap {S} exceeds the sweep's "
+                         "shared-memory row buffer")
+    return dev
+
+
 def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
                    key_tab: torch.Tensor, blocks_in: dict,
                    spec: tuple = ()) -> dict:
@@ -972,31 +1006,9 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
     index ``spec`` or be -1 (else the plain version raises and the
     kernel traps, which fails the launch)."""
     from coreth_tpu_torch.evm.device import specialize as SP
-    dev = table.device
-    B, S, W, G = p.batch, p.scache_cap, occ.blocks, occ.table_cap
-    if table.shape != (G, LIMBS) or key_tab.shape != (G, LIMBS):
-        raise ValueError(f"run_occ_window: tables {tuple(table.shape)}, "
-                         f"{tuple(key_tab.shape)} != ({G}, {LIMBS})")
-    shapes = {"code": (W, B, p.code_cap + 33), "jdest": (W, B, p.code_cap),
-              "calldata": (W, B, p.data_cap), "sgid": (W, B, S),
-              "active": (W, B), "timestamp": (W,),
-              "chainid_w": (LIMBS,), "coinbase_w": (W, LIMBS),
-              "prog_id": (W, B), "kdig": (W, B, SP.KDIG_CAP, LIMBS)}
-    for k in _EXEC_KEYS + ("active", "sgid", "prog_id", "kdig",
-                           "chainid_w"):
-        t = blocks_in[k]
-        if t.device != dev or t.dtype not in (torch.int32, torch.bool):
-            raise ValueError(f"run_occ_window: {k} must be int32 on {dev}")
-        if k in shapes and tuple(t.shape) != shapes[k]:
-            raise ValueError(f"run_occ_window: {k} {tuple(t.shape)} != "
-                             f"{shapes[k]}")
+    dev = _check_window("run_occ_window", p, occ, table, key_tab, blocks_in)
     if dev.type == "cpu":
         return occ_run_plain(p, occ, table, key_tab, blocks_in, spec)
-    if dev.type != "cuda":
-        raise ValueError(f"run_occ_window: unsupported device {dev}")
-    if S * LIMBS * 4 > 48 * 1024:
-        raise ValueError(f"run_occ_window: scache_cap {S} exceeds the "
-                         "sweep's shared-memory row buffer")
     global OCC_LAUNCHES, SPEC_LAUNCHES
     if spec:
         lib = SP.occ_library(spec)
@@ -1012,13 +1024,17 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
 
 
 def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
-                    key_tab: torch.Tensor, blocks_in: dict):
+                    key_tab: torch.Tensor, blocks_in: dict, n: int = 1):
     """``occ_window_launch``'s arguments but the stream (arrays on the
     inputs' device; ``pointers`` gives the launch's addresses) and its
     outputs {"table", "packed", "steps"}: the wrapper allocates the
-    outputs and every scratch buffer, the kernel nothing."""
+    outputs and every scratch buffer, the kernel nothing.  With ``n``
+    shards (K9) the lane tensors are ``n * batch`` wide, the tables
+    ``n * table_cap`` rows, and every scratch buffer holds one slice per
+    shard."""
     dev = table.device
     B, S, W, G = p.batch, p.scache_cap, occ.blocks, occ.table_cap
+    NB = n * B
     lane = [blocks_in[k].to(torch.int32).contiguous()
             for k in _OCC_LANE_INPUTS]
     env = torch.stack([blocks_in["coinbase_w"],
@@ -1034,21 +1050,22 @@ def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
     TC = p.tcache_cap
     out_table = table.to(torch.int32).clone()
     key_tab = key_tab.to(torch.int32).contiguous()
-    packed = torch.empty((W, B, p.width + 4), dtype=torch.int32, device=dev)
-    steps = torch.empty((W, B), dtype=torch.int32, device=dev)
+    packed = torch.empty((W, NB, p.width + 4), dtype=torch.int32,
+                         device=dev)
+    steps = torch.empty((W, NB), dtype=torch.int32, device=dev)
     arena = torch.empty(
-        (B, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32),
+        (NB, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32),
         dtype=torch.uint8, device=dev)
     # scratch: the lanes' storage-cache inputs (keys, seeds, flags, key
     # counts), the pending mask, and the sweep's per-row overlay
     # (values + the stamp of the sweep that wrote them)
     i32 = dict(dtype=torch.int32, device=dev)
-    skey0 = torch.empty((B, S, LIMBS), **i32)
-    seeds = torch.empty((B, S, LIMBS), **i32)
-    lanes_i = torch.empty((4, B), **i32)        # nkeys, pending, ok, esc
-    sflag0 = torch.empty((B, S), **i32)
-    ov = torch.empty((G, LIMBS), **i32)
-    stamp = torch.zeros((G,), **i32)
+    skey0 = torch.empty((NB, S, LIMBS), **i32)
+    seeds = torch.empty((NB, S, LIMBS), **i32)
+    lanes_i = torch.empty((n, 4, B), **i32)     # nkeys, pending, ok, esc
+    sflag0 = torch.empty((NB, S), **i32)
+    ov = torch.empty((n * G, LIMBS), **i32)
+    stamp = torch.zeros((n * G,), **i32)
     dims = np.array([B, p.stack_cap, p.mem_cap, p.code_cap, p.data_cap, S,
                      TC, p.log_cap, p.log_data_cap, p.keccak_cap,
                      p.copy_cap, p.max_steps, int(p.refunds), 0, 0, 0,
@@ -1070,3 +1087,204 @@ _OCC_LANE_INPUTS = ("code", "jdest", "code_len", "calldata", "data_len",
                     "start_gas", "active", "sgid", "prog_id", "kdig",
                     "callvalue", "caller_w", "address_w", "origin_w",
                     "gasprice_w")
+
+
+# ------------------------------------------------------------------ K9
+# The fused OCC window per shard of a mesh engine (reference
+# evm/device/shard.py:151 build_sharded_occ_machine).  A sharded window's
+# lane tensors are n * batch wide (shard d's lanes at [d*B, (d+1)*B) of
+# every block row) and its tables n * table_cap rows (shard d's arena at
+# [d*G, (d+1)*G)); the per-block leaves and chainid_w are shared.  K9x
+# (:267 get_shard_exchange) reduces the shards' per-block flags.
+
+OCC_SHARDED_LAUNCHES = 0
+SHARD_FLAGS_LAUNCHES = 0
+
+
+def _shard_in(blocks_in: dict, d: int, B: int, w=None) -> dict:
+    """Shard d's window inputs (lanes [d*B, (d+1)*B)); with ``w`` only
+    block w (a window of one block)."""
+    out = {}
+    for k, v in blocks_in.items():
+        if k in _OCC_LANE_INPUTS:
+            v = v[:, d * B:(d + 1) * B]
+        if w is not None and k != "chainid_w":
+            v = v[w:w + 1]
+        out[k] = v
+    return out
+
+
+def occ_sharded_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
+                      key_tab: torch.Tensor, blocks_in: dict,
+                      spec: tuple = (), n: int = 1,
+                      sync_rows: Optional[torch.Tensor] = None,
+                      mode: str = "psum") -> dict:
+    """The plain version of K9: ``occ_run_plain`` per shard over its
+    lanes and arena (``p.batch`` and ``occ.table_cap`` are per-shard).
+
+    ``sync_rows`` (X, n + 1) int32 with X > 0 is the key-range variant
+    (reference ``run_kr``, shard.py:197-236): row j names key j's local
+    row on each shard (``table_cap``: none there) and, last, its owner
+    shard.  The window first gives every copy the owner's value; then
+    the blocks run one at a time, and after each one a shard whose block
+    changed a copy offers d + 1, the largest offer wins (a max-reduce),
+    and the winner's value goes to every copy (an add-reduce); with no
+    offer a row keeps its value.  Both reduces take ``mode``'s order
+    (``collective_reduce_plain``).  Returns {"table": (n * G, 16),
+    "packed": (W, n * B, width + 4), "steps": (W, n * B)}."""
+    B, G, W = p.batch, occ.table_cap, occ.blocks
+    tabs = [table[d * G:(d + 1) * G] for d in range(n)]
+    keys = [key_tab[d * G:(d + 1) * G] for d in range(n)]
+    if sync_rows is None or sync_rows.shape[0] == 0:
+        outs = [occ_run_plain(p, occ, tabs[d], keys[d],
+                              _shard_in(blocks_in, d, B), spec)
+                for d in range(n)]
+        return dict(table=torch.cat([o["table"] for o in outs]),
+                    packed=torch.cat([o["packed"] for o in outs], dim=1),
+                    steps=torch.cat([o["steps"] for o in outs], dim=1))
+    occ1 = OccParams(blocks=1, table_cap=G, rounds=occ.rounds)
+    rows = sync_rows.long()
+    own = rows[:, n]
+    has = [rows[:, d] < G for d in range(n)]
+    idx = [rows[:, d].clamp(0, G - 1) for d in range(n)]
+
+    def read(d):
+        return torch.where(has[d][:, None], tabs[d][idx[d]], 0)
+
+    def write(d, v):
+        t = tabs[d].clone()
+        t[idx[d][has[d]]] = v[has[d]]
+        tabs[d] = t
+
+    cur0 = [read(d) for d in range(n)]
+    val0 = collective_reduce_plain(torch.stack(
+        [torch.where((own == d)[:, None], cur0[d], 0) for d in range(n)]),
+        mode, "add")
+    for d in range(n):
+        write(d, val0[d])
+    packed, steps = [], []
+    for w in range(W):
+        pre = [read(d) for d in range(n)]
+        outs = [occ_run_plain(p, occ1, tabs[d], keys[d],
+                              _shard_in(blocks_in, d, B, w), spec)
+                for d in range(n)]
+        tabs = [o["table"] for o in outs]
+        cur = [read(d) for d in range(n)]
+        changed = [has[d] & (cur[d] != pre[d]).any(dim=1) for d in range(n)]
+        cand = torch.stack([torch.where(changed[d], d + 1, 0).to(
+            torch.int32) for d in range(n)])
+        win = collective_reduce_plain(cand, mode, "max")
+        val = collective_reduce_plain(torch.stack(
+            [torch.where((changed[d] & (cand[d] == win[d]))[:, None],
+                         cur[d], 0) for d in range(n)]), mode, "add")
+        for d in range(n):
+            write(d, torch.where((win[d] > 0)[:, None], val[d], cur[d]))
+        packed.append(torch.cat([o["packed"][0] for o in outs]))
+        steps.append(torch.cat([o["steps"][0] for o in outs]))
+    return dict(table=torch.cat(tabs), packed=torch.stack(packed),
+                steps=torch.stack(steps))
+
+
+def shard_flags_plain(packed: torch.Tensor, active: torch.Tensor, n: int,
+                      mode: str = "psum") -> torch.Tensor:
+    """The plain version of K9x: per block, the shards whose active lanes
+    all committed and the shards with an active lane that escaped or is
+    still pending (columns -4, -3 and -2 of the packed rows), summed
+    over the shards in ``mode``'s order: (W, 2) int32."""
+    W, NB, _ = packed.shape
+    B = NB // n
+    act = active.bool()
+    com = packed[:, :, -4] != 0
+    esc = (packed[:, :, -3] != 0) | (packed[:, :, -2] != 0)
+    clean = (~act | com).view(W, n, B).all(dim=2)
+    dirty = (act & esc).view(W, n, B).any(dim=2)
+    flags = torch.stack([clean.to(torch.int32), dirty.to(torch.int32)],
+                        dim=2)                                  # (W, n, 2)
+    return collective_reduce_plain(flags.transpose(0, 1).contiguous(),
+                                   mode, "add")[0]
+
+
+def _check_mesh(what: str, n: int, mode: str) -> None:
+    if not isinstance(n, int) or n < 1 or n & (n - 1) or n > MAX_SHARDS:
+        raise ValueError(f"{what}: {n!r} shards; the width must be a power "
+                         f"of two in [1, {MAX_SHARDS}]")
+    if mode not in ("psum", "ppermute"):
+        raise ValueError(f"{what}: unknown mode {mode!r}")
+
+
+def run_occ_sharded(p: MachineParams, occ: OccParams, table: torch.Tensor,
+                    key_tab: torch.Tensor, blocks_in: dict,
+                    spec: tuple = (), n: int = 1,
+                    sync_rows: Optional[torch.Tensor] = None,
+                    mode: str = "psum") -> dict:
+    """K9: one sharded window.  CUDA inputs launch ``occ_sharded_launch``
+    of ``csrc/occ_window.cu`` (one cluster of n CTAs, asynchronous on the
+    current stream) from the generic library or, for a program set, its
+    specialised variant (K7 inside, built at its first use); CPU inputs
+    run ``occ_sharded_plain``.  Same arguments and result; a cluster
+    that does not fit on the card raises.  The kernel sums the shards in
+    shard order whatever ``mode``: integer adds and maxes, so on one card
+    the mode's order cannot be observed."""
+    from coreth_tpu_torch.evm.device import specialize as SP
+    _check_mesh("run_occ_sharded", n, mode)
+    dev = _check_window("run_occ_sharded", p, occ, table, key_tab,
+                        blocks_in, n)
+    X = 0 if sync_rows is None else sync_rows.shape[0]
+    if X and (sync_rows.shape != (X, n + 1) or sync_rows.device != dev):
+        raise ValueError(f"run_occ_sharded: sync_rows "
+                         f"{tuple(sync_rows.shape)} on {sync_rows.device} "
+                         f"!= (X, {n + 1}) on {dev}")
+    if dev.type == "cpu":
+        return occ_sharded_plain(p, occ, table, key_tab, blocks_in, spec, n,
+                                 sync_rows, mode)
+    global OCC_SHARDED_LAUNCHES
+    lib = SP.occ_library(spec) if spec else kernels.load("occ_window")
+    args, out = occ_launch_args(p, occ, table, key_tab, blocks_in, n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = (sync_rows.to(torch.int32).contiguous() if X
+            else torch.zeros((1, n + 1), **i32))
+    pre = torch.empty((n, max(X, 1), LIMBS), **i32)
+    xc = torch.empty((2, n, max(X, 1)), **i32)
+    xv = torch.empty((2, n, max(X, 1), LIMBS), **i32)
+    rc = lib.occ_sharded_launch(
+        n, X, rows.data_ptr(), pre.data_ptr(),
+        xc.data_ptr(), xv.data_ptr(), *pointers(args),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc == -1:
+        raise RuntimeError(f"occ_sharded: no cluster of {n} CTAs fits on "
+                           "this card")
+    kernels.check(rc, "occ_sharded")
+    OCC_SHARDED_LAUNCHES += 1
+    return out
+
+
+def shard_flags(packed: torch.Tensor, active: torch.Tensor, n: int,
+                mode: str = "psum") -> torch.Tensor:
+    """K9x: ``shard_flags_launch`` of ``csrc/occ_window.cu`` on CUDA
+    tensors (asynchronous on the current stream, behind K9), the plain
+    version on CPU ones.  packed (W, n * B, width + 4), active (W, n * B)
+    int32; returns (W, 2) int32.  ``mode`` picks the plain version's
+    order only (as for K9)."""
+    _check_mesh("shard_flags", n, mode)
+    W, NB, PW = packed.shape
+    if NB % n or tuple(active.shape) != (W, NB) \
+            or active.device != packed.device:
+        raise ValueError(f"shard_flags: packed {tuple(packed.shape)}, "
+                         f"active {tuple(active.shape)}, {n} shards")
+    dev = packed.device
+    if dev.type == "cpu":
+        return shard_flags_plain(packed, active, n, mode)
+    if dev.type != "cuda":
+        raise ValueError(f"shard_flags: unsupported device {dev}")
+    global SHARD_FLAGS_LAUNCHES
+    lib = kernels.load("occ_window")
+    packed = packed.to(torch.int32).contiguous()
+    active = active.to(torch.int32).contiguous()
+    flags = torch.empty((W, 2), dtype=torch.int32, device=dev)
+    rc = lib.shard_flags_launch(
+        packed.data_ptr(), active.data_ptr(), W, NB, NB // n, PW,
+        flags.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(rc, "shard_flags")
+    SHARD_FLAGS_LAUNCHES += 1
+    return flags

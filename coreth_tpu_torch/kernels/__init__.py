@@ -178,6 +178,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "occ_window" or name.startswith("occ_window_spec_"):
         lib.occ_window_launch.argtypes = [P] * 31
         lib.occ_window_launch.restype = I
+        # K9 (n, X, rows, pre, xc, xv, K6's 30, stream) and K9x
+        lib.occ_sharded_launch.argtypes = [I, I] + [P] * 35
+        lib.occ_sharded_launch.restype = I
+        lib.shard_flags_launch.argtypes = [P, P, I, I, I, I, P, P]
+        lib.shard_flags_launch.restype = I
 
 
 def load(name: str, source: Optional[str] = None) -> ctypes.CDLL:

@@ -109,6 +109,9 @@ class ReplayStats:
     n_shards: int = 1
     exchange_psum: int = 0
     exchange_ppermute: int = 0
+    # max/mean lanes per shard of the sharded machine windows (1.0 flat,
+    # n_shards all on one shard); 0.0 until such a window ran
+    load_imbalance: float = 0.0
 
     def row(self) -> dict:
         return dict(self.__dict__)
@@ -648,13 +651,19 @@ class ReplayEngine:
     window kernel (K8, ``replay/shard.py``) over shard-major tables, and
     device sender recovery on the sharded ladder (K8r).  ``capacity``,
     ``slot_capacity`` and ``batch_pad`` must divide by n.  Machine
-    blocks keep the single-chip window runner over the sharded tables
-    (the reference's ``CORETH_SHARD_OCC=0``).  ``exchange`` ("psum" or
-    "ppermute", the reference's ``CORETH_EXCHANGE``) forces the
-    exchange's collective; None picks it per window by the touched
-    set's density.  ``shard_recover`` (``CORETH_SHARD_RECOVER``) sends
-    every sender segment to the sharded ladder, however small, on any
-    device."""
+    windows run per shard in one cluster launch (K9, the reference's
+    default ``CORETH_SHARD_OCC=1``, ``evm/device/shard.py``) with the
+    flags reduce K9x behind each; ``shard_occ=False`` keeps the
+    single-chip window runner over the sharded tables instead
+    (``CORETH_SHARD_OCC=0``).  ``exchange`` ("psum" or "ppermute", the
+    reference's ``CORETH_EXCHANGE``) forces the exchanges' collective;
+    None picks it per window by density (``exchange_density``,
+    ``CORETH_EXCHANGE_DENSITY``).  ``keyrange`` (``CORETH_KEYRANGE``)
+    lets a contract with ``keyrange_threshold`` lanes in one block
+    (``CORETH_KEYRANGE_THRESHOLD``) place its keys by key range, with
+    the replica sync inside K9.  ``shard_recover``
+    (``CORETH_SHARD_RECOVER``) sends every sender segment to the
+    sharded ladder, however small, on any device."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -667,10 +676,16 @@ class ReplayEngine:
                  slot_capacity: Optional[int] = None, device=None,
                  device_occ: bool = True, specialize: bool = True,
                  mesh=None, exchange: Optional[str] = None,
-                 shard_recover: bool = False):
+                 shard_recover: bool = False, shard_occ: bool = True,
+                 keyrange: bool = True, keyrange_threshold: int = 16,
+                 exchange_density: float = 0.25):
         self.device = default_device(device)
         self.device_occ = device_occ
         self.specialize = specialize
+        self.shard_occ = shard_occ
+        self.keyrange = keyrange
+        self.keyrange_threshold = keyrange_threshold
+        self.exchange_density = exchange_density
         self.config = config
         self.store = state
         self.trie = self.store.trie
@@ -980,7 +995,8 @@ class ReplayEngine:
         n = self.n_shards
         mode = exchange_mode(acct_rows.shape[0] + slot_rows.shape[0],
                              st.capacity + st.slot_capacity, n,
-                             forced=self.exchange)
+                             forced=self.exchange,
+                             density=self.exchange_density)
         perm = interleave_txs(txds.shape[1], n)
         ups = [_upload(a, self.device) for a in
                (acct_rows, slot_rows, txds[:, perm], t_idxs, s_idxs)]

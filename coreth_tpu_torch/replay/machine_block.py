@@ -15,7 +15,11 @@ Two execution paths, chosen by the engine's ``device_occ``:
   the cross-block state fold stay on the device, against a slot table
   that lives there.  The next window is launched before the
   previous one's tries fold.  A block the kernel marks dirty (a lane
-  that escaped) goes to ``execute`` and ends the run.
+  that escaped) goes to ``execute`` and ends the run.  On a mesh engine
+  the windows run per shard (``evm/device/shard.ShardedWindowRunner``,
+  K9 and its flags reduce K9x; ``shard_occ=False`` keeps the single-card
+  runner), and a window whose flags say clean lets the next one launch
+  before its packed rows are fetched.
 - ``execute`` (``device_occ=False``, the reference's
   ``CORETH_DEVICE_OCC=0``, and the dirty-block route): one block at a
   time on K5 —
@@ -76,8 +80,11 @@ _PREMAP_COUNTERS = ("premap_predicted", "premap_hits", "premap_nested",
                     "premap_array", "discovery_dispatches",
                     "lanes_specialized", "specialize_escapes",
                     "programs_traced")
-_RUNNER_COUNTERS = _PREMAP_COUNTERS + ("launches", "steps", "t_pack",
-                                       "t_machine", "t_unpack")
+# the sharded runner's placement and exchange counters (0 on one card)
+_SHARD_COUNTERS = ("kr_lanes", "cross_shard", "exchange_psum",
+                   "exchange_ppermute", "load_imb_sum", "load_imb_windows")
+_RUNNER_COUNTERS = _PREMAP_COUNTERS + _SHARD_COUNTERS + (
+    "launches", "steps", "t_pack", "t_machine", "t_unpack")
 
 
 @dataclass
@@ -144,7 +151,7 @@ class MachineBlockExecutor:
                     t_suffix=self.t_suffix, windows=self.windows,
                     window_attempts=self.window_attempts,
                     dirty_blocks=self.dirty_blocks,
-                    **{k: w[k] for k in _PREMAP_COUNTERS})
+                    **{k: w[k] for k in _PREMAP_COUNTERS + _SHARD_COUNTERS})
 
     # ------------------------------------------------------------ classify
     def classify(self, block: Block) -> Optional[List[TxPlan]]:
@@ -509,14 +516,29 @@ class MachineBlockExecutor:
     # ------------------------------------------------- fused OCC windows
     def _window_runner(self) -> MachineWindowRunner:
         """The persistent fused-OCC runner, rebuilt when the fork
-        changes (its counters carry over)."""
+        changes (its counters carry over).  On a mesh engine with
+        ``shard_occ`` (the reference's ``CORETH_SHARD_OCC=1``) it is the
+        sharded runner (``evm/device/shard.py``: per-shard arenas and OCC
+        in one cluster launch, K9, with the flags reduce K9x); without
+        it, the single-card runner over the sharded tables."""
+        e = self.e
         if self._runner is None or self._runner_fork != self._fork:
             if self._runner is not None:
                 for k in self._runner_totals:
                     self._runner_totals[k] += getattr(self._runner, k)
-            self._runner = MachineWindowRunner(
-                self._fork, self._base_value, device=self.e.device,
-                specialize=self.e.specialize)
+            if e.mesh is not None and e.shard_occ:
+                from coreth_tpu_torch.evm.device.shard import (
+                    ShardedWindowRunner)
+                self._runner = ShardedWindowRunner(
+                    self._fork, self._base_value, e.mesh, device=e.device,
+                    specialize=e.specialize, exchange=e.exchange,
+                    keyrange=e.keyrange,
+                    keyrange_threshold=e.keyrange_threshold,
+                    exchange_density=e.exchange_density)
+            else:
+                self._runner = MachineWindowRunner(
+                    self._fork, self._base_value, device=e.device,
+                    specialize=e.specialize)
             self._runner.seed_window_hint(self.WINDOW)
             self._runner_fork = self._fork
         return self._runner
@@ -577,11 +599,37 @@ class MachineBlockExecutor:
         e = self.e
         consumed = 0
         for ci, chunk in enumerate(chunks):
+            # the sharded runner: fetch the window's flags (K9x) first; if
+            # every shard committed clean and the next window needs no
+            # table rebuild, launch it BEFORE this window's packed rows
+            # are fetched (the mirror still learns this window's writes
+            # below before any later rebuild)
+            early = next_items = None
+            if ci + 1 < len(chunks):
+                t0 = time.monotonic()
+                if runner.poll_clean(inflight):
+                    next_items = self._window_items(chunks[ci + 1])
+                    if runner.can_pipeline(next_items):
+                        early = runner.issue(next_items)
+                e.stats.t_device += time.monotonic() - t0
             t0 = time.monotonic()
             wres = runner.complete(inflight)
             e.stats.t_device += time.monotonic() - t0
             self.windows += 1
             self.window_attempts += wres.attempts
+            imb_w = (self._runner_totals["load_imb_windows"]
+                     + runner.load_imb_windows)
+            if imb_w:
+                # max/mean lanes per shard (permille), averaged over every
+                # sharded window this executor ran
+                e.stats.load_imbalance = round(
+                    (self._runner_totals["load_imb_sum"]
+                     + runner.load_imb_sum) / imb_w / 1000, 3)
+            if early is not None and not all(wres.clean):
+                # a clean flags reduce means clean packed rows; should they
+                # ever disagree, the device table is not to be trusted
+                runner.invalidate()
+                early = None
             # pipeline: launch the NEXT chunk before folding this one —
             # its base state is the device-resident table.  The runner's
             # host mirror must learn this chunk's writes first: if the
@@ -598,9 +646,14 @@ class MachineBlockExecutor:
                                 writes[(pl.to, key)] = v
                     runner.commit_block(writes)
                 pre_committed = True
-                t0 = time.monotonic()
-                inflight = runner.issue(self._window_items(chunks[ci + 1]))
-                e.stats.t_device += time.monotonic() - t0
+                if early is not None:
+                    inflight = early
+                else:
+                    if next_items is None:
+                        next_items = self._window_items(chunks[ci + 1])
+                    t0 = time.monotonic()
+                    inflight = runner.issue(next_items)
+                    e.stats.t_device += time.monotonic() - t0
             for k, (block, plans) in enumerate(chunk):
                 if wres.clean[k]:
                     call_idx = [i for i, pl in enumerate(plans)

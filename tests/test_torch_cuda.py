@@ -356,3 +356,98 @@ def test_spec_replay_on_the_card(cuda):
     assert mc["specialize_escapes"] == 0 and mc["programs_traced"] == 1
     assert M.SPEC_LAUNCHES - spec == M.OCC_LAUNCHES - occ \
         == mc["window_launches"] >= 1
+
+
+# K9's plain version per (n, sync, spec) on the CPU: it does not depend on
+# the mode (integer sums and maxes), and its many small steps run faster
+# there than on the card
+_SHARDED_PLAIN = {}
+
+
+def _sharded_case(cuda, n, sync, spec):
+    from coreth_tpu_torch.evm.device import machine as M
+    key = (n, sync, spec)
+    if key not in _SHARDED_PLAIN:
+        w = C.sharded_window(n, sync, seed=n,
+                             spec_codes=C.SPEC_CODES if spec else None)
+        want = M.occ_sharded_plain(w["p"], w["occ"], w["table"],
+                                   w["key_tab"], w["inputs"], w["spec"], n,
+                                   w["sync_rows"])
+        _SHARDED_PLAIN[key] = (w, want)
+    w, want = _SHARDED_PLAIN[key]
+    dev = dict(w, table=w["table"].to(cuda), key_tab=w["key_tab"].to(cuda),
+               inputs={k: v.to(cuda) for k, v in w["inputs"].items()},
+               sync_rows=None if w["sync_rows"] is None
+               else w["sync_rows"].to(cuda))
+    return dev, want
+
+
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("sync", [False, True])
+@pytest.mark.parametrize("mode", ["psum", "ppermute"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_occ_sharded_kernel_matches_plain(cuda, n, mode, sync, spec):
+    """K9 (one cluster of n CTAs) against its plain version on n window
+    cases side by side, with and without the key-range sync set, on the
+    generic library and on the shared program set's variant."""
+    from coreth_tpu_torch.evm.device import machine as M
+    w, want = _sharded_case(cuda, n, sync, spec)
+    assert bool(w["spec"]) == spec
+    launches = M.OCC_SHARDED_LAUNCHES
+    got = M.run_occ_sharded(w["p"], w["occ"], w["table"], w["key_tab"],
+                            w["inputs"], w["spec"], n, w["sync_rows"], mode)
+    assert M.OCC_SHARDED_LAUNCHES == launches + 1
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.parametrize("mode", ["psum", "ppermute"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_shard_flags_kernel_matches_plain(cuda, n, mode):
+    """K9x against its plain version on a K9 window's rows, and on random
+    flag columns (escapes and pending lanes, inactive lanes)."""
+    from coreth_tpu_torch.evm.device import machine as M
+    w, want = _sharded_case(cuda, n, True, False)
+    rng = np.random.default_rng(n)
+    packed = torch.from_numpy(rng.integers(
+        0, 2, (6, n * 16, 9)).astype(np.int32)).to(cuda)
+    active = torch.from_numpy(rng.integers(
+        0, 2, (6, n * 16)).astype(np.int32)).to(cuda)
+    for pk, act in ((want["packed"].to(cuda), w["inputs"]["active"]),
+                    (packed, active)):
+        launches = M.SHARD_FLAGS_LAUNCHES
+        got = M.shard_flags(pk, act, n, mode)
+        assert M.SHARD_FLAGS_LAUNCHES == launches + 1
+        assert torch.equal(got.cpu(), M.shard_flags_plain(
+            pk.cpu(), act.cpu(), n, mode))
+
+
+def test_hot_contract_replay_on_a_4_shard_engine(cuda):
+    """The single-hot-contract chain on a 4-shard engine: the token goes
+    hot, every machine window runs on K9 with K9x behind it, the
+    single-chip K6/K7 never; the root equals the header."""
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    from coreth_tpu_torch.workloads.hot_contract import build_hot_chain
+    genesis, blocks = build_hot_chain(CFG, 16, 32, n_keys=64)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(CFG, store, parent_header=gb.header, batch_pad=32,
+                       capacity=1024, window=16, device=cuda,
+                       mesh=make_mesh(4))
+    k6, k9, k9x = M.OCC_LAUNCHES, M.OCC_SHARDED_LAUNCHES, \
+        M.SHARD_FLAGS_LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root
+    mc = eng.machine_counters()
+    assert mc["blocks"] == 16 and mc["dirty_blocks"] == 0
+    assert mc["kr_lanes"] > 0 and eng.stats.load_imbalance > 0
+    assert M.OCC_SHARDED_LAUNCHES - k9 == mc["window_launches"] \
+        >= mc["windows"] >= 1
+    assert M.SHARD_FLAGS_LAUNCHES - k9x == mc["window_launches"]
+    assert M.OCC_LAUNCHES == k6

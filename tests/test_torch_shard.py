@@ -512,8 +512,10 @@ def test_erc20_blocks_on_a_mesh_engine_match_reference(monkeypatch):
                     for k in range(4)]
         return _erc20_txs(i, 8)
     rgen, pgen, rblocks = _chains(4, txs_of)
-    ref, port = _replay_both(rgen, pgen, rblocks, 2, specialize=False)
+    ref, port = _replay_both(rgen, pgen, rblocks, 2, specialize=False,
+                             shard_occ=False)
     assert not ref._machine._runner.__class__.__name__.startswith("Sharded")
+    assert type(port._machine._runner) is tadapter.MachineWindowRunner
     assert _counters(port, False) == _counters(ref, True)
     assert port._machine.blocks == 3
     assert port.stats.blocks_device == ref.stats.blocks_device == 4

@@ -431,3 +431,62 @@ def env(BlockEnv):
     return BlockEnv(coinbase=COINBASE, timestamp=TIME, number=NUMBER,
                     gas_limit=GAS_LIMIT, chain_id=CHAIN_ID,
                     base_fee=BASE_FEE)
+
+
+def sharded_window(n: int, sync: bool, seed: int = 0, spec_codes=None,
+                   device="cpu") -> dict:
+    """A sharded window of K9's layout: shard d runs window case
+    ``sorted(WINDOW_CASES)[d % 6]`` on its lanes and its arena (every
+    case packs to ``WINDOW_SHAPE``, ``WINDOW_BLOCKS`` blocks and a
+    64-row table, and their blocks' inputs agree where they have lanes).  With ``sync`` a
+    key-range sync set of 64 rows: each shard's first (up to) three
+    table rows its lanes use have copies at spare rows (63 - j) of some
+    other shards, seeded with random values, the owner drawn among the
+    copies; padding rows name no copy.  Only the using shard's lanes
+    touch a key, so a block has at most one writer per key.  Returns
+    {p, occ, table, key_tab, inputs, spec, n, sync_rows}."""
+    import numpy as np
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    names = sorted(WINDOW_CASES)
+    pks = [pack_window(names[d % len(names)], spec_codes=spec_codes)
+           for d in range(n)]
+    p, occ, spec = pks[0]["p"], pks[0]["occ"], pks[0]["spec"]
+    G = occ.table_cap
+    # block inputs: those of the longest case (a block where a case has
+    # no lane reads none of them)
+    longest = max(pks, key=lambda pk: int(pk["inputs"]["active"].any(
+        dim=1).sum()))
+    inputs = {}
+    for k, v in longest["inputs"].items():
+        if k in M._OCC_LANE_INPUTS:
+            inputs[k] = torch.cat([pk["inputs"][k] for pk in pks], dim=1)
+        else:
+            for pk in pks:
+                live = pk["inputs"]["active"].any(dim=1)
+                if k != "chainid_w":
+                    assert torch.equal(pk["inputs"][k][live], v[live]), k
+            inputs[k] = v
+    assert all(pk["spec"] == spec and pk["p"] == p for pk in pks)
+    table = torch.cat([pk["table"] for pk in pks])
+    key_tab = torch.cat([pk["key_tab"] for pk in pks])
+    rows = None
+    if sync:
+        rng = np.random.default_rng(seed)
+        rows = np.full((64, n + 1), G, dtype=np.int32)
+        j = 0
+        for u in range(n):
+            sg = pks[u]["inputs"]["sgid"]
+            for r in sg[sg < G].unique().tolist()[:3]:
+                rows[j, u] = r
+                for s in range(n):
+                    if s != u and (j + s) % 3 != 0:
+                        rows[j, s] = 63 - j
+                        table[s * G + 63 - j] = torch.from_numpy(
+                            rng.integers(0, 1 << 16, 16).astype(np.int32))
+                rows[j, n] = rng.choice(np.flatnonzero(rows[j, :n] < G))
+                j += 1
+        rows = torch.from_numpy(rows).to(device)
+    return dict(p=p, occ=occ, spec=spec, n=n, sync_rows=rows,
+                table=table.to(device), key_tab=key_tab.to(device),
+                inputs={k: v.to(device) for k, v in inputs.items()})
