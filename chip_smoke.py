@@ -42,7 +42,9 @@ Phases, each printing one JSON line:
 9. machine — the benchmark's ERC-20 shape (1024 keys, 256 txs/block, every
    third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
    cut from 256 to 128 blocks because the chain is built with pure-Python
-   signing within the script's run-time budget, replayed through
+   signing within the script's run-time budget; its first 64 blocks
+   (``MACHINE_BLOCKS``: the per-block path is the script's slowest replay)
+   replayed through
    ``ReplayEngine(device="cuda", device_occ=False)`` (per-block OCC on the
    step machine): every block on the machine path, OCC rounds > 0, the
    final root equal to the last header's, and the step machine's launch
@@ -99,6 +101,19 @@ the one card):
    ``ReplayEngine(mesh=make_mesh(n))``: root equal to the header, every
    block on the device, K8 and K8r launched and K1 not; txs/s, the
    ``ReplayStats`` and the real txs per shard per block;
+12a. token — the ERC-20 chain of phase machine through the token fast
+   path (the reference's default for ``transfer()`` calls: classified on
+   the host with exact gas and the Transfer log, the slot arithmetic on
+   the window kernels' slot half), ``slot_capacity`` 1 << 14, on one
+   shard (K1) and at n = 4 (K8): root equal, every block on the window
+   path, K5, K6, K7 and K9 never launched; txs/s beside phase window's;
+12a'. k8s  — the per-block sharded steps (K8s, ``parallel/mesh.py``
+   ``sharded_transfer_step`` / ``sharded_slot_step``, one cluster launch
+   each) against their plain versions on random inputs at A = S = 16384,
+   B = 512, n = 2, 4, 8 (tolerance 0), then on the path: the counters
+   zeroed, one call of each at n = 4 fed by the chain's first block as
+   the token-path engine classifies it, the counters read, the results
+   equal to the single-chip plain steps; ms, plain ms, bound;
 12b. k9    — the sharded OCC window (one cluster launch of n CTAs) against
    its plain version on phase k6's window (a) packed by sharded runners at
    n = 2, 4 and 8, with key-range placement off (the token on its
@@ -122,6 +137,12 @@ the one card):
    one shard and at n = 2 and 4: root equal, every block on the machine
    path with no dirty block; txs/s, ``load_imbalance``, ``kr_lanes``,
    ``cross_shard`` and the exchange counts.
+
+Phases machine, window, spec, shard_erc20 and hot measure the machine
+path, so their engines take ``token_fastpath=False`` (``bench.py``'s
+erc20-machine, specialisation and hot-contract sections set
+``CORETH_NO_TOKEN_FASTPATH=1``); their K5/K6/K7/K9 launch checks fail if
+a token block slipped onto the fast path.
 
 Then one JSON line with every kernel's numbers, the nvidia-smi line, and
 last ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -675,12 +696,14 @@ def _zero_launches() -> None:
     from coreth_tpu_torch.ops import keccak as K
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.ops import u256x
+    from coreth_tpu_torch.parallel import mesh as PM
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.replay import shard as SH
     E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
     M.SPEC_LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
     SH.LAUNCHES = S.SHARD_LAUNCHES = 0
     M.OCC_SHARDED_LAUNCHES = M.SHARD_FLAGS_LAUNCHES = 0
+    PM.TRANSFER_STEP_LAUNCHES = PM.SLOT_STEP_LAUNCHES = 0
 
 
 def _read_launches() -> dict:
@@ -688,6 +711,7 @@ def _read_launches() -> dict:
     from coreth_tpu_torch.ops import keccak as K
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.ops import u256x
+    from coreth_tpu_torch.parallel import mesh as PM
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.replay import shard as SH
     return {"step_machine": M.LAUNCHES, "occ_window": M.OCC_LAUNCHES,
@@ -697,7 +721,9 @@ def _read_launches() -> dict:
             "sharded_window": SH.LAUNCHES,
             "sharded_recover": S.SHARD_LAUNCHES,
             "occ_sharded": M.OCC_SHARDED_LAUNCHES,
-            "shard_flags": M.SHARD_FLAGS_LAUNCHES}
+            "shard_flags": M.SHARD_FLAGS_LAUNCHES,
+            "sharded_transfer_step": PM.TRANSFER_STEP_LAUNCHES,
+            "sharded_slot_step": PM.SLOT_STEP_LAUNCHES}
 
 
 def _timed_folds(pipe, on_first=None) -> list:
@@ -809,12 +835,17 @@ def _steady(folds, t0: float, txs: int) -> dict:
 
 
 def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
-                  specialize: bool = False, mesh=None, shard_occ=True):
+                  specialize: bool = False, mesh=None, shard_occ=True,
+                  token_fastpath: bool = False,
+                  slot_capacity: int = None):
     """Replay the ERC-20 chain from fresh decodes (no cached senders),
     the launch counters zeroed just before and read just after; returns
     the engine, the root, the replay's seconds, the launches and the
     steady-state split of ``_steady`` (on the window path with the host
-    spans of ``HostSpans``)."""
+    spans of ``HostSpans``).  The machine phases keep every token call
+    on the machine (``token_fastpath=False``, as ``bench.py``'s
+    erc20-machine sections set ``CORETH_NO_TOKEN_FASTPATH=1``); phase
+    token takes the fast path."""
     import torch
     from coreth_tpu_torch.evm.device import adapter as A
     from coreth_tpu_torch.replay import engine as E
@@ -826,7 +857,9 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
     eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
                          batch_pad=txs, window=16, device=dev,
                          device_occ=device_occ, specialize=specialize,
-                         mesh=mesh, shard_occ=shard_occ)
+                         mesh=mesh, shard_occ=shard_occ,
+                         token_fastpath=token_fastpath,
+                         slot_capacity=slot_capacity)
     A.RECIPES.clear()      # learned premaps start empty: discovery counts
     spans = HostSpans() if device_occ else None
     folds = _timed_folds(eng.commit_pipe, spans and spans.mark)
@@ -845,6 +878,11 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
     if spans is not None:
         steady["host_spans"] = spans.row()
     return eng, root, dt, launches, steady
+
+
+# blocks of the ERC-20 chain phase machine replays per block on K5 (the
+# window phases replay all 128)
+MACHINE_BLOCKS = 64
 
 
 def phase_machine(dev, smi, genesis, blocks, t_build: float, txs: int,
@@ -1221,6 +1259,7 @@ def phase_window(dev, smi, genesis, blocks, txs: int, specialize: bool,
           "root_matches_header": True, "launches": launches,
           "k6_launches_per_block": launches["occ_window"] / n_blocks,
           "machine": mc, "stats": eng.stats.row(), "card": smi})
+    steady["txs_per_s"] = round(n_blocks * txs / dt, 1)
     return launches, steady
 
 
@@ -1777,6 +1816,226 @@ def phase_shard_erc20(dev, smi, genesis, blocks, txs: int, shard_occ: bool,
     return launches, steady
 
 
+# ------------------------------------------------------ token fast path
+
+def phase_token(dev, smi, genesis, blocks, txs: int, window_txs_per_s):
+    """The ERC-20 chain through the token fast path (the reference's
+    default for ``transfer()`` calls): every block classified on the host
+    and replayed on the window kernels' slot half, on one shard (K1) and
+    at n = 4 (K8), ``slot_capacity`` 1 << 14.  Root equal to the header,
+    every block on the window path, the machine's kernels (K5, K6, K7,
+    K9) never launched.  Prints txs/s beside phase window's on the same
+    chain.  Returns {width: launches}."""
+    from coreth_tpu_torch.parallel import make_mesh
+    out = {}
+    for n in (1, HEADLINE_WIDTH):
+        eng, root, dt, launches, steady = _replay_erc20(
+            dev, genesis, blocks, txs, device_occ=True, specialize=True,
+            mesh=make_mesh(n) if n > 1 else None, token_fastpath=True,
+            slot_capacity=1 << 14)
+        if root != blocks[-1].header.root:
+            raise AssertionError(f"token n={n}: final root differs from the "
+                                 "header")
+        if eng.stats.blocks_device != len(blocks) \
+                or eng._machine is not None:
+            raise AssertionError(f"token n={n}: {eng.stats.blocks_device} of "
+                                 f"{len(blocks)} blocks on the window path")
+        window_kernel = "transfer_window" if n == 1 else "sharded_window"
+        machine = sum(launches[k] for k in (
+            "step_machine", "occ_window", "occ_window_spec", "occ_sharded"))
+        if launches[window_kernel] < 1 or machine:
+            raise AssertionError(f"token n={n}: launches {launches}")
+        emit({"phase": "token", "n_shards": n, "blocks": len(blocks),
+              "txs_per_block": txs, "replay_s": round(dt, 4),
+              "txs_per_s": round(len(blocks) * txs / dt, 1),
+              "window_phase_txs_per_s": window_txs_per_s, **steady,
+              "slots": len(eng.state.slot_keys) - 1,
+              "storage_epoch": eng.storage_epoch,
+              "root_matches_header": True, "launches": launches,
+              "stats": eng.stats.row(), "card": smi})
+        out[n] = launches
+    return out
+
+
+# ------------------------------------------------------------ K8s
+
+def k8s_bound(rows: int, B: int, slot: bool):
+    """(bound_ms, bound_by) of one K8s call: the table read and written
+    once, each tx column read once; ~120 int32 operations a tx (the
+    debit chain, the limb sums) and ~250 a row (three or two normalizes,
+    the compare, the add and subtract chains)."""
+    if slot:
+        n_bytes = 4 * (2 * rows * 16 + B * (2 + 16 + 1)) + 4
+    else:
+        n_bytes = 4 * (2 * rows * 17 + B * (2 + 3 * 16 + 3)) + 4
+    return bound(n_bytes, B * 120 + rows * 250)
+
+
+def k8s_inputs(rng, A: int, S: int, B: int):
+    """Random K8s inputs at the engine's table sizes: funded senders with
+    nonces in sequence, fresh recipients, a coinbase, one masked tx in
+    eight; token amounts between existing slots (slot 0 the dummy)."""
+    from coreth_tpu_torch.ops import u256
+    bal = u256.pack_np([int(v) << 80 for v in rng.integers(1, 1 << 60, A)])
+    nonces = rng.integers(0, 1000, A).astype(np.int32)
+    sender = rng.integers(0, A // 2, B).astype(np.int32)
+    recip = rng.integers(0, A, B).astype(np.int32)
+    value = [int(v) for v in rng.integers(0, 1 << 40, B)]
+    fee = [21000 * int(p) for p in rng.integers(1, 1 << 38, B)]
+    required = [21000 * (1 << 40) + v for v in value]
+    offsets = np.zeros(B, dtype=np.int32)
+    tx_nonce = np.zeros(B, dtype=np.int32)
+    seen = {}
+    for i, s in enumerate(sender):
+        offsets[i] = seen.get(int(s), 0)
+        tx_nonce[i] = nonces[s] + offsets[i]
+        seen[int(s)] = offsets[i] + 1
+    mask = (np.arange(B) % 8 != 7).astype(np.int32)
+    transfer = (bal, nonces, sender, recip, u256.pack_np(value),
+                u256.pack_np(fee), u256.pack_np(required), tx_nonce,
+                offsets, mask)
+    vals = u256.pack_np([int(v) << 60 for v in rng.integers(1, 1 << 60, S)])
+    slot = (vals, rng.integers(1, S, B).astype(np.int32),
+            rng.integers(1, S, B).astype(np.int32),
+            u256.pack_np([int(v) for v in rng.integers(0, 1 << 50, B)]),
+            mask)
+    return transfer, int(rng.integers(0, A)), slot
+
+
+def classified_step_inputs(dev, genesis, blocks, txs: int):
+    """K8s's inputs from a real block: the ERC-20 chain's first block
+    classified by a token-path engine on the card, in global rows over
+    the engine's tables (A = capacity, S = slot_capacity, B = the block's
+    txs)."""
+    import torch
+    from coreth_tpu_torch.ops import u256
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    block = Block.decode(blocks[0].encode())
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         batch_pad=txs, slot_capacity=1 << 14, device=dev)
+    eng.warm_senders(block)
+    batch = eng._classify(block)
+    eng.close()
+    if batch is None or not any(batch["amounts"]):
+        raise AssertionError("k8s: the chain's first block is not a token "
+                             "fast-path block")
+    st = eng.state
+    st.flush_staged()
+    rows = np.asarray(st.row_of, dtype=np.int32)
+    srows = np.asarray(st.slot_row_of, dtype=np.int32)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    B = len(block.transactions)
+    transfer = [st.balances, st.nonces] + [up(a) for a in (
+        rows[batch["senders"]], rows[batch["recips"]],
+        u256.pack_np(batch["values"]), u256.pack_np(batch["fees"]),
+        u256.pack_np(batch["required"]),
+        np.asarray(batch["nonces"], np.int32),
+        np.asarray(batch["offsets"], np.int32), np.ones(B, bool))]
+    slot = [st.slot_vals] + [up(a) for a in (
+        srows[batch["from_slots"]], srows[batch["to_slots"]],
+        u256.pack_np(batch["amounts"]), np.ones(B, bool))]
+    return transfer, int(rows[batch["coinbase"]]), slot
+
+
+def phase_k8s(dev, smi, genesis, blocks, txs: int, rng):
+    """K8s (the per-block sharded transfer and slot steps, one cluster of
+    n CTAs each) against their plain versions on random inputs at A = S
+    = 16384 (the capacity and slot_capacity floor of bench.py:570-575)
+    and B = 512 (the largest protocol-valid transfer block) at n = 2, 4
+    and 8, bit for bit; then the path: the launch counters zeroed, one
+    call of each at n = 4 through ``sharded_transfer_step(make_mesh(4),
+    A)`` / ``sharded_slot_step`` fed by a real classified block of the
+    ERC-20 chain, the counters read, the results equal to the
+    single-chip plain steps (``_transfer_step_plain``,
+    ``_slot_step_plain``).  ms at n = 4 on the random inputs (CUDA
+    events around the wrapper), plain ms, bound."""
+    import torch
+    from coreth_tpu_torch import parallel as P
+    from coreth_tpu_torch.replay import engine as E
+    A = S = 1 << 14
+    B = 512
+    t_np, coinbase, s_np = k8s_inputs(rng, A, S, B)
+    targs = [torch.from_numpy(a).to(dev) for a in t_np] + [coinbase]
+    sargs = [torch.from_numpy(a).to(dev) for a in s_np]
+    rows, errs = {}, {"transfer": 0, "slot": 0}
+    heads = {}
+    for n in SHARD_WIDTHS:
+        mesh = P.make_mesh(n)
+        for name, fn, plain, args in (
+                ("transfer", P.sharded_transfer_step(mesh, A),
+                 P.sharded_transfer_step_plain, targs),
+                ("slot", P.sharded_slot_step(mesh, S),
+                 P.sharded_slot_step_plain, sargs)):
+            got = fn(*args)
+            t0 = time.perf_counter()
+            want = plain(*args, n)
+            torch.cuda.synchronize()
+            plain_ms = 1000 * (time.perf_counter() - t0)
+            for g, w in zip(got, want):
+                if not torch.equal(g, w):
+                    bad = (g != w).nonzero()[:5].tolist()
+                    raise AssertionError(f"K8s {name} n={n}: differs from "
+                                         f"the plain version at {bad}")
+            if not bool(got[-1]):
+                raise AssertionError(f"K8s {name} n={n}: ok is False on "
+                                     "valid inputs")
+            errs[name] = max(errs[name], max_abs_err(got, want))
+            ms = cuda_ms(lambda: fn(*args))
+            rows[f"{name}_n{n}"] = {"ms": round(ms, 4),
+                                    "plain_ms": round(plain_ms, 2)}
+            if n == HEADLINE_WIDTH:
+                heads[name] = (ms, plain_ms)
+    # the path: a real classified block through the entry points at n = 4
+    tr, cb, sl = classified_step_inputs(dev, genesis, blocks, txs)
+    mesh = P.make_mesh(HEADLINE_WIDTH)
+    _zero_launches()
+    got_t = P.sharded_transfer_step(mesh, tr[0].shape[0])(*tr, cb)
+    got_s = P.sharded_slot_step(mesh, sl[0].shape[0])(*sl)
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    want_t = E._transfer_step_plain(*tr, cb, tr[0].shape[0])
+    want_s = E._slot_step_plain(*sl, sl[0].shape[0])
+    for g, w, what in zip(got_t + got_s, want_t + want_s,
+                          ("balances", "nonces", "ok", "slot values",
+                           "slot ok")):
+        if not torch.equal(g, w):
+            raise AssertionError(f"K8s on the classified block: {what} "
+                                 "differ from the single-chip plain step")
+    if not (bool(got_t[2]) and bool(got_s[1])):
+        raise AssertionError("K8s on the classified block: ok is False")
+    if launches["sharded_transfer_step"] != 1 \
+            or launches["sharded_slot_step"] != 1:
+        raise AssertionError(f"K8s path launches: {launches}")
+    errs["transfer"] = max(errs["transfer"], max_abs_err(got_t, want_t))
+    errs["slot"] = max(errs["slot"], max_abs_err(got_s, want_s))
+    out = []
+    for name, src_line, slot in (("transfer", 93, False),
+                                 ("slot", 166, True)):
+        ms, plain_ms = heads[name]
+        b_ms, b_by = k8s_bound(A, B, slot)
+        out.append({
+            "name": f"sharded_{name}_step", "route": "cuda",
+            "source": "coreth_tpu_torch/csrc/sharded_step.cu",
+            "replaces": f"coreth_tpu/parallel/mesh.py:{src_line}",
+            "launches": launches[f"sharded_{name}_step"],
+            "max_abs_err": errs[name], "ms": round(ms, 4),
+            "plain_ms": round(plain_ms, 2), "bound_ms": round(b_ms, 6),
+            "bound_by": b_by, "library_ms": None})
+    emit({"phase": "k8s", "equal": True, "A": A, "S": S, "B": B,
+          "widths": rows, "classified_block_txs": int(tr[2].shape[0]),
+          "classified_block_equal_to_single_chip": True,
+          "launches": launches,
+          "ms_is": f"n={HEADLINE_WIDTH}, CUDA events around the wrapper",
+          "kernels": out, "card": smi})
+    return out
+
+
 # the reference bench's hot-contract shape (bench.py:1375-1380)
 HOT_BLOCKS, HOT_TXS, HOT_KEYS, HOT_SEED, HOT_ALPHA = 64, 128, 256, \
     20260804, 1.1
@@ -1813,7 +2072,8 @@ def phase_hot(dev, smi):
         eng = E.ReplayEngine(CFG, store, parent_header=gblock.header,
                              capacity=1 << 13, slot_capacity=1 << 13,
                              batch_pad=HOT_TXS, window=16, device=dev,
-                             mesh=make_mesh(n) if n > 1 else None)
+                             mesh=make_mesh(n) if n > 1 else None,
+                             token_fastpath=False)
         A.RECIPES.clear()
         _zero_launches()
         eng.replay_block(fresh[0])
@@ -2050,8 +2310,9 @@ def main() -> int:
     t0 = time.monotonic()
     m_genesis, m_blocks = build_erc20_chain(128, m_txs, m_keys)
     t_build = time.monotonic() - t0
-    m_launches = phase_machine(dev, smi, m_genesis, m_blocks, t_build,
-                               m_txs, m_keys)
+    m_launches = phase_machine(dev, smi, m_genesis,
+                               m_blocks[:MACHINE_BLOCKS], t_build, m_txs,
+                               m_keys)
 
     # ---- 10.-11. K6, then K6+K7, against their plain versions
     k6 = phase_k6(dev, m_genesis, m_blocks)
@@ -2069,6 +2330,14 @@ def main() -> int:
           "first_fold_s": [st["first_fold_s"] for _sp, _ln, st in runs],
           "steady_txs_per_s": [st["steady_txs_per_s"]
                                for _sp, _ln, st in runs]})
+
+    # ---- 12a. the same chain through the token fast path (K1 on one
+    # shard, K8 at n = 4), then K8s against its plain version and on a
+    # real classified block of it
+    phase_token(
+        dev, smi, m_genesis, m_blocks, m_txs,
+        [st["txs_per_s"] for sp, _ln, st in runs if not sp])
+    k8s_t, k8s_s = phase_k8s(dev, smi, m_genesis, m_blocks, m_txs, rng)
 
     # ---- 12b. K9 and K9x against their plain versions (phase k7 built
     # the token's variant, which holds K9 too)
@@ -2104,7 +2373,7 @@ def main() -> int:
     k9["launches"] = sh_launches["occ_sharded"]
     k9x["launches"] = sh_launches["shard_flags"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r, k9,
-                                  k9x]}), flush=True)
+                                  k9x, k8s_t, k8s_s]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,6 +38,7 @@ SOURCES = {
     "step_machine": "step_machine.cu",
     "occ_window": "occ_window.cu",
     "sharded_window": "sharded_window.cu",
+    "sharded_step": "sharded_step.cu",
 }
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
@@ -163,6 +164,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sharded_window_launch.argtypes = [
             I, P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I] + [P] * 12
         lib.sharded_window_launch.restype = I
+    elif name == "sharded_step":
+        lib.sharded_transfer_step_launch.argtypes = [I] + [P] * 10 + [
+            I, I, I] + [P] * 6
+        lib.sharded_transfer_step_launch.restype = I
+        lib.sharded_slot_step_launch.argtypes = [I] + [P] * 5 + [I, I] + [
+            P] * 5
+        lib.sharded_slot_step_launch.restype = I
     elif name == "secp_recover":
         lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
         lib.secp_recover_launch.restype = I

@@ -1,13 +1,22 @@
-"""Shards on one card: the mesh and its collective reduce.
+"""Shards on one card: the mesh, its collective reduce, and the
+per-block sharded steps.
 
 Port of reference ``parallel/mesh.py`` (``make_mesh``,
-``collective_reduce``).  The reference shards replay over a ``dp`` axis
-of devices; the port runs the ``n`` shards on one GPU, as the CTAs of
-one thread-block cluster (``csrc/sharded_window.cu``), so a mesh is only
-its width and the device the shards' tensors live on.  A collective is
+``collective_reduce``, ``sharded_transfer_step``, ``sharded_slot_step``).
+The reference shards replay over a ``dp`` axis of devices; the port runs
+the ``n`` shards on one GPU, as the CTAs of one thread-block cluster
+(``csrc/sharded_window.cu``), so a mesh is only its width and the device
+the shards' tensors live on.  A collective is
 a reduction over the shards' tensors: ``collective_reduce_plain`` is its
 plain version, the one the sharded window's plain version uses.  There
 is no NCCL.
+
+The per-block steps (K8s) are the reference's older mesh program, the
+one its multichip dry run drives: each tx shard segment-sums its
+effects over the full table width, one ``psum_scatter`` reduces them
+onto the row sharding, nonces check against an ``all_gather`` of the
+nonce row, and a ``psum`` ANDs the shards' flags.  On the card each
+step is one cluster launch of ``csrc/sharded_step.cu``.
 """
 
 from __future__ import annotations
@@ -16,6 +25,9 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+from coreth_tpu_torch import kernels
+from coreth_tpu_torch.ops import u256
 
 # the largest thread-block cluster the CUDA kernel may use portably
 MAX_SHARDS = 8
@@ -66,3 +78,218 @@ def collective_reduce_plain(parts: torch.Tensor, mode: str = "psum",
         x = torch.roll(x, 1, dims=0)
         acc = f(acc, x)
     return acc
+
+
+# ---------------------------------------------- K8s: the per-block step
+# a limb sum takes at most 2 * B adds of < 2^16 (values and fees at the
+# coinbase row): B <= 16384 keeps it inside int32, as the reference's
+# int32 segment sums need (engine.py:302)
+MAX_STEP_TXS = 1 << 14
+TRANSFER_STEP_LAUNCHES = 0
+SLOT_STEP_LAUNCHES = 0
+
+
+def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
+                num: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: int32 sums of vals at idx into ``num``
+    rows, out-of-range indices dropped."""
+    ok = (idx >= 0) & (idx < num)
+    out = torch.zeros((num,) + tuple(vals.shape[1:]), dtype=torch.int32,
+                      device=vals.device)
+    return out.index_add_(0, idx[ok].long(), vals[ok])
+
+
+def _shard_rows(parts: torch.Tensor, n: int) -> torch.Tensor:
+    """``psum_scatter(tiled=True)`` of the shards' full-width partials
+    [n, R, ...]: the sum (``collective_reduce_plain``), shard d keeping
+    rows [d*R/n, (d+1)*R/n); returns them in shard order, [R, ...]."""
+    tot = collective_reduce_plain(parts)
+    rows = parts.shape[1] // n
+    return torch.cat([tot[d, d * rows:(d + 1) * rows] for d in range(n)])
+
+
+def _check_step(what: str, n: int, rows: int, B: int, kind: str) -> None:
+    if rows % n or B % n:
+        raise ValueError(f"{what}: {rows} {kind} rows and {B} txs must "
+                         f"divide by the mesh width {n}")
+    if B > MAX_STEP_TXS:
+        raise ValueError(f"{what}: {B} txs past the int32 segment-sum "
+                         f"headroom ({MAX_STEP_TXS})")
+
+
+def _coinbase_row(coinbase_idx, A: int) -> int:
+    """The coinbase row as the reference's ``.at[coinbase_idx]`` takes
+    it: a negative index counts from the end; out of range, no fee
+    credit (the caller's in-range test drops it)."""
+    cb = int(coinbase_idx)
+    return cb + A if cb < 0 else cb
+
+
+def sharded_transfer_step_plain(balances, nonces, sender_idx, recip_idx,
+                                value16, fee16, required16, tx_nonce,
+                                nonce_offset, mask, coinbase_idx,
+                                n: int):
+    """Plain PyTorch version of K8s's transfer half (reference
+    ``sharded_transfer_step``'s body), shard by shard: shard d owns tx
+    rows [d*B/n, (d+1)*B/n) and account rows [d*A/n, (d+1)*A/n).  Each
+    shard forms full-width partial sums of its txs (its fees at the
+    coinbase row before any normalize), the partials are reduced onto
+    the account sharding, nonces check against the whole nonce row, and
+    ``ok`` is the AND of every shard's flag."""
+    A, B = balances.shape[0], sender_idx.shape[0]
+    _check_step("sharded_transfer_step", n, A, B, "account")
+    b = B // n
+    cb = _coinbase_row(coinbase_idx, A)
+    parts, nonce_ok = [], []
+    for d in range(n):
+        t = slice(d * b, (d + 1) * b)
+        m = mask[t].bool()
+        mask_i = m.to(torch.int32)[:, None]
+        debit = u256.add(value16[t], fee16[t]) * mask_i
+        debit_p = segment_sum(debit, sender_idx[t], A)
+        req_p = segment_sum(required16[t] * mask_i, sender_idx[t], A)
+        credit_p = segment_sum(value16[t] * mask_i, recip_idx[t], A)
+        if 0 <= cb < A:
+            credit_p[cb] += (fee16[t] * mask_i).sum(0, dtype=torch.int32)
+        counts_p = segment_sum(mask_i, sender_idx[t], A)
+        parts.append(torch.cat([debit_p, req_p, credit_p, counts_p], dim=1))
+        expected = nonces[sender_idx[t].long().clamp(0, A - 1)] \
+            + nonce_offset[t]
+        nonce_ok.append(bool(torch.all(torch.where(m, tx_nonce[t] == expected,
+                                                   True))))
+    tot = _shard_rows(torch.stack(parts), n)
+    debit_t = u256.normalize(tot[:, 0:16])
+    req_t = u256.normalize(tot[:, 16:32])
+    credit_t = u256.normalize(tot[:, 32:48])
+    counts = tot[:, 48]
+    solvent = u256.gte(balances, req_t) | (counts == 0)
+    rows = A // n
+    ok = all(nonce_ok[d] and bool(torch.all(solvent[d * rows:(d + 1) * rows]))
+             for d in range(n))
+    new_balances = u256.sub(u256.add(balances, credit_t), debit_t)
+    return new_balances, nonces + counts, torch.tensor(ok,
+                                                       device=balances.device)
+
+
+def sharded_slot_step_plain(slot_vals, from_slot, to_slot, amount16, mask,
+                            n: int):
+    """Plain PyTorch version of K8s's slot half (reference
+    ``sharded_slot_step``'s body), shard by shard as
+    ``sharded_transfer_step_plain``: full-width debit and credit partials
+    per tx shard, reduced onto the slot sharding, solvency of every
+    slot row."""
+    S, B = slot_vals.shape[0], from_slot.shape[0]
+    _check_step("sharded_slot_step", n, S, B, "slot")
+    b = B // n
+    parts = []
+    for d in range(n):
+        t = slice(d * b, (d + 1) * b)
+        amt = amount16[t] * mask[t].to(torch.int32)[:, None]
+        parts.append(torch.cat([segment_sum(amt, from_slot[t], S),
+                                segment_sum(amt, to_slot[t], S)], dim=1))
+    tot = _shard_rows(torch.stack(parts), n)
+    debit_t = u256.normalize(tot[:, 0:16])
+    credit_t = u256.normalize(tot[:, 16:32])
+    ok = bool(torch.all(u256.gte(slot_vals, debit_t)))
+    new_vals = u256.sub(u256.add(slot_vals, credit_t), debit_t)
+    return new_vals, torch.tensor(ok, device=slot_vals.device)
+
+
+def _as_i32(x, dev: torch.device) -> torch.Tensor:
+    return torch.as_tensor(x).to(dev, torch.int32).contiguous()
+
+
+def _launch(what: str, rc: int, n: int) -> None:
+    if rc == -1:
+        raise RuntimeError(f"{what}: no cluster of {n} CTAs x 1024 threads "
+                           "fits on this card")
+    kernels.check(rc, what)
+
+
+def sharded_transfer_step(mesh: ShardMesh, num_accounts: int):
+    """The mesh-sharded transfer step (reference ``sharded_transfer_step``):
+    returns a function (balances [A,16], nonces [A], sender_idx,
+    recip_idx, value16, fee16, required16, tx_nonce, nonce_offset, mask,
+    coinbase_idx) -> (new_balances, new_nonces, ok), A = num_accounts.
+    It runs on the mesh's device, else on the device of ``balances``:
+    on CUDA one launch of K8s's transfer kernel
+    (``csrc/sharded_step.cu``, one cluster of n CTAs, asynchronous on the
+    current stream), on the CPU the plain version.  A and the batch must
+    divide by n."""
+    n = mesh.n_shards
+    if num_accounts % n:
+        raise ValueError(f"sharded_transfer_step: {num_accounts} accounts "
+                         f"do not divide by the mesh width {n}")
+
+    def step(balances, nonces, sender_idx, recip_idx, value16, fee16,
+             required16, tx_nonce, nonce_offset, mask, coinbase_idx):
+        global TRANSFER_STEP_LAUNCHES
+        dev = mesh.device or torch.as_tensor(balances).device
+        bal, non = _as_i32(balances, dev), _as_i32(nonces, dev)
+        cols = [_as_i32(x, dev) for x in (
+            sender_idx, recip_idx, value16, fee16, required16, tx_nonce,
+            nonce_offset, mask)]
+        A, B = bal.shape[0], cols[0].shape[0]
+        if A != num_accounts or bal.shape[1:] != (u256.LIMBS,) \
+                or non.shape != (A,):
+            raise ValueError(f"sharded_transfer_step: tables of {A} rows, "
+                             f"built for {num_accounts}")
+        _check_step("sharded_transfer_step", n, A, B, "account")
+        if dev.type == "cpu":
+            return sharded_transfer_step_plain(bal, non, *cols,
+                                               coinbase_idx, n)
+        i32 = dict(dtype=torch.int32, device=dev)
+        slabs = torch.empty((n, A, 3 * u256.LIMBS + 1), **i32)
+        flags = torch.empty((n,), **i32)
+        new_bal, new_non = torch.empty_like(bal), torch.empty_like(non)
+        ok = torch.empty((1,), **i32)
+        lib = kernels.load("sharded_step")
+        rc = lib.sharded_transfer_step_launch(
+            n, bal.data_ptr(), non.data_ptr(),
+            *(c.data_ptr() for c in cols), _coinbase_row(coinbase_idx, A),
+            A, B, slabs.data_ptr(), flags.data_ptr(), new_bal.data_ptr(),
+            new_non.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _launch("sharded_transfer_step", rc, n)
+        TRANSFER_STEP_LAUNCHES += 1
+        return new_bal, new_non, ok[0] != 0
+    return step
+
+
+def sharded_slot_step(mesh: ShardMesh, num_slots: int):
+    """The mesh-sharded ERC-20 slot step (reference ``sharded_slot_step``):
+    returns a function (slot_vals [S,16], from_slot, to_slot, amount16,
+    mask) -> (new_vals, ok), S = num_slots; devices and launch as
+    ``sharded_transfer_step`` (K8s's slot kernel on CUDA)."""
+    n = mesh.n_shards
+    if num_slots % n:
+        raise ValueError(f"sharded_slot_step: {num_slots} slots do not "
+                         f"divide by the mesh width {n}")
+
+    def step(slot_vals, from_slot, to_slot, amount16, mask):
+        global SLOT_STEP_LAUNCHES
+        dev = mesh.device or torch.as_tensor(slot_vals).device
+        vals = _as_i32(slot_vals, dev)
+        cols = [_as_i32(x, dev) for x in (from_slot, to_slot, amount16,
+                                          mask)]
+        S, B = vals.shape[0], cols[0].shape[0]
+        if S != num_slots or vals.shape[1:] != (u256.LIMBS,):
+            raise ValueError(f"sharded_slot_step: a table of {S} rows, "
+                             f"built for {num_slots}")
+        _check_step("sharded_slot_step", n, S, B, "slot")
+        if dev.type == "cpu":
+            return sharded_slot_step_plain(vals, *cols, n)
+        i32 = dict(dtype=torch.int32, device=dev)
+        slabs = torch.empty((n, S, 2 * u256.LIMBS), **i32)
+        flags = torch.empty((n,), **i32)
+        new_vals = torch.empty_like(vals)
+        ok = torch.empty((1,), **i32)
+        lib = kernels.load("sharded_step")
+        rc = lib.sharded_slot_step_launch(
+            n, vals.data_ptr(), *(c.data_ptr() for c in cols), S, B,
+            slabs.data_ptr(), flags.data_ptr(), new_vals.data_ptr(),
+            ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _launch("sharded_slot_step", rc, n)
+        SLOT_STEP_LAUNCHES += 1
+        return new_vals, ok[0] != 0
+    return step

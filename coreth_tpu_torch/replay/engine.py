@@ -10,7 +10,11 @@ The transfer path:
 1. **Classify** (host): a block is device-replayable when every tx is a
    pure value transfer (``to`` set, empty calldata, no access list,
    21k gas, a callee with no code and no multicoin flag, not a
-   precompile or prohibited address).
+   precompile or prohibited address) or, with ``token_fastpath`` (the
+   reference's default), an ERC-20 ``transfer()`` call on the known
+   token runtime: exact gas from the measured exec-gas variants, the
+   Transfer log, and the mapping slots' debit and credit for the
+   kernel's slot half, their values simulated on the host.
 2. **Recover senders** (``_SenderPipeline``): look-ahead segments; on
    the card every segment of at least ``DEVICE_RECOVER_MIN`` signatures
    runs the hand-written secp256k1 kernel, smaller ones the native C++
@@ -57,21 +61,27 @@ from coreth_tpu_torch.consensus.engine import ConsensusError, DummyEngine
 from coreth_tpu_torch.crypto import keccak256, native
 from coreth_tpu_torch.crypto import secp_device
 from coreth_tpu_torch.crypto.secp256k1 import N as SECP_N
+from coreth_tpu_torch.evm.device.tables import fork_key
 from coreth_tpu_torch.evm.precompiles import (
     is_prohibited, special_call_targets,
 )
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.ops import u256
+from coreth_tpu_torch.parallel.mesh import segment_sum
 from coreth_tpu_torch.parallel.shard import (
     account_bucket, contract_bucket, remap_rows,
 )
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
-from coreth_tpu_torch.state import StateStore
+from coreth_tpu_torch.state import StateStore, normalize_state_key
 from coreth_tpu_torch.types import (
-    Block, LatestSigner, Receipt, StateAccount,
+    Block, LatestSigner, Log, Receipt, StateAccount,
 )
 from coreth_tpu_torch.types.account import EMPTY_CODE_HASH, EMPTY_ROOT_HASH
+from coreth_tpu_torch.workloads.erc20 import (
+    TOKEN_CODE_HASH, TRANSFER_TOPIC, balance_slot, measure_transfer_exec_gas,
+    parse_transfer_calldata,
+)
 
 
 class ReplayError(Exception):
@@ -162,13 +172,6 @@ def txd_cols(txd):
 # sum or scatter drops it; the engine only ever produces in-range local
 # indices, and pads global ids with ``capacity`` (gather 0, drop).
 
-def _seg_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    ok = (idx >= 0) & (idx < n)
-    out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=torch.int32,
-                      device=vals.device)
-    return out.index_add_(0, idx[ok].long(), vals[ok])
-
-
 def _gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return arr[idx.long().clamp(0, arr.shape[0] - 1)]
 
@@ -183,16 +186,16 @@ def _transfer_step_plain(balances, nonces, sender_idx, recip_idx, value16,
     credit = value16 * mask_i
     expected = _gather(nonces, sender_idx) + nonce_offset
     nonce_ok = torch.all(torch.where(mask, tx_nonce == expected, True))
-    debit_tot = u256.normalize(_seg_sum(debit, sender_idx, num_accounts))
+    debit_tot = u256.normalize(segment_sum(debit, sender_idx, num_accounts))
     required_tot = u256.normalize(
-        _seg_sum(required, sender_idx, num_accounts))
-    credit_tot = u256.normalize(_seg_sum(credit, recip_idx, num_accounts))
+        segment_sum(required, sender_idx, num_accounts))
+    credit_tot = u256.normalize(segment_sum(credit, recip_idx, num_accounts))
     # an int32 sum, as jnp's (torch would widen to int64)
     fee_total = u256.normalize((fee16 * mask_i).sum(0, dtype=torch.int32))
     if 0 <= coinbase_idx < num_accounts:
         credit_tot[coinbase_idx] += fee_total
     credit_tot = u256.normalize(credit_tot)
-    send_counts = _seg_sum(mask_i, sender_idx, num_accounts)[:, 0]
+    send_counts = segment_sum(mask_i, sender_idx, num_accounts)[:, 0]
     solvent = u256.gte(balances, required_tot)
     ok = nonce_ok & torch.all(solvent | (send_counts == 0))
     new_balances = u256.sub(u256.add(balances, credit_tot), debit_tot)
@@ -203,8 +206,8 @@ def _slot_step_plain(slot_vals, from_slot, to_slot, amount16, mask,
                      num_slots: int):
     """Batched ERC-20 mapping-slot debits/credits (reference _slot_step)."""
     amt = amount16 * mask.to(torch.int32)[:, None]
-    debit_tot = u256.normalize(_seg_sum(amt, from_slot, num_slots))
-    credit_tot = u256.normalize(_seg_sum(amt, to_slot, num_slots))
+    debit_tot = u256.normalize(segment_sum(amt, from_slot, num_slots))
+    credit_tot = u256.normalize(segment_sum(amt, to_slot, num_slots))
     ok = torch.all(u256.gte(slot_vals, debit_tot))
     return u256.sub(u256.add(slot_vals, credit_tot), debit_tot), ok
 
@@ -377,15 +380,20 @@ class DeviceState:
         self.roots: List[bytes] = []
         self.addr_hashes: List[bytes] = []
         self._staged: List[Tuple[int, int, int]] = []
-        # token slots: only the reserved dummy (shard 0, row 0) until the
-        # token path is ported; the window kernels take the table
-        # regardless
+        # storage slots of the token fast path: (contract, key) -> slot
+        # index (sid); sid 0 is the reserved dummy (shard 0, row 0)
         self.slot_capacity = slot_capacity
+        self.slot_index: Dict[Tuple[bytes, bytes], int] = {}
+        self.slot_keys: List[Tuple[bytes, bytes]] = [(b"", b"")]
         self.slot_row_of: List[int] = [0]
         self._srow = [1 if s == 0 else 0 for s in range(n_shards)]
         self._cbucket: Dict[bytes, int] = {}  # contract -> owning shard
         self.slot_vals = torch.zeros((slot_capacity, u256.LIMBS),
                                      dtype=torch.int32, device=self.device)
+        # host mirror of slot values as of the last validated block: the
+        # classifier's gas-variant simulation reads it
+        self.slot_host: List[int] = [0]
+        self._staged_slots: List[Tuple[int, int]] = []
 
     @classmethod
     def from_arrays(cls, balances: np.ndarray, nonces: np.ndarray,
@@ -526,18 +534,43 @@ class DeviceState:
                 self._staged.append((idx, account.balance, account.nonce))
         return idx
 
+    def ensure_slot(self, contract: bytes, key: bytes, value: int) -> int:
+        """Slot index of (contract, normalized key), allocating its device
+        row (the contract's bucket's arena on a mesh) and staging its
+        current ``value`` on first touch."""
+        sid = self.slot_index.get((contract, key))
+        if sid is not None:
+            return sid
+        sid = len(self.slot_keys)
+        self.slot_index[(contract, key)] = sid
+        self.slot_keys.append((contract, key))
+        row = self._alloc_slot_row(contract)  # may replace slot_row_of
+        self.slot_row_of.append(row)
+        self.slot_host.append(value)
+        if value:
+            self._staged_slots.append((sid, value))
+        return sid
+
     def flush_staged(self) -> None:
-        """Write the staged initial values of newly seen accounts."""
-        if not self._staged:
-            return
-        idx = np.asarray([self.row_of[s[0]] for s in self._staged],
-                         dtype=np.int64)
-        bal = u256.pack_np([s[1] for s in self._staged])
-        non = np.asarray([s[2] for s in self._staged], dtype=np.int32)
-        didx = _upload(idx, self.device)
-        _scatter_drop(self.balances, didx, _upload(bal, self.device))
-        _scatter_drop(self.nonces, didx, _upload(non, self.device))
-        self._staged = []
+        """Write the staged values of accounts and slots (the last staged
+        value of a slot wins)."""
+        if self._staged:
+            idx = np.asarray([self.row_of[s[0]] for s in self._staged],
+                             dtype=np.int64)
+            bal = u256.pack_np([s[1] for s in self._staged])
+            non = np.asarray([s[2] for s in self._staged], dtype=np.int32)
+            didx = _upload(idx, self.device)
+            _scatter_drop(self.balances, didx, _upload(bal, self.device))
+            _scatter_drop(self.nonces, didx, _upload(non, self.device))
+            self._staged = []
+        if self._staged_slots:
+            last = dict(self._staged_slots)
+            idx = np.asarray([self.slot_row_of[sid] for sid in last],
+                             dtype=np.int64)
+            vals = u256.pack_np(list(last.values()))
+            _scatter_drop(self.slot_vals, _upload(idx, self.device),
+                          _upload(vals, self.device))
+            self._staged_slots = []
 
     def read_accounts(self, indices: List[int]) -> List[Tuple[int, int]]:
         """(balance, nonce) of the given gids, read back to the host."""
@@ -644,7 +677,10 @@ class ReplayEngine:
     ``specialize`` (the reference's ``CORETH_SPECIALIZE``, default on)
     runs the lanes of traceable contracts in those windows on their
     straight-line programs; the per-block path has no specialisation,
-    as in the reference.
+    as in the reference.  ``token_fastpath`` (default on; off is the
+    reference's ``CORETH_NO_TOKEN_FASTPATH=1``) classifies ERC-20
+    ``transfer()`` calls onto the transfer windows instead of the
+    machine.
 
     ``mesh`` (``parallel.make_mesh(n)``, n > 1) shards the state tables
     over n shards of the one card: transfer windows run on the sharded
@@ -678,8 +714,10 @@ class ReplayEngine:
                  mesh=None, exchange: Optional[str] = None,
                  shard_recover: bool = False, shard_occ: bool = True,
                  keyrange: bool = True, keyrange_threshold: int = 16,
-                 exchange_density: float = 0.25):
+                 exchange_density: float = 0.25,
+                 token_fastpath: bool = True):
         self.device = default_device(device)
+        self.token_fastpath = token_fastpath
         self.device_occ = device_occ
         self.specialize = specialize
         self.shard_occ = shard_occ
@@ -736,6 +774,17 @@ class ReplayEngine:
         self.commit_pipe = CommitPipeline(self)
         self._recover_pool: Optional[ThreadPoolExecutor] = None
         self._machine = None
+        # the classifier's view of slot values of blocks classified but
+        # not yet validated (sequential sim across a pending window)
+        self._slot_overlay: Dict[int, int] = {}
+        # token gas variants per fork schedule, and (contract, address)
+        # -> slot index shortcuts: the classifier runs per tx
+        self._vg_cache: Dict[tuple, Optional[dict]] = {}
+        self._addr_slot: Dict[Tuple[bytes, bytes], int] = {}
+        # bumped whenever the token path writes contract storage: the
+        # machine executor's window runner rebuilds when it sees a bump
+        # (its mirror and device table can no longer be trusted)
+        self.storage_epoch = 0
 
     def close(self) -> None:
         """Stop the recovery worker thread."""
@@ -769,6 +818,19 @@ class ReplayEngine:
         """Folded value of (normalized) slot ``key`` of ``contract``."""
         raw = self._storage_trie(contract).get(key)
         return int.from_bytes(rlp.decode(raw), "big") if raw else 0
+
+    def _slot(self, contract: bytes, key: bytes) -> int:
+        """Slot index of (contract, EVM storage key), loading its current
+        value on first touch: staged-but-unfolded writes first, then the
+        storage trie.  Keys are normalized as the state writes them."""
+        key = normalize_state_key(key)
+        sid = self.state.slot_index.get((contract, key))
+        if sid is not None:
+            return sid
+        value = self.commit_pipe.base_value(contract, key)
+        if value is None:
+            value = self.storage_value(contract, key)
+        return self.state.ensure_slot(contract, key, value)
 
     # -------------------------------------------------------------- senders
     def _pack_sigs(self, blocks):
@@ -837,23 +899,38 @@ class ReplayEngine:
 
     # ------------------------------------------------------------- classify
     def _classify(self, block: Block) -> Optional[dict]:
-        """Batch inputs if every tx is a plain value transfer, else None."""
+        """Batch inputs if the block is device-replayable, else None.
+
+        Two tx shapes replay on the window kernels, mixed freely within a
+        block: pure value transfers, and (with ``token_fastpath``, from
+        Apricot Phase 2 on, where the native session measures the exec
+        gas) ERC-20 ``transfer()`` calls on contracts whose runtime is
+        the known token (``workloads/erc20``).  For token calls
+        the classifier derives each tx's exact gas by simulating the
+        mapping-slot values on the host and builds the Transfer log; the
+        u256 slot arithmetic runs batched on the device (the kernels'
+        slot half).  A block's slot simulation becomes visible to the
+        next block's only once the whole block classified clean."""
         if block.ext_data():
             return None
         base_fee = block.base_fee
         rules = self.config.rules(block.number, block.time)
         avoid = special_call_targets(rules)
+        token_ctx = self._token_block_ctx(rules, block) \
+            if rules.is_apricot_phase1 and self.token_fastpath else None
         senders, recips, values, fees, required, nonces, offsets = \
             [], [], [], [], [], [], []
-        gas_used = []
+        from_slots, to_slots, amounts, gas_used, tx_logs = \
+            [], [], [], [], []
         seen_count: Dict[bytes, int] = {}
+        overlay: Dict[int, int] = {}  # this block's slot sim, uncommitted
         state = self.state
         has_code, multicoin = state.has_code, state.multicoin
         acct_index = state.index
         account = self._account
         sender_of = self.signer.sender
         for tx in block.transactions:
-            if tx.to is None or tx.access_list or tx.data:
+            if tx.to is None or tx.access_list:
                 return None
             if tx.to in avoid or is_prohibited(tx.to):
                 return None
@@ -877,15 +954,34 @@ class ReplayEngine:
                 price = min(base_fee + tip, gas_fee_cap)
             else:
                 price = tx.gas_price
-            if tx.gas != P.TX_GAS:
-                return None
-            if has_code[r_idx] or multicoin[r_idx]:
-                return None
+            if tx.data:
+                if token_ctx is None:
+                    return None
+                out = self._classify_token(tx, sender, r_idx, token_ctx,
+                                           overlay)
+                if out is None:
+                    return None
+                f_s, t_s, amt, used, log = out
+                values.append(0)
+                from_slots.append(f_s)
+                to_slots.append(t_s)
+                amounts.append(amt)
+                tx_logs.append(log)
+            else:
+                if tx.gas != P.TX_GAS:
+                    return None
+                if has_code[r_idx] or multicoin[r_idx]:
+                    return None
+                used = P.TX_GAS
+                values.append(tx.value)
+                from_slots.append(0)
+                to_slots.append(0)
+                amounts.append(0)
+                tx_logs.append(None)
             senders.append(s_idx)
             recips.append(r_idx)
-            values.append(tx.value)
-            gas_used.append(P.TX_GAS)
-            fees.append(P.TX_GAS * price)
+            gas_used.append(used)
+            fees.append(used * price)
             # buyGas requirement (cap-based for typed txs)
             required.append(tx.gas * gas_fee_cap + tx.value)
             nonces.append(tx.nonce)
@@ -893,12 +989,95 @@ class ReplayEngine:
             offsets.append(prev)
             seen_count[sender] = prev + 1
         coinbase_idx = self._account(block.header.coinbase)
-        n = len(senders)
+        # the block classified clean: its slot writes become visible to
+        # the next block's classification within this pending window
+        self._slot_overlay.update(overlay)
         return dict(senders=senders, recips=recips, values=values,
                     fees=fees, required=required, nonces=nonces,
                     offsets=offsets, coinbase=coinbase_idx,
-                    from_slots=[0] * n, to_slots=[0] * n,
-                    amounts=[0] * n, gas_used=gas_used)
+                    from_slots=from_slots, to_slots=to_slots,
+                    amounts=amounts, gas_used=gas_used, logs=tx_logs)
+
+    def _slot_view(self, sid: int, overlay: Dict[int, int]) -> int:
+        """Sequential slot value at the classification point: this
+        block's sim, then the pending window's, then the validated
+        mirror."""
+        v = overlay.get(sid)
+        if v is not None:
+            return v
+        v = self._slot_overlay.get(sid)
+        if v is not None:
+            return v
+        return self.state.slot_host[sid]
+
+    def _token_block_ctx(self, rules, block: Block) -> Optional[dict]:
+        """Per-block constants of the token fast path: the three exec-gas
+        variants (measured once per fork schedule on the native session,
+        ``measure_transfer_exec_gas``) and the calldata gas constants.
+        None where the native session runs no fork of these rules
+        (before Apricot Phase 2): token calls then go to the machine
+        path, which takes no such block either."""
+        key = tuple(v for f, v in sorted(vars(rules).items())
+                    if f.startswith("is_"))
+        if key not in self._vg_cache:
+            self._vg_cache[key] = None if fork_key(rules) is None else {
+                v: measure_transfer_exec_gas(self.config, block.number,
+                                             block.time, v)
+                for v in ("noop", "set", "reset")}
+        vg = self._vg_cache[key]
+        if vg is None:
+            return None
+        nz_gas = (P.TX_DATA_NON_ZERO_GAS_EIP2028 if rules.is_istanbul
+                  else P.TX_DATA_NON_ZERO_GAS_FRONTIER)
+        return dict(vg=vg, nz_gas=nz_gas, z_gas=P.TX_DATA_ZERO_GAS)
+
+    def _classify_token(self, tx, sender: bytes, r_idx: int,
+                        token_ctx: dict, overlay: Dict[int, int]):
+        """One ERC-20 ``transfer()`` call: (from_slot, to_slot, amount,
+        gas_used, Log), or None when the fast path cannot take it (not
+        the token, a self-transfer, a transfer that would revert or run
+        out of gas).  Gas is exact: the intrinsic calldata gas plus the
+        measured exec gas of the variant this tx hits."""
+        if self.state.code_hashes[r_idx] != TOKEN_CODE_HASH:
+            return None
+        if tx.value != 0:
+            return None
+        data = tx.data
+        parsed = parse_transfer_calldata(data)
+        if parsed is None:
+            return None
+        to_addr, amt = parsed
+        if to_addr == sender:
+            return None  # self-transfer: another SSTORE sequence
+        token = tx.to
+        addr_slot = self._addr_slot
+        f_s = addr_slot.get((token, sender))
+        if f_s is None:
+            f_s = addr_slot[(token, sender)] = self._slot(
+                token, balance_slot(sender))
+        t_s = addr_slot.get((token, to_addr))
+        if t_s is None:
+            t_s = addr_slot[(token, to_addr)] = self._slot(
+                token, balance_slot(to_addr))
+        fv = self._slot_view(f_s, overlay)
+        tv = self._slot_view(t_s, overlay)
+        if fv < amt:
+            return None  # would revert: the machine path's block
+        vg = token_ctx["vg"]
+        exec_gas = vg["noop"] if amt == 0 else (
+            vg["set"] if tv == 0 else vg["reset"])
+        nz = 68 - data.count(0)
+        used = (P.TX_GAS + nz * token_ctx["nz_gas"]
+                + (68 - nz) * token_ctx["z_gas"] + exec_gas)
+        if tx.gas < used:
+            return None  # would run out of gas: a status-0 receipt
+        overlay[f_s] = fv - amt
+        overlay[t_s] = (tv + amt) & ((1 << 256) - 1)  # unchecked ADD wraps
+        log = Log(address=token,
+                  topics=[TRANSFER_TOPIC, b"\x00" * 12 + sender,
+                          b"\x00" * 12 + to_addr],
+                  data=amt.to_bytes(32, "big"))
+        return f_s, t_s, amt, used, log
 
     # ---------------------------------------------------------------- replay
     def _prepare_window(self, items: List[Tuple[Block, dict]]):
@@ -925,6 +1104,14 @@ class ReplayEngine:
                 acct_local[g] = l
             return l
 
+        def s_loc(g: int) -> int:
+            l = slot_local.get(g)
+            if l is None:
+                l = len(slot_local)
+                slot_local[g] = l
+            return l
+
+        slot_lists = []
         local_batches = []
         for block, batch in items:
             B = len(block.transactions)
@@ -934,16 +1121,25 @@ class ReplayEngine:
             lb["senders"] = [a_loc(g) for g in batch["senders"]]
             lb["recips"] = [a_loc(g) for g in batch["recips"]]
             lb["coinbase"] = a_loc(batch["coinbase"])
+            lb["from_slots"] = [s_loc(g) for g in batch["from_slots"]]
+            lb["to_slots"] = [s_loc(g) for g in batch["to_slots"]]
             local_batches.append(lb)
             touched = sorted(set(batch["senders"]) | set(batch["recips"])
                              | {batch["coinbase"]})
             touched_lists.append(touched)
             while t_pad < len(touched):
                 t_pad *= 2
+            slots = sorted((set(batch["from_slots"])
+                            | set(batch["to_slots"])) - {0})
+            slot_lists.append(slots)
+            while s_pad < len(slots):
+                s_pad *= 2
         L = 256
         while L < len(acct_local):
             L *= 2
         SL = 8
+        while SL < len(slot_local):
+            SL *= 2
         cap = self.state.capacity
         scap = self.state.slot_capacity
         acct_gids = np.full(L, cap, dtype=np.int32)
@@ -960,7 +1156,10 @@ class ReplayEngine:
                                pad)
             t_idxs[k, :len(touched_lists[k])] = \
                 [acct_local[g] for g in touched_lists[k]]
-        return txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists
+            s_idxs[k, :len(slot_lists[k])] = \
+                [slot_local[g] for g in slot_lists[k]]
+        return (txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists,
+                slot_lists)
 
     def _issue_window_run(self, items: List[Tuple[Block, dict]]) -> dict:
         """One kernel launch for a whole run of transfer blocks: upload
@@ -969,14 +1168,15 @@ class ReplayEngine:
         if self.mesh is not None:
             return self._issue_window_mesh(items)
         t0 = time.monotonic()
-        (txds, t_idxs, s_idxs, acct_gids, slot_gids,
-         touched_lists) = self._prepare_window(items)
+        (txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists,
+         slot_lists) = self._prepare_window(items)
         st = self.state
         ups = [_upload(a, self.device)
                for a in (acct_gids, slot_gids, txds, t_idxs, s_idxs)]
         st.balances, st.nonces, st.slot_vals, fetches = _transfer_window(
             st.balances, st.nonces, st.slot_vals, *ups)
-        return self._fetch_window(items, fetches, touched_lists, ups, t0)
+        return self._fetch_window(items, fetches, touched_lists, slot_lists,
+                                  ups, t0)
 
     def _issue_window_mesh(self, items: List[Tuple[Block, dict]]) -> dict:
         """The window on the sharded kernel (K8, one cluster launch): the
@@ -989,8 +1189,8 @@ class ReplayEngine:
         from coreth_tpu_torch.replay.shard import (
             interleave_txs, sharded_transfer_window)
         t0 = time.monotonic()
-        (txds, t_idxs, s_idxs, acct_rows, slot_rows,
-         touched_lists) = self._prepare_window(items)
+        (txds, t_idxs, s_idxs, acct_rows, slot_rows, touched_lists,
+         slot_lists) = self._prepare_window(items)
         st = self.state
         n = self.n_shards
         mode = exchange_mode(acct_rows.shape[0] + slot_rows.shape[0],
@@ -1007,9 +1207,10 @@ class ReplayEngine:
             self.stats.exchange_psum += 1
         else:
             self.stats.exchange_ppermute += 1
-        return self._fetch_window(items, fetches, touched_lists, ups, t0)
+        return self._fetch_window(items, fetches, touched_lists, slot_lists,
+                                  ups, t0)
 
-    def _fetch_window(self, items, fetches, touched_lists, ups,
+    def _fetch_window(self, items, fetches, touched_lists, slot_lists, ups,
                       t0: float) -> dict:
         """Start the fetch tensor's copy into pinned memory with an
         event marking its arrival; the window handle for
@@ -1026,13 +1227,18 @@ class ReplayEngine:
             host = fetches
         self.stats.t_device += time.monotonic() - t0
         return dict(items=items, fetches=host, event=event,
-                    touched_lists=touched_lists, keep=(ups, fetches))
+                    touched_lists=touched_lists, slot_lists=slot_lists,
+                    t_pad=ups[3].shape[1], keep=(ups, fetches))
 
     def _complete_window_run(self, win: dict) -> None:
         """Validate a window from its fetched rows, stage every block,
         and fold the window once.  A block whose ok flag is 0, or that
         fails validation, raises ReplayError after the valid prefix
-        before it is folded (so ``root`` is that prefix's)."""
+        before it is folded (so ``root`` is that prefix's), with the
+        classifier's slot overlay dropped.  A clean window leaves the
+        overlay: the next window, already classified, may hold sims on
+        it, and a validated value equals its sim (a difference would
+        have failed the root check)."""
         t0 = time.monotonic()
         if win["event"] is not None:
             win["event"].synchronize()   # the rows are in pinned memory
@@ -1040,24 +1246,30 @@ class ReplayEngine:
         self.stats.t_device += time.monotonic() - t0
         for k, (block, batch) in enumerate(win["items"]):
             if arr[k, -1, 0] != 1:
+                self._slot_overlay.clear()
                 self.commit_pipe.flush()
                 raise _block_error(
                     "device execution rejected the block (nonce or "
                     f"solvency check failed); {_NOT_PORTED}", block)
             try:
-                self._validate_and_advance(block, batch, arr[k],
-                                           win["touched_lists"][k])
+                self._validate_and_advance(
+                    block, batch, arr[k], win["touched_lists"][k],
+                    win["slot_lists"][k], win["t_pad"])
             except ReplayError:
+                self._slot_overlay.clear()
                 self.commit_pipe.flush()
                 raise
         # ONE deduped fold + root check for the whole window
         self.commit_pipe.flush()
 
     def _validate_and_advance(self, block: Block, batch: dict,
-                              fetched: np.ndarray,
-                              touched: List[int]) -> None:
-        """Host-side consensus checks + staged commit for one block."""
+                              fetched: np.ndarray, touched: List[int],
+                              touched_slots: List[int], t_pad: int) -> None:
+        """Host-side consensus checks + staged commit for one block: the
+        fetched slot values go into ``slot_host`` and stage as storage
+        writes, and ``storage_epoch`` moves."""
         gas_list = batch["gas_used"]
+        logs = batch["logs"]
         cums = []
         cum = 0
         for g in gas_list:
@@ -1065,10 +1277,13 @@ class ReplayEngine:
             cums.append(cum)
         if cum != block.header.gas_used:
             raise _block_error(f"gas used mismatch; {_NOT_PORTED}", block)
-        n = len(block.transactions)
+        # every log is the uniform Transfer shape (address, three 32-byte
+        # topics, 32 data bytes): one C++ call derives root and bloom
         rec_root, bloom = native.receipt_root(
             cums, bytes(tx.tx_type for tx in block.transactions),
-            bytes(n), b"")
+            bytes(0 if lg is None else 1 for lg in logs),
+            b"".join(lg.address + b"".join(lg.topics) + lg.data
+                     for lg in logs if lg is not None))
         if rec_root != block.header.receipt_hash:
             raise _block_error(f"receipt root mismatch; {_NOT_PORTED}",
                                block)
@@ -1083,16 +1298,25 @@ class ReplayEngine:
             except ConsensusError as exc:
                 raise _block_error(f"block fee: {exc}", block) from exc
         t0 = time.monotonic()
+        writes: Dict[Tuple[bytes, bytes], int] = {}
+        if touched_slots:
+            self.storage_epoch += 1
+            slot_vals = u256.to_ints(
+                fetched[t_pad:t_pad + len(touched_slots), :u256.LIMBS])
+            st = self.state
+            for i, sid in enumerate(touched_slots):
+                st.slot_host[sid] = slot_vals[i]
+                writes[st.slot_keys[sid]] = slot_vals[i]
         balances = u256.to_ints(fetched[:len(touched), :u256.LIMBS])
         nonces = fetched[:len(touched), u256.LIMBS]
         addrs = self.state.addrs
         self.commit_pipe.stage(block.header, {
             addrs[idx]: (balances[i], int(nonces[i]))
-            for i, idx in enumerate(touched)})
+            for i, idx in enumerate(touched)}, writes)
         self.stats.t_trie += time.monotonic() - t0
         self.parent_header = block.header
         self.stats.blocks_device += 1
-        self.stats.txs += n
+        self.stats.txs += len(block.transactions)
 
     def _refuse(self, block: Block) -> ReplayError:
         return _block_error(

@@ -130,6 +130,7 @@ class MachineBlockExecutor:
         self._fork: Optional[str] = None
         self._runner: Optional[MachineWindowRunner] = None
         self._runner_fork: Optional[str] = None
+        self._runner_epoch = 0
         self._runner_totals = dict.fromkeys(_RUNNER_COUNTERS, 0)
 
     def counters(self) -> dict:
@@ -496,14 +497,23 @@ class MachineBlockExecutor:
             except ConsensusError as exc:
                 raise _block_error(f"machine block: {exc}", block) from exc
 
-        # stage storage + accounts, and refresh the device tables the
-        # transfer path reads
+        # stage storage + accounts, and refresh the device tables and the
+        # slot mirror the transfer and token path read: the classifier's
+        # overlay is void, and every slot that path indexed takes the
+        # block's write
         final = {addr: (st[0], st[1]) for addr, st in accounts.items()}
         self.last_writes = writes_final
         e.commit_pipe.stage(block.header, final, writes_final)
+        e._slot_overlay.clear()
+        state = e.state
+        for ck, v in writes_final.items():
+            sid = state.slot_index.get(ck)
+            if sid is not None and state.slot_host[sid] != v:
+                state.slot_host[sid] = v
+                state._staged_slots.append((sid, v))
         for addr in accounts:
             e._account(addr)
-        e.state.set_accounts(final)
+        state.set_accounts(final)
         e.parent_header = block.header
         self.blocks += 1
         e.stats.blocks_device += 1
@@ -515,14 +525,18 @@ class MachineBlockExecutor:
 
     # ------------------------------------------------- fused OCC windows
     def _window_runner(self) -> MachineWindowRunner:
-        """The persistent fused-OCC runner, rebuilt when the fork
-        changes (its counters carry over).  On a mesh engine with
+        """The persistent fused-OCC runner, rebuilt (its counters carry
+        over) when the fork changes or the token path wrote storage since
+        the last machine window (``engine.storage_epoch``): its host
+        mirror and device table no longer hold those values.  On a mesh
+        engine with
         ``shard_occ`` (the reference's ``CORETH_SHARD_OCC=1``) it is the
         sharded runner (``evm/device/shard.py``: per-shard arenas and OCC
         in one cluster launch, K9, with the flags reduce K9x); without
         it, the single-card runner over the sharded tables."""
         e = self.e
-        if self._runner is None or self._runner_fork != self._fork:
+        if (self._runner is None or self._runner_fork != self._fork
+                or self._runner_epoch != e.storage_epoch):
             if self._runner is not None:
                 for k in self._runner_totals:
                     self._runner_totals[k] += getattr(self._runner, k)
@@ -541,6 +555,7 @@ class MachineBlockExecutor:
                     specialize=e.specialize)
             self._runner.seed_window_hint(self.WINDOW)
             self._runner_fork = self._fork
+        self._runner_epoch = e.storage_epoch
         return self._runner
 
     def _window_items(self, chunk):

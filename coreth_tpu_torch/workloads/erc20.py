@@ -1,10 +1,13 @@
 """ERC-20 token workload.
 
-Port of reference ``workloads/erc20.py`` (copied, without the
-interpreter-based gas probe): a hand-assembled minimal token contract
-(transfer + balanceOf over a balances mapping at storage slot 0,
-Transfer event, unchecked classic semantics).  Hand assembly keeps the
-execution path — and thus the gas schedule — small and auditable.
+Port of reference ``workloads/erc20.py``: a hand-assembled minimal
+token contract (transfer + balanceOf over a balances mapping at storage
+slot 0, Transfer event, unchecked classic semantics).  Hand assembly
+keeps the execution path — and thus the gas schedule — small and
+auditable.  Its per-transfer execution gas is measured, not
+hand-derived: the reference runs its Python interpreter once per
+variant, the port its native host-execution session
+(``measure_transfer_exec_gas``).
 
 Storage layout: balances[addr] at keccak256(pad32(addr) ++ pad32(0)) —
 the Solidity mapping rule the reference's state tests rely on.
@@ -155,3 +158,73 @@ def token_genesis_account(balances: Dict[bytes, int]):
                for addr, v in balances.items()}
     return GenesisAccount(balance=0, code=TOKEN_RUNTIME, nonce=1,
                           storage=storage)
+
+
+_EXEC_GAS_CACHE: Dict[tuple, int] = {}
+
+
+def measure_transfer_exec_gas(config, number: int, time: int,
+                              variant: str = "reset") -> int:
+    """Execution gas of one transfer() call under the rules of block
+    (number, time), measured by running the token once on the native
+    host-execution session (``evm/hostexec``) over a scratch state.
+
+    Variants (the only gas classes a successful non-self transfer can
+    hit from Apricot Phase 1 on, where refunds are off, so zeroing the
+    from-slot costs what a partial spend does):
+      - "reset": both slots nonzero before, a partial amount (SSTORE
+        nonzero -> nonzero on both);
+      - "set":   the to-slot zero before (SSTORE zero -> nonzero on the
+        credit side);
+      - "noop":  amount 0 (both SSTOREs write the current value).
+
+    The slots are seeded and committed first, so SSTORE sees committed
+    original values (EIP-2200 prices the reset paths by them).  Cached
+    per (chain id, variant, fork flags).  The native session runs
+    Apricot Phase 2 onward; earlier rules raise ``ValueError``."""
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device.tables import fork_key
+    from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
+    from coreth_tpu_torch.evm.hostexec.eligibility import (
+        COINBASE_WARM_FORKS)
+    rules = config.rules(number, time)
+    key = (config.chain_id, variant) + tuple(
+        getattr(rules, f) for f in sorted(vars(rules))
+        if f.startswith("is_"))
+    cached = _EXEC_GAS_CACHE.get(key)
+    if cached is not None:
+        return cached
+    fork = fork_key(rules)
+    if fork is None:
+        raise ValueError("measure_transfer_exec_gas: the native session "
+                         "runs Apricot Phase 2 onward")
+    sender, recip, token = b"\x11" * 20, b"\x22" * 20, b"\x33" * 20
+    coinbase = b"\x00" * 20
+    code = {token: TOKEN_RUNTIME, sender: b"", recip: b""}
+
+    def slot(_contract: bytes, _key: bytes) -> bytes:
+        return b"\x00" * 32
+
+    be = HostExecBackend(fork, config.chain_id, slot, code.get)
+    try:
+        be.set_env(coinbase, time, number, 8_000_000, 0)
+        be.set_code(token, TOKEN_RUNTIME)
+        be.seed_slot(token, balance_slot(sender),
+                     (10**20).to_bytes(32, "big"))
+        if variant != "set":
+            be.seed_slot(token, balance_slot(recip),
+                         (1).to_bytes(32, "big"))
+        be.commit()
+        warm = [sender, token]
+        if fork in COINBASE_WARM_FORKS:
+            warm.append(coinbase)
+        gas = 200_000
+        amount = 0 if variant == "noop" else 1000
+        r = be.call(sender, token, 0, 0, transfer_calldata(recip, amount),
+                    gas, warm_addrs=warm)
+    finally:
+        be.close()
+    if r.status != M.STOP:
+        raise RuntimeError(f"token gas probe failed: status {r.status}")
+    _EXEC_GAS_CACHE[key] = gas - r.gas_left
+    return _EXEC_GAS_CACHE[key]

@@ -228,7 +228,7 @@ def test_erc20_replay_on_the_card(cuda, device_occ):
     gb = genesis.to_block(store)
     eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
                        batch_pad=32, capacity=256, device=cuda,
-                       device_occ=device_occ)
+                       device_occ=device_occ, token_fastpath=False)
     launches, occ_launches = M.LAUNCHES, M.OCC_LAUNCHES
     root = eng.replay([Block.decode(b.encode()) for b in blocks])
     eng.close()
@@ -346,7 +346,8 @@ def test_spec_replay_on_the_card(cuda):
     store = StateStore()
     gb = genesis.to_block(store)
     eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
-                       batch_pad=32, capacity=256, device=cuda)
+                       batch_pad=32, capacity=256, device=cuda,
+                       token_fastpath=False)
     occ, spec = M.OCC_LAUNCHES, M.SPEC_LAUNCHES
     root = eng.replay([Block.decode(b.encode()) for b in blocks])
     eng.close()
@@ -438,7 +439,7 @@ def test_hot_contract_replay_on_a_4_shard_engine(cuda):
     gb = genesis.to_block(store)
     eng = ReplayEngine(CFG, store, parent_header=gb.header, batch_pad=32,
                        capacity=1024, window=16, device=cuda,
-                       mesh=make_mesh(4))
+                       mesh=make_mesh(4), token_fastpath=False)
     k6, k9, k9x = M.OCC_LAUNCHES, M.OCC_SHARDED_LAUNCHES, \
         M.SHARD_FLAGS_LAUNCHES
     root = eng.replay([Block.decode(b.encode()) for b in blocks])
@@ -451,3 +452,65 @@ def test_hot_contract_replay_on_a_4_shard_engine(cuda):
         >= mc["windows"] >= 1
     assert M.SHARD_FLAGS_LAUNCHES - k9x == mc["window_launches"]
     assert M.OCC_LAUNCHES == k6
+
+
+# ------------------------------------------------------------------ K8s
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "bad_nonce"])
+def test_sharded_steps_match_plain(cuda, n, case):
+    """K8s's two kernels against their plain versions: tables and ok
+    equal; an insolvent sender and slot, or a nonce off, clear ok."""
+    from coreth_tpu_torch import parallel as P
+    from coreth_tpu_torch.parallel import mesh as PM
+    rng = np.random.default_rng(n)
+    A = S = 1024
+    B = 64
+    t_np, coinbase, s_np = chip_smoke.k8s_inputs(rng, A, S, B)
+    t_np, s_np = [a.copy() for a in t_np], [a.copy() for a in s_np]
+    if case == "insolvent":
+        t_np[6][5] = t_np[0][t_np[2][5]]          # required = the balance
+        t_np[6][5, 0] += 1
+        s_np[3][0] = s_np[0][s_np[1][0]]          # amount = the value
+        s_np[3][0, 0] += 1
+    elif case == "bad_nonce":
+        t_np[7][3] += 1
+    targs = [torch.from_numpy(a).to(cuda) for a in t_np] + [coinbase]
+    sargs = [torch.from_numpy(a).to(cuda) for a in s_np]
+    mesh = P.make_mesh(n)
+    tl, sl = PM.TRANSFER_STEP_LAUNCHES, PM.SLOT_STEP_LAUNCHES
+    got_t = P.sharded_transfer_step(mesh, A)(*targs)
+    got_s = P.sharded_slot_step(mesh, S)(*sargs)
+    assert PM.TRANSFER_STEP_LAUNCHES == tl + 1
+    assert PM.SLOT_STEP_LAUNCHES == sl + 1
+    want_t = P.sharded_transfer_step_plain(*targs, n)
+    want_s = P.sharded_slot_step_plain(*sargs, n)
+    for g, w in zip(got_t + got_s, want_t + want_s):
+        assert torch.equal(g, w)
+    assert bool(got_t[2]) == (case == "ok")
+    assert bool(got_s[1]) == (case != "insolvent")
+
+
+@pytest.mark.parametrize("n", [1, 4])
+def test_token_fastpath_replay_on_the_card(cuda, n):
+    """ERC-20 transfer() blocks through the token fast path (the engine
+    default) on K1, or on K8 at n = 4: root equal, every block on the
+    window path, the machine never run."""
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay import shard as SH
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_erc20_chain(3, 32, 16)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=32, capacity=256, window=2, device=cuda,
+                       mesh=make_mesh(n) if n > 1 else None)
+    k1, k8 = E.LAUNCHES, SH.LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root
+    assert eng.stats.blocks_device == 3 and eng._machine is None
+    assert eng.storage_epoch == 3
+    assert (SH.LAUNCHES - k8 if n > 1 else E.LAUNCHES - k1) == 2

@@ -6,7 +6,8 @@ into the shared-slot pool, reverts, transfers in between) come from both
 chain builders and must be the same blocks. The reference
 ``ReplayEngine`` (``CORETH_NO_TOKEN_FASTPATH=1``, and
 ``CORETH_SERIAL_SHORTCIRCUIT=0`` so swaps take OCC too) and the port's
-engine (``device="cpu"``: the kernels' plain versions) replay the same
+engine (``device="cpu"``: the kernels' plain versions;
+``token_fastpath=False``) replay the same
 blocks one by one, both in the per-block OCC configuration
 (``CORETH_DEVICE_OCC=0`` / ``device_occ=False``: K5) and, where a case
 holds in both, also in the fused window configuration
@@ -142,7 +143,7 @@ def _replay_both(n_blocks, txs_of, extra=None, device_occ=False):
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu", device_occ=device_occ,
-                        specialize=False)
+                        specialize=False, token_fastpath=False)
     for rb in rblocks:
         ref.replay_block(rb)
         port.replay_block(Block.decode(rb.encode()))
@@ -259,7 +260,8 @@ def test_ineligible_block_raises_where_reference_falls_back(
     store = StateStore()
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
-                        batch_pad=64, device="cpu", device_occ=device_occ)
+                        batch_pad=64, device="cpu", device_occ=device_occ,
+                        token_fastpath=False)
     blocks = [Block.decode(b.encode()) for b in rblocks]
     with pytest.raises(ReplayError, match="not ported") as exc:
         port.replay(blocks)

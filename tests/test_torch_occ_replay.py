@@ -6,7 +6,7 @@ without specialisation (``CORETH_DEVICE_OCC=1``,
 ``CORETH_SPECIALIZE=0``; ``CORETH_NO_TOKEN_FASTPATH=1`` and
 ``CORETH_SERIAL_SHORTCIRCUIT=0`` so token calls and swaps take the
 machine), the port's engine runs ``device="cpu", device_occ=True,
-specialize=False`` (K6's plain version; tests/test_torch_specialize.py
+specialize=False, token_fastpath=False`` (K6's plain version; tests/test_torch_specialize.py
 covers ``specialize=True``). Both replay the same blocks: the roots of
 every window fold must agree with each other (and with the headers,
 which each fold checks), and the window counters (blocks, rounds,
@@ -100,7 +100,8 @@ def _port_engine(pgen, window=None, device_occ=True):
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, window=4, device="cpu",
-                        device_occ=device_occ, specialize=False)
+                        device_occ=device_occ, specialize=False,
+                        token_fastpath=False)
     if window is not None:
         port._machine_executor().WINDOW = window
     return port

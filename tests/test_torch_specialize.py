@@ -18,7 +18,8 @@ Mirrors tests/test_specialize.py, one layer at a time:
 - end to end: the chains of test_specialize.py's A/B tests replay
   through the port (``specialize=True``) and the reference
   (``CORETH_SPECIALIZE=1``; ``CORETH_NO_TOKEN_FASTPATH=1`` and
-  ``CORETH_SERIAL_SHORTCIRCUIT=0``, neither fast path is ported) with
+  ``CORETH_SERIAL_SHORTCIRCUIT=0``, with the port's ``token_fastpath=
+  False``: the machine takes every token call) with
   equal fold roots and counters, and the port's ``specialize=False``
   run lands the same roots.
 
@@ -510,7 +511,7 @@ def _port_replay(pgen, rblocks, window, specialize):
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, window=4, device="cpu",
-                        specialize=specialize)
+                        specialize=specialize, token_fastpath=False)
     if window is not None:
         port._machine_executor().WINDOW = window
     roots = _record_flushes(port.commit_pipe)
