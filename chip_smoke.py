@@ -58,7 +58,11 @@ Phases, each printing one JSON line:
    an unpremapped lane and five trailing inactive blocks; per-launch ms
    (CUDA events), device ms (``torch.profiler``), rounds per block,
    lane-steps, and the bound from the bytes this window's lanes need
-   (``_window_bound``);
+   (``_window_bound``); for window (a) the launch's init / exec / sweep /
+   write-back split (``occ_split.py``'s instrumented copy of the source,
+   built beside the kernels in phase build), the group it runs on (CTAs,
+   lanes a CTA, lane slots, staged lanes, shared memory a CTA), its
+   cluster barriers, and the generic library's ``ptxas`` lines;
 11. k7    — K6+K7, the variants generated for each window's program set
    (built by nvcc in parallel first; build seconds and ``ptxas`` lines),
    against the plain version with the same plain programs (tolerance 0:
@@ -70,7 +74,8 @@ Phases, each printing one JSON line:
    the interpreter, (d) 16 lanes of the keccak fan (ten host-evaluable
    keccaks, two past the kdig slots, and a device keccak), (e) lanes
    whose storage cache fills (HOST) and lanes out of gas at the first
-   lumped flush; per-launch ms, device ms, bound, plain ms;
+   lumped flush; per-launch ms, device ms, bound, plain ms; window (a)'s
+   split, group and barriers as in phase k6 (its variant instrumented);
 12. window, spec — the same ERC-20 chain through ``ReplayEngine(device=
    "cuda", device_occ=True)`` four times, in the order window, spec,
    spec, window: without K7 (``specialize=False``, phase window) and
@@ -114,14 +119,15 @@ the one card):
    zeroed, one call of each at n = 4 fed by the chain's first block as
    the token-path engine classifies it, the counters read, the results
    equal to the single-chip plain steps; ms, plain ms, bound;
-12b. k9    — the sharded OCC window (one cluster launch of n CTAs) against
-   its plain version on phase k6's window (a) packed by sharded runners at
-   n = 2, 4 and 8, with key-range placement off (the token on its
+12b. k9    — the sharded OCC window (one cluster launch of n x c CTAs)
+   against its plain version on phase k6's window (a) packed by sharded
+   runners at n = 2, 4 and 8, with key-range placement off (the token on its
    contract bucket, no sync set) and on (the token hot, with the sync
    set), in both modes, through the token's K7 variant and through the
    generic library: tables and packed rows equal (tolerance 0), lane-steps
    too on the variant; ms per window, the bound over the shards' lanes
-   and arenas (``_window_bound``), plain ms;
+   and arenas (``_window_bound``), plain ms; at n = 4 with the sync set
+   the split, group and barriers as in phase k6;
 12c. k9x   — the flags reduce against its plain version on every phase-k9
    output: (W, 2) flags equal; ms and the byte bound;
 13. shard_erc20 — the ERC-20 chain through the window path with K7 on a
@@ -1157,8 +1163,35 @@ def escape_lanes_window(dev, rng, lanes: int = 8):
     return _spec_runner(dev, committed).pack([(_block_env(0), specs)])
 
 
-def phase_k6(dev, genesis, blocks):
+# where chip_smoke builds its instrumented copies of occ_window.cu
+SPLIT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "coreth_tpu_torch", "csrc", "build", "split")
+
+
+def start_split_builds():
+    """``occ_split.py``'s instrumented copy of the generic K6 library
+    (counters at the phase boundaries of occ_window.cu), its nvcc
+    started now, beside the kernels' own builds."""
+    from coreth_tpu_torch import kernels
+    occ_split.instrument(kernels.CSRC, SPLIT_DIR)
+    return occ_split.start(SPLIT_DIR, {
+        "generic": os.path.join(SPLIT_DIR, "occ_window.cu")})
+
+
+def window_split(lib, info_lib, pk, spec, got, n=1, sync=None) -> dict:
+    """The launch's time split (instrumented copy, ``occ_split.split``),
+    the group it runs on (``occ_group_info`` of the real library) and
+    its cluster barriers."""
+    _b, _by, _steps, rounds = _window_bound(pk, got, n)
+    return {"split_ms": occ_split.split(lib, pk, spec, n, sync),
+            "group": occ_split.group(info_lib, pk, n),
+            "barriers_per_window": occ_split.barriers(
+                rounds, 0 if sync is None else int(sync.shape[0]))}
+
+
+def phase_k6(dev, genesis, blocks, split_lib):
     import torch
+    from coreth_tpu_torch import kernels
     from coreth_tpu_torch.evm.device import machine as M
     rng = np.random.default_rng(SEED + 6)
     windows = {"a_erc20_chain": window_from_chain(dev, genesis, blocks),
@@ -1211,7 +1244,14 @@ def phase_k6(dev, genesis, blocks):
                   "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
                   "library_ms": None}
     k6["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
+    pk = windows["a_erc20_chain"]
+    args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+    split = window_split(split_lib, kernels.load("occ_window"), pk, (),
+                         M.run_occ_window(*args))
     emit({"phase": "k6", "equal": True, "windows": rows,
+          "window_a": split,
+          "ptxas_generic": occ_split.ptxas_lines(
+              kernels.log_path("occ_window")),
           "ms_is": "window (a), CUDA events around the wrapper", **k6})
     return k6
 
@@ -1331,19 +1371,6 @@ def _window_bound(pk, got, n: int = 1):
     return bound_ms, bound_by, lane_steps, rounds
 
 
-def _kernel_ptxas(path: str):
-    """The ``-Xptxas -v`` lines of a K6 library's kernel entry: its
-    stack frame and spills, and its registers."""
-    out, take = [], False
-    with open(path) as f:
-        for ln in f:
-            if take or "registers" in ln:
-                out.append(ln.strip())
-            take = "Function properties for" in ln \
-                and "occ_window_kernel" in ln
-    return out
-
-
 def phase_k7(dev, genesis, blocks):
     """K6+K7 (the specialised variants) against the plain version with
     the same plain programs, tolerance 0, on five windows; window (a)
@@ -1360,12 +1387,18 @@ def phase_k7(dev, genesis, blocks):
                "d_keccak_fan": keccak_fan_window(dev, rng),
                "e_escapes": escape_lanes_window(dev, rng)}
     sets = {name: pk["spec"] for name, pk in windows.items()}
+    # window (a)'s variant, instrumented, beside the variants' builds
+    with open(os.path.join(SPLIT_DIR, "variant.cu"), "w") as f:
+        f.write(SP.variant(sets["a_erc20_chain"])[1])
+    split_build = occ_split.start(SPLIT_DIR, {
+        "variant": os.path.join(SPLIT_DIR, "variant.cu")})
     t0 = time.monotonic()
     took = kernels.build_generated(dict(SP.variant(s)
                                         for s in set(sets.values())))
     build_s = time.monotonic() - t0
+    split_lib = occ_split.finish(split_build)["variant"]
     variants = {name: SP.variant(spec)[0] for name, spec in sets.items()}
-    ptxas = {v: _kernel_ptxas(kernels.log_path(v))
+    ptxas = {v: occ_split.ptxas_lines(kernels.log_path(v))
              for v in set(variants.values())}
     rows, k7 = {}, None
     for name, pk in windows.items():
@@ -1418,6 +1451,8 @@ def phase_k7(dev, genesis, blocks):
             row["generic_device_ms"] = kernel_ms(
                 lambda: M.run_occ_window(*gargs), "occ_window", reps=5)
             row["generic_lane_steps"] = int(gen["steps"].sum())
+            row.update(window_split(split_lib, SP.occ_library(spec), pk,
+                                    spec, got))
             k7 = {"name": "occ_window_spec", "route": "cuda",
                   "source": "coreth_tpu_torch/evm/device/specialize.py",
                   "replaces": "coreth_tpu/evm/device/specialize.py:1152",
@@ -1435,9 +1470,10 @@ def phase_k7(dev, genesis, blocks):
     emit({"phase": "k7", "equal": True, "windows": rows,
           "variant_build_s": round(build_s, 3), "nvcc_seconds": took,
           "ptxas": ptxas,
-          "ptxas_generic": _kernel_ptxas(kernels.log_path("occ_window")),
+          "ptxas_generic": occ_split.ptxas_lines(
+              kernels.log_path("occ_window")),
           "ms_is": "window (a), CUDA events around the wrapper", **k7})
-    return k7
+    return k7, split_lib, sets["a_erc20_chain"]
 
 
 # ------------------------------------------------------------ K8, K8r
@@ -1647,7 +1683,7 @@ def sharded_windows(dev, genesis, blocks):
     return out
 
 
-def phase_k9(dev, windows):
+def phase_k9(dev, windows, split_libs):
     """K9 against its plain version on every window of
     ``sharded_windows``, in both modes, through the variant (K7 inside)
     and the generic library (every prog_id -1): tables and packed rows
@@ -1655,9 +1691,14 @@ def phase_k9(dev, windows):
     version runs once per window: its result does not depend on the mode
     (integer sums and maxes; tests/test_torch_shard_occ.py holds both
     modes against the reference).  Returns (the kernels-line entry, the
-    K9 outputs for phase k9x)."""
+    K9 outputs for phase k9x).  ``split_libs``: phase k6's and k7's
+    instrumented libraries (the variant's program set under "spec"); the
+    headline window's split runs on the variant when the window has that
+    program set, else on the generic library with every prog_id -1."""
     import torch
     from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch import kernels
+    from coreth_tpu_torch.evm.device import specialize as SP
     rows, k9, outs = {}, None, {}
     for (n, keyrange), pk in windows.items():
         args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
@@ -1717,6 +1758,16 @@ def phase_k9(dev, windows):
                 rows[key]["device_ms"] = kernel_ms(
                     lambda: M.run_occ_sharded(*args, spec, n, sync, mode),
                     "occ_sharded", reps=5)
+                if spec == split_libs["spec"]:
+                    rows[key].update(window_split(
+                        split_libs["variant"], SP.occ_library(spec), pk,
+                        spec, got, n, sync))
+                else:
+                    rows[key].update(window_split(
+                        split_libs["generic"], kernels.load("occ_window"),
+                        dict(pk, inputs=gen_in), (), gen, n, sync))
+                rows[key]["split_on"] = ("variant" if spec ==
+                                         split_libs["spec"] else "generic")
             if keyrange == (sync is None):
                 raise AssertionError(f"K9 n={n} keyrange={keyrange}: sync "
                                      f"rows {sync is not None}")
@@ -2136,6 +2187,8 @@ def main() -> int:
         return 2
     from coreth_tpu_torch import kernels, nativebuild
     from coreth_tpu_torch.crypto import native, secp_device
+    global occ_split
+    import occ_split
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.types import Block
@@ -2161,6 +2214,7 @@ def main() -> int:
 
     th = threading.Thread(target=build_native)
     th.start()
+    split_builds = start_split_builds()
     took = kernels.build()
     th.join()
     if native_box.get("path") is None or native.load() is None:
@@ -2315,8 +2369,10 @@ def main() -> int:
                                m_keys)
 
     # ---- 10.-11. K6, then K6+K7, against their plain versions
-    k6 = phase_k6(dev, m_genesis, m_blocks)
-    k7 = phase_k7(dev, m_genesis, m_blocks)
+    split_libs = occ_split.finish(split_builds)
+    k6 = phase_k6(dev, m_genesis, m_blocks, split_libs["generic"])
+    k7, split_libs["variant"], split_libs["spec"] = phase_k7(
+        dev, m_genesis, m_blocks)
 
     # ---- 12. the window path without K7 (window) and with it (spec,
     # the reference's default), in the order window, spec, spec, window
@@ -2341,7 +2397,8 @@ def main() -> int:
 
     # ---- 12b. K9 and K9x against their plain versions (phase k7 built
     # the token's variant, which holds K9 too)
-    k9, k9_outs = phase_k9(dev, sharded_windows(dev, m_genesis, m_blocks))
+    k9, k9_outs = phase_k9(dev, sharded_windows(dev, m_genesis, m_blocks),
+                           split_libs)
     k9x = phase_k9x(dev, k9_outs)
     del k9_outs
 

@@ -92,12 +92,12 @@ __device__ __forceinline__ bool spec_live(const SpecLane& L) {
   return !L.err && !L.hosty;
 }
 
-// The path's start (reference _Tracer.run): the lane's row seeded as K5
-// seeds it, its full gas, nothing charged, refunded, logged or escaped.
+// The path's start (reference _Tracer.run): the lane's full gas,
+// nothing charged, refunded, logged or escaped.  The window has already
+// seeded the lane's row as K5 seeds it (occ_window.cu's exec phase).
 __device__ __noinline__ void spec_begin(const MachineIn& in,
                                         const MachineDims& d, int i,
                                         int32_t* row, SpecLane* L) {
-  sm_seed_row(in, d, i, row);
   L->gas = in.start_gas[i];
   L->refund = 0;
   L->host_reason = R_NONE;

@@ -33,7 +33,7 @@ __global__ void step_machine_kernel(MachineIn in, MachineDims d,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= d.B) return;
   steps[i] = sm_run_lane(in, d, i, packed + (size_t)i * d.width,
-                         arena + (size_t)i * d.arena_w);
+                         arena + (size_t)i * d.arena_w, false);
 }
 
 }  // namespace

@@ -12,11 +12,19 @@
 //
 // State: pc/gas/sp/msize/counters in registers; the stack (8 x u32
 // words per slot), memory bytes and the transient cache in the lane's
-// scratch arena in device memory; the storage cache and the log pool
-// directly in the lane's packed output row, in the reference's 16-bit
-// limb layout (storage ops are a handful per tx, so converting at each
-// access is cheap).  Arithmetic goes through u256x.cuh (K4), SHA3
-// through keccak.cuh (K3).
+// scratch arena: in shared memory under the fused window (occ_window.cu
+// gives each lane thread a slot of its CTA's dynamic shared memory,
+// slots an odd number of words apart so that lanes at the same offset
+// hit different banks), in device memory under K5's batch kernel
+// (step_machine.cu).  Nothing is zeroed up front: the stack is never
+// read at or above sp, the transient cache never past its count, and
+// memory is zeroed word by word only as far as msize grows (every read
+// lies below the new msize), so a lane pays for the memory it touches,
+// not for mem_cap.  The storage cache and the log pool live directly in
+// the lane's packed output row, in the reference's 16-bit limb layout
+// (storage ops are a handful per tx, so converting at each access is
+// cheap).  Arithmetic goes through u256x.cuh (K4), SHA3 through
+// keccak.cuh (K3).
 
 #pragma once
 
@@ -123,9 +131,11 @@ __device__ __forceinline__ void sm_seed_row(const MachineIn& in,
 }
 
 // Run lane i; returns the steps it executed.  `row` is the lane's
-// packed output row, `arena` its scratch bytes.
+// packed output row, `arena` its scratch bytes; `seeded`: the caller has
+// already written the row's storage cache and cleared its log pool
+// (sm_seed_row's work).
 __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
-                           int32_t* row, uint8_t* arena) {
+                           int32_t* row, uint8_t* arena, bool seeded) {
   const int S = d.S, LC = d.LC, LD = d.LD, TC = d.TC;
   const int CW = d.code_cap + 33;
   const RowLayout o = sm_row_layout(d);
@@ -145,10 +155,8 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
   uint8_t* mem = arena + (size_t)d.stack_cap * 32;
   u256* tkey = (u256*)(mem + d.mem_cap);
   u256* tval = tkey + TC;
-  for (int k = 0; k < d.mem_cap / 4; ++k) ((uint32_t*)mem)[k] = 0;
-  for (int k = 0; k < d.stack_cap; ++k) stack[k] = u256_zero();
 
-  sm_seed_row(in, d, i, row);
+  if (!seeded) sm_seed_row(in, d, i, row);
 
   int pc = 0, gas = in.start_gas[i], sp = 0, msize = 0, refund = 0;
   int status = in.active[i] ? SM_RUN : SM_SKIP, hreason = R_NONE;
@@ -246,6 +254,9 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
       status = SM_ERR;
       break;
     }
+    // memory grows: its new words read as zero
+    if (!m_host && need > 0)
+      for (int k = msize / 4; k < new_msize / 4; ++k) ((uint32_t*)mem)[k] = 0;
 
     // ---- values, storage and transient families (ok_pre lanes)
     u256 val = zero;

@@ -761,10 +761,10 @@ _EXEC_KEYS = ("code", "jdest", "code_len", "calldata", "data_len",
               "gaslimit", "coinbase_w", "basefee_w")
 
 # Integer operations the kernel spends per lane per validation sweep,
-# per storage-cache entry: the table/overlay gather (stamp test + 16
-# limbs), the 16-limb compare against ``sorig``, the flag tests and the
-# seed or overlay write.  The K6 bound uses it with the rounds each block
-# ran.
+# per storage-cache entry: the gather of its current value (16 limbs of
+# the table or of an earlier writer's row), the 16-limb compare against
+# ``sorig``, the flag and key-index tests and the seed write.  The K6
+# bound uses it with the rounds each block ran.
 OPS_PER_SWEEP_ENTRY = 60
 
 OCC_LAUNCHES = 0
@@ -988,9 +988,9 @@ def _check_window(what: str, p: MachineParams, occ: OccParams,
                              f"{shapes[k]}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
-    if dev.type == "cuda" and S * LIMBS * 4 > 48 * 1024:
-        raise ValueError(f"{what}: scache_cap {S} exceeds the sweep's "
-                         "shared-memory row buffer")
+    if dev.type == "cuda" and p.batch * S > 32768:
+        raise ValueError(f"{what}: batch {p.batch} x scache_cap {S} "
+                         "entries exceed the sweep's key index (32768)")
     return dev
 
 
@@ -1017,7 +1017,7 @@ def run_occ_window(p: MachineParams, occ: OccParams, table: torch.Tensor,
     args, out = occ_launch_args(p, occ, table, key_tab, blocks_in)
     rc = lib.occ_window_launch(
         *pointers(args), torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(rc, "occ_window")
+    _check_group(rc, "occ_window", 1)
     OCC_LAUNCHES += 1
     SPEC_LAUNCHES += bool(spec)
     return out
@@ -1053,27 +1053,49 @@ def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
     packed = torch.empty((W, NB, p.width + 4), dtype=torch.int32,
                          device=dev)
     steps = torch.empty((W, NB), dtype=torch.int32, device=dev)
-    arena = torch.empty(
-        (NB, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32),
-        dtype=torch.uint8, device=dev)
-    # scratch: the lanes' storage-cache inputs (keys, seeds, flags, key
-    # counts), the pending mask, and the sweep's per-row overlay
-    # (values + the stamp of the sweep that wrote them)
+    # scratch: the lanes' seeds, each shard's pending flags (B, padded)
+    # and go flag, and each shard's sweep area for when it does not fit
+    # in shared memory (the lane state always lives there)
     i32 = dict(dtype=torch.int32, device=dev)
-    skey0 = torch.empty((NB, S, LIMBS), **i32)
     seeds = torch.empty((NB, S, LIMBS), **i32)
-    lanes_i = torch.empty((n, 4, B), **i32)     # nkeys, pending, ok, esc
-    sflag0 = torch.empty((NB, S), **i32)
-    ov = torch.empty((n * G, LIMBS), **i32)
-    stamp = torch.zeros((n * G,), **i32)
+    lanes_i = torch.zeros((n * (B + 32) + n,), **i32)
+    sweep_b = sweep_bytes(B, S)
+    sweep = torch.empty((n * sweep_b,), dtype=torch.uint8, device=dev)
     dims = np.array([B, p.stack_cap, p.mem_cap, p.code_cap, p.data_cap, S,
                      TC, p.log_cap, p.log_data_cap, p.keccak_cap,
                      p.copy_cap, p.max_steps, int(p.refunds), 0, 0, 0,
-                     p.width, arena.shape[1], W, G, occ.rounds],
-                    dtype=np.int32)
+                     p.width, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32,
+                     W, G, occ.rounds, sweep_b], dtype=np.int32)
     args = lane + [env, scal, tables, key_tab, dims, out_table, packed,
-                   steps, arena, skey0, seeds, sflag0, lanes_i, ov, stamp]
+                   steps, seeds, lanes_i, sweep]
     return args, dict(table=out_table, packed=packed, steps=steps)
+
+
+def sweep_bytes(B: int, S: int) -> int:
+    """Bytes of one shard's sweep area (``occ_window.cu``
+    ``sweep_layout``): four int16 columns a lane entry (its key, its
+    place in the sorted index, its speculated writer, the entry at that
+    place), three int32 columns a key, the lanes' flags and entry
+    bitsets, the scan scratch, and the sort buffer of the block's
+    entries."""
+    def r16(v):
+        return (v + 15) // 16 * 16
+    N, SW = B * S, (S + 31) // 32
+    N2 = 1 << max(N - 1, 0).bit_length()
+    return 4 * r16(2 * N) + 3 * r16(4 * N) + r16(4 * B) \
+        + 2 * r16(4 * B * SW) + r16(256 * 4) + 64 + 8 * N2
+
+
+def _check_group(rc: int, what: str, n: int) -> None:
+    """Raise on the launch's return code: -1 no cluster of the group
+    fits on the card, -3 no shared-memory layout fits, -4 the sweep
+    buffer is short, else a cudaError."""
+    if rc == -1:
+        raise RuntimeError(f"{what}: no cluster of {n} shard(s) fits on "
+                           "this card")
+    if rc in (-3, -4):
+        raise RuntimeError(f"{what}: no group layout fits (code {rc})")
+    kernels.check(rc, what)
 
 
 def pointers(args):
@@ -1250,10 +1272,7 @@ def run_occ_sharded(p: MachineParams, occ: OccParams, table: torch.Tensor,
         n, X, rows.data_ptr(), pre.data_ptr(),
         xc.data_ptr(), xv.data_ptr(), *pointers(args),
         torch.cuda.current_stream(dev).cuda_stream)
-    if rc == -1:
-        raise RuntimeError(f"occ_sharded: no cluster of {n} CTAs fits on "
-                           "this card")
-    kernels.check(rc, "occ_sharded")
+    _check_group(rc, "occ_sharded", n)
     OCC_SHARDED_LAUNCHES += 1
     return out
 

@@ -184,13 +184,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.step_machine_launch.argtypes = [P] * 24
         lib.step_machine_launch.restype = I
     elif name == "occ_window" or name.startswith("occ_window_spec_"):
-        lib.occ_window_launch.argtypes = [P] * 31
+        lib.occ_window_launch.argtypes = [P] * 27
         lib.occ_window_launch.restype = I
-        # K9 (n, X, rows, pre, xc, xv, K6's 30, stream) and K9x
-        lib.occ_sharded_launch.argtypes = [I, I] + [P] * 35
+        # K9 (n, X, rows, pre, xc, xv, K6's 26, stream) and K9x
+        lib.occ_sharded_launch.argtypes = [I, I] + [P] * 31
         lib.occ_sharded_launch.restype = I
         lib.shard_flags_launch.argtypes = [P, P, I, I, I, I, P, P]
         lib.shard_flags_launch.restype = I
+        lib.occ_group_info.argtypes = [I, P, P]
+        lib.occ_group_info.restype = I
 
 
 def load(name: str, source: Optional[str] = None) -> ctypes.CDLL:

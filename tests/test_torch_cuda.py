@@ -309,6 +309,35 @@ def test_occ_window_kernel_on_chip_smoke_windows(cuda):
         _occ_both(pk)
 
 
+@pytest.mark.parametrize("spec", [False, True])
+@pytest.mark.parametrize("name", sorted(C.SWEEP_CASES))
+def test_occ_window_kernel_sweep_cases(cuda, name, spec):
+    """The sweep's cases of the host build (tests/test_torch_shard_occ.py
+    ``test_host_build_sweep_matches_plain``) on the card: 32 lanes a
+    block, a group of two CTAs, generic and on the shared program set's
+    variant."""
+    _occ_both(C.pack_window(name, device=cuda, batch=32,
+                            spec_codes=C.SPEC_CODES if spec else None))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_occ_sharded_kernel_sweep_cases(cuda, n):
+    """K9 over n shards of 32 lanes each running a sweep case (a cluster
+    of n x 2 CTAs), against the plain version."""
+    from coreth_tpu_torch.evm.device import machine as M
+    w = C.sharded_window(n, False, names=["early_writer_later_reader",
+                                          "last_valid_writer_wins"],
+                         batch=32)
+    want = M.occ_sharded_plain(w["p"], w["occ"], w["table"], w["key_tab"],
+                               w["inputs"], w["spec"], n, None)
+    got = M.run_occ_sharded(w["p"], w["occ"], w["table"].to(cuda),
+                            w["key_tab"].to(cuda),
+                            {k: v.to(cuda) for k, v in w["inputs"].items()},
+                            w["spec"], n)
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
 # ------------------------------------------------------------------- K7
 @pytest.mark.parametrize("name", sorted(C.WINDOW_CASES))
 def test_occ_spec_kernel_matches_plain(cuda, name):

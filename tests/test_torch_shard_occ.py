@@ -24,9 +24,6 @@ version.  tests/test_torch_cuda.py runs the kernels on the card.
 
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -58,6 +55,7 @@ from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import Block
 from coreth_tpu_torch.workloads import hot_contract as thot
 
+import occ_host_build as H
 import torch_machine_cases as C
 from test_torch_machine_replay import ADDRS, POOL, RCFG, TOKEN, _chains
 from test_torch_occ_replay import COUNTERS, _record_flushes
@@ -201,129 +199,16 @@ def test_sharded_wrappers_refuse_bad_shapes():
 
 
 # ------------------------------------------------------ host build of K9
-_SHIM = r"""
-#include <algorithm>
-#include <barrier>
-#include <cstddef>
-#include <cstdint>
-#include <thread>
-#include <vector>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __restrict__
-#define __launch_bounds__(x)
-#define __constant__ static const
-#define __shared__ static thread_local
-using std::max;
-struct Dim3Shim { unsigned x, y, z; };
-inline Dim3Shim dim3(unsigned x, unsigned y, unsigned z) { return {x, y, z}; }
-static thread_local Dim3Shim threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
-static Dim3Shim blockDim = {1, 1, 1};
-static thread_local Dim3Shim gridDim = {1, 1, 1};
-inline void __syncthreads() {}
-inline void __syncwarp() {}
-inline int __syncthreads_or(int p) { return p; }
-inline bool __any_sync(unsigned, bool p) { return p; }
-inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
-inline void __trap() { __builtin_trap(); }
-template <class T> T atomicOr(T* p, T v) { T o = *p; *p = o | v; return o; }
-template <class T> T __ldcg(const T* p) { return *p; }
-template <class T> void __stcg(T* p, T v) { *p = v; }
-typedef void* cudaStream_t;
-typedef int cudaError_t;
-constexpr int cudaSuccess = 0;
-inline int cudaGetLastError() { return 0; }
-static std::barrier<>* shim_barrier = nullptr;
-namespace cooperative_groups {
-struct cluster_group {
-  unsigned block_rank() const { return blockIdx.x; }
-  unsigned num_blocks() const { return gridDim.x; }
-  void sync() const { shim_barrier->arrive_and_wait(); }
-};
-inline cluster_group this_cluster() { return {}; }
-}
-enum { cudaLaunchAttributeClusterDimension = 4 };
-struct cudaLaunchAttribute {
-  int id;
-  struct { struct { unsigned x, y, z; } clusterDim; } val;
-};
-struct cudaLaunchConfig_t {
-  Dim3Shim gridDim, blockDim;
-  size_t dynamicSmemBytes;
-  cudaStream_t stream;
-  cudaLaunchAttribute* attrs;
-  unsigned numAttrs;
-};
-inline int cudaOccupancyMaxActiveClusters(int* n, const void*,
-                                          const cudaLaunchConfig_t*) {
-  *n = 1;
-  return 0;
-}
-template <class... P, class... A>
-int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
-                       A&&... args) {
-  const unsigned n = cfg->gridDim.x;
-  std::barrier<> bar(n);
-  shim_barrier = &bar;
-  std::vector<std::thread> cta;
-  for (unsigned b = 0; b < n; ++b)
-    cta.emplace_back([&, b] {
-      gridDim = {n, 1, 1};
-      blockIdx = {b, 0, 0};
-      k(args...);
-    });
-  for (auto& t : cta) t.join();
-  return 0;
-}
-template <class K, class... A>
-void host_grid(unsigned g, K k, A... args) {
-  gridDim = {g, 1, 1};
-  for (unsigned b = 0; b < g; ++b) {
-    blockIdx = {b, 0, 0};
-    k(args...);
-  }
-}
-"""
-
-
-def _host_source(src: str) -> str:
-    """``csrc/occ_window.cu`` for the host: one thread per CTA (the
-    sweep's warp stride 1), per-CTA shared memory thread-local, the
-    launches plain calls."""
-    src = src.replace("#include <cuda_runtime.h>", "")
-    src = src.replace("#include <cooperative_groups.h>", "")
-    src = src.replace("extern __shared__ int32_t cur_sh[];",
-                      "static thread_local int32_t cur_sh[64 * 16];")
-    src = src.replace("e += 32)", "e += 1)")
-    src = src.replace(
-        "shard_flags_kernel<<<W, 256, 0, (cudaStream_t)stream>>>(",
-        "host_grid(W, shard_flags_kernel, ")
-    return re.sub(r"<<<[^>]*>>>", "", src)
-
-
 @pytest.fixture(scope="module")
 def host_k9(tmp_path_factory):
     """K6, K9 and K9x of ``csrc/occ_window.cu`` built for the host
-    (``OCC_HOST_CLUSTER``), each CTA of K9's cluster a host thread."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+    (``tests/occ_host_build.py``), each CTA of the launch's cluster a
+    host thread."""
+    if H.gxx() is None:
         pytest.skip("needs g++")
     tmp = tmp_path_factory.mktemp("host_k9")
-    for fn in os.listdir(kernels.CSRC):
-        if fn.endswith((".cu", ".cuh")):
-            with open(os.path.join(kernels.CSRC, fn)) as f:
-                src = f.read()
-            if fn == "occ_window.cu":
-                src = _SHIM + _host_source(src)
-                fn = "occ_window.cpp"
-            (tmp / fn).write_text(src)
     out = tmp / "libocc_window.so"
-    r = subprocess.run([gxx, "-std=c++20", "-O1", "-w", "-shared", "-fPIC",
-                        "-DOCC_HOST_CLUSTER", "-I", str(tmp), "-o", str(out),
-                        str(tmp / "occ_window.cpp"), "-lpthread"],
-                       capture_output=True, text=True)
+    r = H.build(str(tmp), '#include "occ_window.cu"\n', str(out), "-O1")
     assert r.returncode == 0, r.stderr[:4000]
     lib = ctypes.CDLL(str(out))
     kernels._declare("occ_window", lib)
@@ -368,13 +253,53 @@ def test_host_build_of_k9_matches_plain(host_k9, sync, mode):
 
 
 def test_host_build_of_k9_runs_k6_unchanged(host_k9):
-    """The K6 entry of the same build, after the window body moved into
-    ``occ_block``, equals K6's plain version."""
+    """The K6 entry of the same build (K6 and K9 share the group body
+    ``occ_group``) equals K6's plain version."""
     pk = C.pack_window("chained_blocks")
     args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
     largs, got = tM.occ_launch_args(*args)
     assert host_k9.occ_window_launch(*tM.pointers(largs), None) == 0
     want = tM.occ_run_plain(*args)
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k], want[k]), k
+
+
+# block 0's rounds, escapes and pending lanes in each sweep case (the
+# plain version's), so a case that stopped pinning its shape fails
+_SWEEP_SHAPES = {"disjoint_wide": (1, 0, 0),
+                 "early_writer_later_reader": (2, 0, 0),
+                 "escape_before_dependent": (1, 1, 1),
+                 "last_valid_writer_wins": (3, 0, 0),
+                 "write_only_overlap": (2, 0, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(C.SWEEP_CASES))
+def test_host_build_sweep_matches_plain(host_k9, name):
+    """K6 on blocks of 32 lanes, a group of two CTAs of 16 lanes, each
+    case of the sweep that walks in order only the lanes an earlier
+    potential writer can touch (``torch_machine_cases.SWEEP_CASES``):
+    table, packed rows and lane-steps equal to ``occ_run_plain``
+    (tolerance 0)."""
+    pk = C.pack_window(name, batch=32)
+    args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+    largs, got = tM.occ_launch_args(*args)
+    assert host_k9.occ_window_launch(*tM.pointers(largs), None) == 0
+    want = tM.occ_run_plain(*args)
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    extra = want["packed"][0, :, -4:]
+    assert (int(extra[0, 3]), int(extra[:, 1].sum()),
+            int(extra[:, 2].sum())) == _SWEEP_SHAPES[name]
+
+
+def test_host_build_of_k9_runs_the_sweep_cases(host_k9):
+    """K9 with two shards of 32 lanes (a cluster of 2 x 2 CTAs as host
+    threads) over two sweep cases: equal to the plain version."""
+    w = C.sharded_window(2, False, names=["early_writer_later_reader",
+                                          "last_valid_writer_wins"],
+                         batch=32)
+    got, flags = _run_host_k9(host_k9, w, "psum")
+    want = _plain(w, "psum")
     for k in ("table", "packed", "steps"):
         assert torch.equal(got[k], want[k]), k
 

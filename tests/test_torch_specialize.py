@@ -28,17 +28,15 @@ numpy from fixed seeds.
 
 The generated CUDA (``specialize.cuda_source``) cannot run here, but its
 device code is plain C++: g++ checks the translation unit of K6 with
-the programs of the token, the pool and the keccak fan, and a one-thread
-host build of it (CUDA spellings shimmed as plain C++, ``_GXX_SHIM``) runs
-windows through ``machine.occ_launch_args`` and must equal the plain
-version.  tests/test_torch_cuda.py runs the same on the card.
+the programs of the token, the pool and the keccak fan, and a host build
+of it (``tests/occ_host_build.py``: CUDA spellings shimmed as plain C++,
+each CTA of the window's cluster a host thread) runs windows through
+``machine.occ_launch_args`` and must equal the plain version.
+tests/test_torch_cuda.py runs the same on the card.
 """
 
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -55,6 +53,7 @@ from coreth_tpu.evm.device import machine as jM
 from coreth_tpu.evm.device import specialize as jSP
 from coreth_tpu.evm.device import tables as jtables
 
+from coreth_tpu_torch import kernels
 from coreth_tpu_torch.evm.device import adapter as A
 from coreth_tpu_torch.evm.device import machine as tM
 from coreth_tpu_torch.evm.device import specialize as SP
@@ -64,6 +63,7 @@ from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import Block
 
 import chip_smoke
+import occ_host_build as H
 import torch_machine_cases as C
 from torch_machine_cases import lane, push
 from test_torch_machine_replay import ADDRS, POOL, TOKEN, _chains
@@ -590,66 +590,16 @@ def test_unresolvable_jump_escapes_match_reference(spec_env):
 
 
 # ------------------------------------------------------- generated CUDA
-# CUDA spellings as plain C++ for one host thread: the kernel's lane loop
-# runs every lane, warp votes are the lane's own value
-_GXX_SHIM = r"""
-#include <cstddef>
-#include <cstdint>
-#define __device__
-#define __global__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(x)
-#define __constant__ static const
-struct Dim3Shim { unsigned x; };
-static Dim3Shim threadIdx = {0}, blockDim = {1};
-inline void __syncthreads() {}
-inline void __syncwarp() {}
-inline int __syncthreads_or(int p) { return p; }
-inline bool __any_sync(unsigned, bool p) { return p; }
-inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
-inline void __trap() { __builtin_trap(); }
-typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
-"""
-
-
-def _host_unit(tmp, spec) -> str:
-    """csrc/ with K6's launch shimmed (shared row buffer, the sweep's
-    warp stride, the <<<>>> launch), and the generated unit behind the
-    shim; returns the unit's path."""
-    from coreth_tpu_torch.kernels import CSRC
-    for fn in os.listdir(CSRC):
-        if fn.endswith((".cu", ".cuh")):
-            with open(os.path.join(CSRC, fn)) as f:
-                src = f.read()
-            if fn == "occ_window.cu":
-                src = src.replace("#include <cuda_runtime.h>", "")
-                src = src.replace("extern __shared__ int32_t cur_sh[];",
-                                  "static int32_t cur_sh[64 * 16];")
-                src = src.replace("__shared__ int s_go;", "static int s_go;")
-                src = src.replace("e += 32)", "e += 1)")
-                src = re.sub(r"<<<[^>]*>>>", "", src)
-            with open(os.path.join(tmp, fn), "w") as f:
-                f.write(src)
-    unit = os.path.join(tmp, "unit.cpp")
-    with open(unit, "w") as f:
-        f.write(_GXX_SHIM + SP.cuda_source(spec))
-    return unit
-
-
+# The generated unit built for the host by tests/occ_host_build.py (each
+# CTA of the window's cluster a host thread).
 @pytest.fixture(scope="module")
 def gxx():
-    path = shutil.which("g++")
-    if path is None:
+    if H.gxx() is None:
         pytest.skip("needs g++")
-    return path
 
 
-def _gxx(gxx, tmp, spec, *flags):
-    unit = _host_unit(str(tmp), spec)
-    r = subprocess.run([gxx, "-std=c++17", "-w", "-I", str(tmp), *flags,
-                        unit], capture_output=True, text=True)
+def _gxx(tmp, spec, out=None, *flags):
+    r = H.build(str(tmp), SP.cuda_source(spec), out, *flags)
     assert r.returncode == 0, r.stderr[:4000]
 
 
@@ -659,7 +609,7 @@ def test_generated_cuda_compiles(gxx, tmp_path, name):
     src = SP.cuda_source(spec)
     assert "spec_prog_0" in src and "spec_prog_1" not in src
     assert '#include "occ_window.cu"' in src
-    _gxx(gxx, tmp_path, spec, "-fsyntax-only")
+    _gxx(tmp_path, spec, None, "-fsyntax-only")
 
 
 def test_generated_cuda_runs_like_the_plain_version(gxx, tmp_path):
@@ -677,11 +627,9 @@ def test_generated_cuda_runs_like_the_plain_version(gxx, tmp_path):
         if spec not in libs:
             out = tmp_path / f"lib{len(libs)}"
             out.mkdir()
-            _gxx(gxx, out, spec, "-O1", "-shared", "-fPIC", "-o",
-                 str(out / "libk.so"))
+            _gxx(out, spec, str(out / "libk.so"), "-O1")
             libs[spec] = ctypes.CDLL(str(out / "libk.so"))
-            libs[spec].occ_window_launch.argtypes = [ctypes.c_void_p] * 31
-            libs[spec].occ_window_launch.restype = ctypes.c_int
+            kernels._declare("occ_window", libs[spec])
         args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
         largs, got = tM.occ_launch_args(*args)
         assert libs[spec].occ_window_launch(*tM.pointers(largs), None) == 0

@@ -303,6 +303,55 @@ WINDOW_CASES: Dict[str, List[List[dict]]] = {
 }
 
 
+# Blocks wider than one CTA of the window kernel's group (16 lanes a
+# CTA: lanes 0-15 and 16-31 land on different CTAs at batch 32), each
+# pinning one case of the sweep that walks in order only the lanes an
+# earlier potential writer can touch.
+def _blind(slot: int, value: int, premap=(), caller=0, gas=60_000) -> dict:
+    """SSTORE ``value`` into ``slot`` of CONTRACT without an SLOAD;
+    ``premap`` slots ride in the lane's cache (touched or not)."""
+    return lane(push(value) + push(slot) + "55" + "00", gas=gas,
+                storage={_k(s): 1000 + s for s in premap},
+                caller=_holder(700 + caller),
+                premap=[_k(s) for s in premap])
+
+
+def _fill(n: int, base: int) -> list:
+    return [_xfer(base + 2 * j, base + 2 * j + 1, 3 + j) for j in range(n)]
+
+
+SWEEP_CASES: Dict[str, List[List[dict]]] = {
+    # lane 3 (CTA 0) pays holder 301, whom lane 20 (CTA 1) then pays
+    # from: the later reader re-runs on the earlier writer's value
+    "early_writer_later_reader": [
+        _fill(3, 200) + [_xfer(300, 301, 40)] + _fill(16, 220)
+        + [_xfer(301, 302, 25)] + _fill(6, 260)],
+    # two writers of holder 311's balance in two CTAs, and a third that
+    # errs (out of gas): the last valid writer's value is the table's
+    "last_valid_writer_wins": [
+        _fill(2, 400) + [_xfer(310, 311, 7)] + _fill(15, 420)
+        + [_xfer(312, 311, 9)] + _fill(4, 460)
+        + [_xfer(313, 311, 11, gas=10_000)] + _fill(3, 480)],
+    # lane 1 writes slot 4, lane 2 slot 3; lane 20 writes slot 3 with
+    # slot 4 premapped but untouched (it re-runs, seeded with both
+    # earlier writes); lane 21 overlaps the writers only in slot 4,
+    # which it carries and neither reads nor writes
+    "write_only_overlap": [
+        [_xfer(500, 501, 1), _blind(4, 9, (4,), 1), _blind(3, 8, (3,), 2)]
+        + _fill(17, 520)
+        + [_blind(3, 5, (3, 4), 3), _blind(5, 6, (5, 4), 4)]
+        + _fill(5, 560)],
+    # 32 transfers between distinct holders: every lane independent
+    "disjoint_wide": [_fill(32, 600), _fill(20, 680)],
+    # lane 4 escapes HOST in the first round, before lane 22, which
+    # depends on lane 1's write: the round still validates lane 22
+    "escape_before_dependent": [
+        [_xfer(800, 801, 5), _xfer(802, 803, 6), _fill(1, 810)[0],
+         _xfer(804, 805, 7), lane(ESCAPER_CODE, caller=_holder(806))]
+        + _fill(17, 820) + [_xfer(803, 807, 3)] + _fill(5, 870)],
+}
+
+
 # The program set every WINDOW_CASES window shares when it specialises
 # (the reference compiles its window program once for all of them):
 # each eligible code of the cases, in a fixed order.
@@ -384,7 +433,8 @@ WINDOW_SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
 WINDOW_BLOCKS = 4
 
 
-def pack_window(name: str, device="cpu", spec_codes=None) -> dict:
+def pack_window(name: str, device="cpu", spec_codes=None,
+                batch: int = WINDOW_SHAPE["batch"]) -> dict:
     """Window case ``name`` packed by the port's ``MachineWindowRunner``
     at ``WINDOW_SHAPE``: {p, occ, table, key_tab, inputs, spec, ...}.
     Without ``spec_codes`` every lane runs the generic interpreter
@@ -396,13 +446,15 @@ def pack_window(name: str, device="cpu", spec_codes=None) -> dict:
     process learned."""
     from coreth_tpu_torch.evm.device import adapter as A
     A.RECIPES.clear()
-    blocks = WINDOW_CASES[name] if isinstance(name, str) else name
+    blocks = (WINDOW_CASES.get(name) or SWEEP_CASES[name]
+              if isinstance(name, str) else name)
     runner = A.MachineWindowRunner(
         "durango", resolver_for([ln for b in blocks for ln in b]),
         device=device, specialize=spec_codes is not None)
     for code in spec_codes or ():
         runner._spec_id(code)
-    runner._hw.update(blocks=WINDOW_BLOCKS, **WINDOW_SHAPE)
+    runner._hw.update(blocks=WINDOW_BLOCKS, **dict(WINDOW_SHAPE,
+                                                   batch=batch))
     return runner.pack(window_items(blocks, A.TxSpec, A.BlockEnv))
 
 
@@ -434,9 +486,10 @@ def env(BlockEnv):
 
 
 def sharded_window(n: int, sync: bool, seed: int = 0, spec_codes=None,
-                   device="cpu") -> dict:
+                   device="cpu", names=None, batch: int = 8) -> dict:
     """A sharded window of K9's layout: shard d runs window case
-    ``sorted(WINDOW_CASES)[d % 6]`` on its lanes and its arena (every
+    ``names[d % len(names)]`` (default ``sorted(WINDOW_CASES)``, packed
+    at ``batch`` lanes) on its lanes and its arena (every
     case packs to ``WINDOW_SHAPE``, ``WINDOW_BLOCKS`` blocks and a
     64-row table, and their blocks' inputs agree where they have lanes).  With ``sync`` a
     key-range sync set of 64 rows: each shard's first (up to) three
@@ -448,9 +501,9 @@ def sharded_window(n: int, sync: bool, seed: int = 0, spec_codes=None,
     import numpy as np
     import torch
     from coreth_tpu_torch.evm.device import machine as M
-    names = sorted(WINDOW_CASES)
-    pks = [pack_window(names[d % len(names)], spec_codes=spec_codes)
-           for d in range(n)]
+    names = names or sorted(WINDOW_CASES)
+    pks = [pack_window(names[d % len(names)], spec_codes=spec_codes,
+                       batch=batch) for d in range(n)]
     p, occ, spec = pks[0]["p"], pks[0]["occ"], pks[0]["spec"]
     G = occ.table_cap
     # block inputs: those of the longest case (a block where a case has
