@@ -51,18 +51,22 @@ Phases, each printing one JSON line:
    counter rising during the replay; txs/s over the whole replay and
    after the first fold (``steady_txs_per_s``);
 10. k6    — the fused OCC window against its plain version (tolerance 0:
-   table, packed rows, lane-steps) on three windows: (a) the ERC-20
+   table, packed rows, lane-steps) on four windows: (a) the ERC-20
    chain's first 8 blocks x 256 lanes with the premaps the window runner
    learns from them, (b) two blocks of 8 swaps (full conflict, one lane
    per round), (c) three blocks of 16 ERC-20 transfers with a HOST lane,
-   an unpremapped lane and five trailing inactive blocks; per-launch ms
+   an unpremapped lane and five trailing inactive blocks, (d) the
+   chain's first 2 blocks at 256 lanes x 256 cache entries (the sticky
+   bucket after a tx with over 120 premapped keys: B*S past 32768, so
+   the sweep's index columns are int32); per-launch ms
    (CUDA events), device ms (``torch.profiler``), rounds per block,
    lane-steps, and the bound from the bytes this window's lanes need
    (``_window_bound``); for window (a) the launch's init / exec / sweep /
    write-back split (``occ_split.py``'s instrumented copy of the source,
    built beside the kernels in phase build), the group it runs on (CTAs,
    lanes a CTA, lane slots, staged lanes, shared memory a CTA), its
-   cluster barriers, and the generic library's ``ptxas`` lines;
+   cluster barriers (by the kernel's formula, not counted), and the
+   generic library's ``ptxas`` lines;
 11. k7    — K6+K7, the variants generated for each window's program set
    (built by nvcc in parallel first; build seconds and ``ptxas`` lines),
    against the plain version with the same plain programs (tolerance 0:
@@ -969,11 +973,14 @@ def _block_env(i: int):
                     base_fee=25 * GWEI + i)
 
 
-def window_from_chain(dev, genesis, blocks, specialize: bool = False):
+def window_from_chain(dev, genesis, blocks, specialize: bool = False,
+                      scache_cap: int = 0):
     """K6 window (a): the chain's first 8 blocks as a window runner
     packs them, with the premaps learned from one discovery pass of
     generic K6 over them; with ``specialize`` the packing runner gives
-    the token lanes their traced program (K7 window (a))."""
+    the token lanes their traced program (K7 window (a)); with
+    ``scache_cap`` the runner's sticky cache bucket starts there, as
+    after an earlier tx whose premapped keys reached that bucket."""
     from coreth_tpu_torch.evm.device.adapter import MachineWindowRunner
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.state import StateStore
@@ -993,6 +1000,8 @@ def window_from_chain(dev, genesis, blocks, specialize: bool = False):
     runner = MachineWindowRunner(runner.fork, mx._base_value, device=dev,
                                  specialize=specialize)
     runner.seed_window_hint(8)
+    if scache_cap:
+        runner._hw["scache_cap"] = scache_cap
     pk = runner.pack(items)
     eng.close()
     return pk
@@ -1181,11 +1190,11 @@ def start_split_builds():
 def window_split(lib, info_lib, pk, spec, got, n=1, sync=None) -> dict:
     """The launch's time split (instrumented copy, ``occ_split.split``),
     the group it runs on (``occ_group_info`` of the real library) and
-    its cluster barriers."""
+    its cluster barriers by the kernel's formula (not counted)."""
     _b, _by, _steps, rounds = _window_bound(pk, got, n)
     return {"split_ms": occ_split.split(lib, pk, spec, n, sync),
             "group": occ_split.group(info_lib, pk, n),
-            "barriers_per_window": occ_split.barriers(
+            "barriers_per_window_formula": occ_split.barriers(
                 rounds, 0 if sync is None else int(sync.shape[0]))}
 
 
@@ -1196,7 +1205,11 @@ def phase_k6(dev, genesis, blocks, split_lib):
     rng = np.random.default_rng(SEED + 6)
     windows = {"a_erc20_chain": window_from_chain(dev, genesis, blocks),
                "b_swap_conflict": swap_window(dev),
-               "c_escape_trailing": escape_window(dev, rng)}
+               "c_escape_trailing": escape_window(dev, rng),
+               # 256 lanes x 256 cache entries: the sweep's index
+               # columns int32 and its area in device memory
+               "d_wide_index": window_from_chain(dev, genesis, blocks[:2],
+                                                 scache_cap=256)}
     rows, k6 = {}, None
     for name, pk in windows.items():
         p, occ = pk["p"], pk["occ"]
@@ -1221,6 +1234,10 @@ def phase_k6(dev, genesis, blocks, split_lib):
         n_active = int(pk["inputs"]["active"].sum())
         if name == "b_swap_conflict" and rounds[:2] != [8, 8]:
             raise AssertionError(f"K6 swap window rounds {rounds}")
+        if name == "d_wide_index" and (
+                p.batch * p.scache_cap <= 32768 or rounds[:2] != [2, 2]):
+            raise AssertionError(f"K6 wide window: {p.batch} x "
+                                 f"{p.scache_cap}, rounds {rounds}")
         if name == "c_escape_trailing" and (
                 extra[0, :, 1].sum() != 2 or any(rounds[3:])):
             raise AssertionError(f"K6 escape window: escapes "

@@ -62,13 +62,13 @@
 // are whole; after the sweep: flags, seeds and the go flag are), one a
 // block (the table is whole before the next block seeds from it), two
 // more a block and two at the start with a K9 sync set, and CTA barriers
-// inside each phase (occ_split.barriers counts them; 40 for the main
-// path's window of 8 blocks and 16 rounds).  A cluster barrier is a
-// hardware arrive/wait pair with release/acquire at cluster scope; what
-// it costs is the wait for the group's slowest CTA (the longest lane of
-// an exec, the leader's sweep), not the barrier itself.  The data it
-// orders crosses through L2 (__stcg/__ldcg), so no CTA reads a stale L1
-// line of another's writes.
+// inside each phase (by this formula, occ_split.barriers, 40 cluster
+// barriers for the main path's window of 8 blocks and 16 rounds).  A
+// cluster barrier is a hardware arrive/wait pair with release/acquire
+// at cluster scope; what it costs is the wait for the group's slowest
+// CTA (the longest lane of an exec, the leader's sweep), not the
+// barrier itself.  The data it orders crosses through L2
+// (__stcg/__ldcg), so no CTA reads a stale L1 line of another's writes.
 //
 // Asynchronous staging: while block w runs, one warp of each CTA stages
 // block w+1's inputs of its lanes by bulk copies (cp.async.bulk with an
@@ -236,21 +236,39 @@ struct OccBuf {
 // lane-state slots and staged lanes a CTA, and the byte offsets of
 // dynamic shared memory and of the sweep area.
 struct OccGrp {
-  int n, c, lpc, nslot, nstage, lstride, stage_lane, sweep_shared;
+  int n, c, lpc, nslot, nstage, lstride, stage_lane, sweep_shared, wide;
   int o_stage, o_bar, o_own, o_sweep, smem;
   int s_kof, s_pos, s_spw, s_ent, s_kg, s_kfw, s_klw, s_lfl, s_wm, s_rm,
       s_cnt, s_misc,
       s_sort, sort_bytes, sweep_bytes;
 };
 
+// A column of the sweep's entry index: one value (-1, or a key, place or
+// entry, each below B*S) an entry, int16 while B*S <= 32768 (the main
+// path's shapes, at half the bytes), else int32 (sweep_layout's
+// `wide`), so every batch x scache_cap has a layout.
+struct EntCol {
+  uint8_t* p;
+  int wide;
+  __device__ __forceinline__ int operator[](int i) const {
+    return wide ? ((const int32_t*)p)[i] : ((const int16_t*)p)[i];
+  }
+  __device__ __forceinline__ void set(int i, int v) const {
+    if (wide)
+      ((int32_t*)p)[i] = v;
+    else
+      ((int16_t*)p)[i] = (int16_t)v;
+  }
+};
+
 // The sweep area of a shard's leader.
 struct Sweep {
   uint64_t* sort;  // (B*S): (table row << 32 | entry) of the block
-  int16_t* kof;    // (B*S): each entry's key, -1 if not premapped
-  int16_t* pos;    // (B*S): a premapped entry's place in `sort`
-  int16_t* spw;    // (B*S): the entry's earlier potential writer entry
+  EntCol kof;      // (B*S): each entry's key, -1 if not premapped
+  EntCol pos;      // (B*S): a premapped entry's place in `sort`
+  EntCol spw;      // (B*S): the entry's earlier potential writer entry
                    // (the last before its lane), -1 if none
-  int16_t* ent;    // (B*S): the entry at each place of the sorted index
+  EntCol ent;      // (B*S): the entry at each place of the sorted index
                    // (the sort buffer itself is lane-slot memory)
   int32_t *kg, *kfw, *klw;  // (K): table row, first potential writer
                             // lane, last valid writer entry
@@ -267,12 +285,12 @@ __device__ __forceinline__ Sweep sweep_at(const OccGrp& g, uint8_t* area,
                                           uint8_t* sort) {
   Sweep w;
   w.sort = (uint64_t*)sort;
-  w.kof = (int16_t*)(area + g.s_kof);
+  w.kof = EntCol{area + g.s_kof, g.wide};
   w.kg = (int32_t*)(area + g.s_kg);
   w.kfw = (int32_t*)(area + g.s_kfw);
-  w.pos = (int16_t*)(area + g.s_pos);
-  w.spw = (int16_t*)(area + g.s_spw);
-  w.ent = (int16_t*)(area + g.s_ent);
+  w.pos = EntCol{area + g.s_pos, g.wide};
+  w.spw = EntCol{area + g.s_spw, g.wide};
+  w.ent = EntCol{area + g.s_ent, g.wide};
   w.klw = (int32_t*)(area + g.s_klw);
   w.lfl = (int32_t*)(area + g.s_lfl);
   w.wm = (uint32_t*)(area + g.s_wm);
@@ -315,7 +333,7 @@ __device__ void blk_index(const Sweep& w, const int32_t* sgid, int N, int G) {
   int at = cta_scan(w.cnt, mine, &M);
   for (int i = lo; i < hi; ++i) {
     const int g = sgid[i];
-    w.kof[i] = -1;
+    w.kof.set(i, -1);
     if (premapped(g, G)) w.sort[at++] = ((uint64_t)(uint32_t)g << 32) | i;
   }
   int M2 = 1;
@@ -347,9 +365,9 @@ __device__ void blk_index(const Sweep& w, const int32_t* sgid, int N, int G) {
   int k = cta_scan(w.cnt, fresh, &K) - 1;
   for (int i = mlo; i < mhi; ++i) {
     if (i == 0 || key(i) != key(i - 1)) w.kg[++k] = (int32_t)key(i);
-    w.kof[(uint32_t)w.sort[i]] = (int16_t)k;
-    w.pos[(uint32_t)w.sort[i]] = (int16_t)i;
-    w.ent[i] = (int16_t)(uint32_t)w.sort[i];
+    w.kof.set((int)(uint32_t)w.sort[i], k);
+    w.pos.set((int)(uint32_t)w.sort[i], i);
+    w.ent.set(i, (int)(uint32_t)w.sort[i]);
   }
   if (tid == 0) w.misc[0] = K;
   __syncthreads();
@@ -454,7 +472,7 @@ __device__ bool sweep_round(const Sweep& w, const MachineDims& d, int G,
         if (k < 0) continue;  // (its seed stays 0)
         const int f = dep ? prev_writer(w, S, SW, w.pos[j * S + e], j, false)
                           : -1;
-        if (dep) w.spw[j * S + e] = (int16_t)f;
+        if (dep) w.spw.set(j * S + e, f);
         const int32_t* cur =
             f >= 0 ? pk + (size_t)(f / S) * PW + O_SVAL + (f % S) * 16
                    : table + (size_t)w.kg[k] * 16;
@@ -995,13 +1013,15 @@ int round16(int v) { return (v + 15) / 16 * 16; }
 // entries; returns its bytes without the sort buffer.
 int sweep_layout(int B, int S, OccGrp* g) {
   const int N = B * S, SW = (S + 31) / 32;
+  g->wide = N > 32768;
+  const int col = g->wide ? 4 : 2;  // an EntCol's bytes an entry
   int at = 0;
-  g->s_kof = at; at += round16(N * 2);
+  g->s_kof = at; at += round16(N * col);
   g->s_kg = at; at += round16(N * 4);
   g->s_kfw = at; at += round16(N * 4);
-  g->s_pos = at; at += round16(N * 2);
-  g->s_spw = at; at += round16(N * 2);
-  g->s_ent = at; at += round16(N * 2);
+  g->s_pos = at; at += round16(N * col);
+  g->s_spw = at; at += round16(N * col);
+  g->s_ent = at; at += round16(N * col);
   g->s_klw = at; at += round16(N * 4);
   g->s_lfl = at; at += round16(B * 4);
   g->s_wm = at; at += round16(B * SW * 4);
@@ -1030,7 +1050,6 @@ int occ_layout(const MachineDims& d, int n, int c, int avail, bool can_stage,
   g->lstride = (((d.arena_w + 3) / 4) | 1) * 4;  // odd words: no bank
                                                  // conflict lane to lane
   g->stage_lane = d.data_cap + 16 * S;           // int32 words
-  if (B * S > 32768) return -3;  // entries past the key index's int16
   const int sweep = sweep_layout(B, S, g);
   const int sort = g->sort_bytes;
   const int fixed = 16 + round16(3 * g->lpc * 4);  // barriers, own lanes

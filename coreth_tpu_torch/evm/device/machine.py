@@ -144,10 +144,22 @@ def _mem_cost_words(w):
 
 # ----------------------------------------------------- the plain version
 
+# The op tables on each device, copied once per (fork, device): a copy
+# from pageable host memory waits for the stream's earlier work, so a
+# kernel launch that made them anew would block the host until the card
+# had finished everything queued before it.
+_TABLES: Dict[tuple, Dict[str, torch.Tensor]] = {}
+
+
 def _tables(fork: str, device) -> Dict[str, torch.Tensor]:
-    ot = T.op_tables(fork)
-    return {k: torch.from_numpy(getattr(ot, k)).to(device)
+    key = (fork, str(device))
+    tb = _TABLES.get(key)
+    if tb is None:
+        ot = T.op_tables(fork)
+        tb = _TABLES[key] = {
+            k: torch.from_numpy(getattr(ot, k)).to(device)
             for k in ("const_gas", "nin", "nout", "supported")}
+    return tb
 
 
 def run_plain(p: MachineParams, inputs: Dict[str, torch.Tensor]) -> dict:
@@ -988,9 +1000,6 @@ def _check_window(what: str, p: MachineParams, occ: OccParams,
                              f"{shapes[k]}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
-    if dev.type == "cuda" and p.batch * S > 32768:
-        raise ValueError(f"{what}: batch {p.batch} x scache_cap {S} "
-                         "entries exceed the sweep's key index (32768)")
     return dev
 
 
@@ -1073,16 +1082,17 @@ def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
 
 def sweep_bytes(B: int, S: int) -> int:
     """Bytes of one shard's sweep area (``occ_window.cu``
-    ``sweep_layout``): four int16 columns a lane entry (its key, its
+    ``sweep_layout``): four index columns a lane entry (its key, its
     place in the sorted index, its speculated writer, the entry at that
-    place), three int32 columns a key, the lanes' flags and entry
-    bitsets, the scan scratch, and the sort buffer of the block's
-    entries."""
+    place; int16 up to 32768 entries, else int32), three int32 columns
+    a key, the lanes' flags and entry bitsets, the scan scratch, and the
+    sort buffer of the block's entries."""
     def r16(v):
         return (v + 15) // 16 * 16
     N, SW = B * S, (S + 31) // 32
     N2 = 1 << max(N - 1, 0).bit_length()
-    return 4 * r16(2 * N) + 3 * r16(4 * N) + r16(4 * B) \
+    col = 4 if N > 32768 else 2
+    return 4 * r16(col * N) + 3 * r16(4 * N) + r16(4 * B) \
         + 2 * r16(4 * B * SW) + r16(256 * 4) + 64 + 8 * N2
 
 

@@ -3,17 +3,18 @@
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 occ_split.py [--root DIR] [--blocks N]
+    python3 occ_split.py
 
-The kernel carries no counters.  This script copies the CUDA sources of
-the checkout at ``--root`` (default: this script's directory) into a
-build directory of its own, inserts ``clock64()`` / ``%globaltimer``
-reads at the phase boundaries of ``occ_window.cu`` by text, builds that
-copy (generic, and the K7 variant for the window's program set) with
-``nvcc``, and runs K6's window (a) of ``chip_smoke.py`` (the ERC-20
-chain's first 8 blocks x 256 lanes) through both.  Per window it prints
-one JSON line: the device time of the whole launch on CTA 0's clock, and
-its parts, summed over the window's blocks:
+The kernel carries no counters.  This script copies the checkout's CUDA
+sources into a build directory of its own
+(``coreth_tpu_torch/csrc/build/split``), inserts ``clock64()`` /
+``%globaltimer`` reads at the ``// @split`` markers of ``occ_window.cu``
+by text, builds that copy (generic, and the K7 variant for the window's
+program set) with ``nvcc``, and runs K6's window (a) of
+``chip_smoke.py`` (the ERC-20 chain's first 8 blocks x 256 lanes)
+through both.  Per window it prints one JSON line: the device time of
+the whole launch on CTA 0's clock, and its parts, summed over the
+window's blocks:
 
 - ``init``: a block's setup up to its first exec (lane inputs, seeds,
   row init);
@@ -24,14 +25,11 @@ its parts, summed over the window's blocks:
 with the rounds, and the ``ptxas`` lines (registers, spills, stack
 frame) of the uninstrumented libraries.  The split runs against the
 checkout's own ``occ_run_plain`` (results equal, tolerance 0), so a
-patch that changed what the kernel computes fails here.  Both the
-single-CTA body the port had up to its slice 7 and the group body since
-are understood (each by its own anchors).
+patch that changed what the kernel computes fails here.
 """
 
 from __future__ import annotations
 
-import argparse
 import ctypes
 import json
 import os
@@ -58,48 +56,9 @@ extern "C" int occ_prof_zero() {
 }
 """
 
-# (anchor, replacement) pairs; each anchor must occur exactly once.
-# The single-CTA body (slice 7 and before): thread 0 times each part
-# between the CTA barriers that end it.
-_SINGLE_CTA = [
-    ("  int act = 0;\n  for (int i = tid; i < B; i += nt) {\n",
-     "  long long _t0 = clock64();\n"
-     "  int act = 0;\n  for (int i = tid; i < B; i += nt) {\n"),
-    ("  bool go = __syncthreads_or(act) != 0;\n",
-     "  bool go = __syncthreads_or(act) != 0;\n"
-     "  if (tid == 0) occ_prof[0] += clock64() - _t0;\n"),
-    ("  while (go) {\n",
-     "  while (go) {\n    long long _t1 = clock64();\n"),
-    ("    __syncthreads();\n    ++sweep;\n",
-     "    __syncthreads();\n"
-     "    if (tid == 0) { long long _t2 = clock64(); "
-     "occ_prof[1] += _t2 - _t1; _t1 = _t2; }\n    ++sweep;\n"),
-    ("    __syncthreads();\n    ++rnd;\n",
-     "    __syncthreads();\n"
-     "    if (tid == 0) { occ_prof[2] += clock64() - _t1; "
-     "occ_prof[4] += 1; }\n    ++rnd;\n"),
-    ("  // the trailing columns, and the final sweep's writes into the "
-     "table\n",
-     "  long long _t3 = clock64();\n"
-     "  // the trailing columns, and the final sweep's writes into the "
-     "table\n"),
-    ("  __syncthreads();\n}\n\n__global__ void __launch_bounds__(kMaxThreads)"
-     "\n    occ_window_kernel(",
-     "  __syncthreads();\n  if (tid == 0) occ_prof[3] += clock64() - _t3;\n"
-     "}\n\n__global__ void __launch_bounds__(kMaxThreads)"
-     "\n    occ_window_kernel("),
-    ("  int sweep = 0;\n  for (int w = 0; w < o.W; ++w) occ_block(in, d, o, "
-     "b, w, sweep, cur_sh, &s_go);\n}\n",
-     "  long long _tk = clock64(), _nk = occ_ns();\n"
-     "  int sweep = 0;\n  for (int w = 0; w < o.W; ++w) occ_block(in, d, o, "
-     "b, w, sweep, cur_sh, &s_go);\n"
-     "  if (threadIdx.x == 0) { occ_prof[5] += clock64() - _tk; "
-     "occ_prof[6] += occ_ns() - _nk; }\n}\n"),
-]
-
-# The group body (slice 8 on): CTA 0 of the group times each part between
-# the group barriers that end it (grp_sync's call sites of each phase).
-_GROUP = [
+# (marker, counter code) pairs, each marker found exactly once: CTA 0 of
+# the group times each part between the group barriers that end it.
+_MARKS = [
     ("  // @split block-start\n",
      "  long long _t0 = clock64();\n"),
     ("  // @split init-end\n",
@@ -134,9 +93,8 @@ def _patch(src: str, rules) -> str:
     return src
 
 
-def instrument(csrc: str, dst: str) -> str:
-    """Copy ``csrc`` to ``dst`` with the counters inserted; returns which
-    body was found ("single_cta" or "group")."""
+def instrument(csrc: str, dst: str) -> None:
+    """Copy ``csrc`` to ``dst`` with the counters inserted."""
     os.makedirs(dst, exist_ok=True)
     for fn in os.listdir(csrc):
         if fn.endswith((".cu", ".cuh")):
@@ -149,11 +107,9 @@ def instrument(csrc: str, dst: str) -> str:
         f.write(sm)
     with open(os.path.join(dst, "occ_window.cu")) as f:
         src = f.read()
-    kind = "group" if "// @split block-start" in src else "single_cta"
-    src = _patch(src, _GROUP if kind == "group" else _SINGLE_CTA) + _READ
+    src = _patch(src, _MARKS) + _READ
     with open(os.path.join(dst, "occ_window.cu"), "w") as f:
         f.write(src)
-    return kind
 
 
 def start(dst: str, units: dict) -> dict:
@@ -267,9 +223,10 @@ def group(lib, pk, n: int = 1) -> dict:
 
 
 def barriers(rounds, X: int = 0) -> int:
-    """Cluster barriers of one window launch: two a round (``rounds``:
-    per block, the most any shard ran) and one a block, and with a sync
-    set two at the window's start and two more a block."""
+    """Cluster barriers of one window launch by the kernel's formula (not
+    counted in the run): two a round (``rounds``: per block, the most
+    any shard ran) and one a block, and with a sync set two at the
+    window's start and two more a block."""
     return 2 * sum(rounds) + len(rounds) + (2 + 2 * len(rounds) if X else 0)
 
 
@@ -289,12 +246,7 @@ def ptxas_lines(log: str, entry: str = "occ_window_kernel"):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=os.path.dirname(
-        os.path.abspath(__file__)))
-    ap.add_argument("--blocks", type=int, default=8)
-    a = ap.parse_args()
-    root = os.path.abspath(a.root)
+    root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
@@ -308,7 +260,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     t0 = time.monotonic()
-    genesis, blocks = CS.build_erc20_chain(a.blocks, 256, 1024)
+    genesis, blocks = CS.build_erc20_chain(8, 256, 1024)
     windows = {"k6_a": CS.window_from_chain(dev, genesis, blocks),
                "k7_a": CS.window_from_chain(dev, genesis, blocks,
                                             specialize=True)}
@@ -317,13 +269,13 @@ def main() -> int:
     vname, vsrc = SP.variant(spec)
     kernels.build_generated({vname: vsrc})
     dst = os.path.join(root, "coreth_tpu_torch", "csrc", "build", "split")
-    kind = instrument(kernels.CSRC, dst)
+    instrument(kernels.CSRC, dst)
     with open(os.path.join(dst, "variant.cu"), "w") as f:
         f.write(vsrc)
     libs = finish(start(dst, {
         "generic": os.path.join(dst, "occ_window.cu"),
         "variant": os.path.join(dst, "variant.cu")}))
-    out = {"card": smi, "body": kind, "setup_s": round(t_windows, 1),
+    out = {"card": smi, "setup_s": round(t_windows, 1),
            "ptxas_generic": ptxas_lines(kernels.log_path("occ_window")),
            "ptxas_variant": ptxas_lines(kernels.log_path(vname))}
     for name, lib, sp in (("k6_a", libs["generic"], ()),

@@ -320,6 +320,14 @@ def test_occ_window_kernel_sweep_cases(cuda, name, spec):
                             spec_codes=C.SPEC_CODES if spec else None))
 
 
+def test_occ_window_kernel_wide_index(cuda):
+    """The host build's wide-index window (tests/test_torch_shard_occ.py
+    ``test_host_build_sweep_wide_index_matches_plain``: 64 lanes x 1024
+    cache entries, the sweep's index columns int32) on the card."""
+    _occ_both(C.pack_window(C.WIDE_INDEX_BLOCKS, device=cuda,
+                            **C.WIDE_INDEX_SHAPE))
+
+
 @pytest.mark.parametrize("n", [2, 4])
 def test_occ_sharded_kernel_sweep_cases(cuda, n):
     """K9 over n shards of 32 lanes each running a sweep case (a cluster

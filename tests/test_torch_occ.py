@@ -9,7 +9,7 @@ final slot table and every packed column of every lane of every block —
 the machine results and the committed / escape / pending / rounds
 columns — must be equal (integers: tolerance 0).  All cases share one
 shape, so the reference compiles its window program once (plus once for
-the round-cap case).
+the round-cap case, and once at 32 lanes for ``SWEEP_CASES``).
 """
 
 import os
@@ -34,9 +34,11 @@ W, G = C.WINDOW_BLOCKS, 64
 _ALL_FEATURES = frozenset(jtables.FEATURE_OPS.values())
 
 
-def _jax_machine(rounds: int):
-    p = jM.MachineParams(fork="durango", features=_ALL_FEATURES, **_SHAPE)
-    return jM.get_occ_machine(p, jM.OccParams(blocks=W, table_cap=G,
+def _jax_machine(rounds: int, batch: int = _SHAPE["batch"],
+                 table_cap: int = G):
+    p = jM.MachineParams(fork="durango", features=_ALL_FEATURES,
+                         **dict(_SHAPE, batch=batch))
+    return jM.get_occ_machine(p, jM.OccParams(blocks=W, table_cap=table_cap,
                                               rounds=rounds))
 
 
@@ -63,7 +65,8 @@ def _run_both(fn, pk, occ=None):
     want = fn(jnp.asarray(pk["table"].numpy()),
               jnp.asarray(pk["key_tab"].numpy()), inputs)
     jt, jp = np.asarray(want["table"]), np.asarray(want["packed"])
-    assert got["packed"].shape == jp.shape == (W, 8, pk["p"].width + 4)
+    assert got["packed"].shape == jp.shape == (W, pk["p"].batch,
+                                               pk["p"].width + 4)
     bad = np.argwhere(got["packed"].numpy() != jp)
     assert bad.size == 0, f"packed differs at (block, lane, col) {bad[:5]}"
     assert np.array_equal(got["table"].numpy(), jt)
@@ -100,6 +103,31 @@ def test_occ_plain_matches_reference(jax_occ, name):
         assert all(com[b, :n[b]].all() for b in range(3))
     elif name == "errors":
         assert got["packed"][0, :4, 0].tolist() == [tM.ERR] * 3 + [tM.STOP]
+    assert int(got["steps"].sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def jax_occ_32():
+    """The reference's window program at 32 lanes, by table cap."""
+    progs = {}
+
+    def get(table_cap: int):
+        if table_cap not in progs:
+            progs[table_cap] = _jax_machine(33, batch=32,
+                                            table_cap=table_cap)
+        return progs[table_cap]
+    return get
+
+
+@pytest.mark.parametrize("name", sorted(C.SWEEP_CASES))
+def test_occ_plain_sweep_cases_match_reference(jax_occ_32, name):
+    """The sweep cases the kernel's in-order walk over dependent lanes is
+    pinned on (``torch_machine_cases.SWEEP_CASES``, 32 lanes a block),
+    plain version against the reference: every packed column and the
+    table equal."""
+    pk = C.pack_window(name, batch=32)
+    assert pk["occ"].blocks == W
+    got = _run_both(jax_occ_32(pk["occ"].table_cap), pk)
     assert int(got["steps"].sum()) > 0
 
 

@@ -292,6 +292,25 @@ def test_host_build_sweep_matches_plain(host_k9, name):
             int(extra[:, 2].sum())) == _SWEEP_SHAPES[name]
 
 
+def test_host_build_sweep_wide_index_matches_plain(host_k9):
+    """K6 on a block of 64 lanes x 1024 cache entries (B*S = 65536: the
+    sweep's index columns int32, its area in device memory; a group of
+    four CTAs) whose writers and dependent lanes sit past entry 32767
+    (``torch_machine_cases.WIDE_INDEX_BLOCKS``): table, packed rows and
+    lane-steps equal to ``occ_run_plain`` (tolerance 0), in three rounds
+    with every lane committed."""
+    pk = C.pack_window(C.WIDE_INDEX_BLOCKS, **C.WIDE_INDEX_SHAPE)
+    assert pk["p"].batch * pk["p"].scache_cap > 32768
+    args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+    largs, got = tM.occ_launch_args(*args)
+    assert host_k9.occ_window_launch(*tM.pointers(largs), None) == 0
+    want = tM.occ_run_plain(*args)
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    extra = want["packed"][0, :, -4:]
+    assert (int(extra[0, 3]), int(extra[:, 0].sum())) == (3, 64)
+
+
 def test_host_build_of_k9_runs_the_sweep_cases(host_k9):
     """K9 with two shards of 32 lanes (a cluster of 2 x 2 CTAs as host
     threads) over two sweep cases: equal to the plain version."""

@@ -352,6 +352,17 @@ SWEEP_CASES: Dict[str, List[List[dict]]] = {
 }
 
 
+# A block of 64 lanes with a 1024-entry storage cache: B*S = 65536
+# entries, past what an int16 index holds, so the sweep's index columns
+# are int32 (and its area in device memory).  Its writers and dependent
+# lanes sit past entry 32767 (lanes 32 on): lane 32 pays holder 971,
+# lane 49 pays from 971, lane 63 pays 971 again (the last valid writer).
+WIDE_INDEX_BLOCKS = [
+    _fill(32, 900) + [_xfer(970, 971, 40)] + _fill(16, 980)
+    + [_xfer(971, 972, 25)] + _fill(13, 1020) + [_xfer(973, 971, 9)]]
+WIDE_INDEX_SHAPE = dict(batch=64, scache_cap=1024)
+
+
 # The program set every WINDOW_CASES window shares when it specialises
 # (the reference compiles its window program once for all of them):
 # each eligible code of the cases, in a fixed order.
@@ -433,10 +444,13 @@ WINDOW_SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
 WINDOW_BLOCKS = 4
 
 
-def pack_window(name: str, device="cpu", spec_codes=None,
-                batch: int = WINDOW_SHAPE["batch"]) -> dict:
-    """Window case ``name`` packed by the port's ``MachineWindowRunner``
-    at ``WINDOW_SHAPE``: {p, occ, table, key_tab, inputs, spec, ...}.
+def pack_window(name, device="cpu", spec_codes=None,
+                batch: int = WINDOW_SHAPE["batch"],
+                scache_cap: int = WINDOW_SHAPE["scache_cap"]) -> dict:
+    """Window case ``name`` (or a list of blocks) packed by the port's
+    ``MachineWindowRunner`` at ``WINDOW_SHAPE`` with ``batch`` lanes and
+    ``scache_cap`` cache entries a lane: {p, occ, table, key_tab,
+    inputs, spec, ...}.
     Without ``spec_codes`` every lane runs the generic interpreter
     (prog_id -1); with it, the runner specialises, its program set
     seeded with those codes in that order (so every case can share one
@@ -453,8 +467,8 @@ def pack_window(name: str, device="cpu", spec_codes=None,
         device=device, specialize=spec_codes is not None)
     for code in spec_codes or ():
         runner._spec_id(code)
-    runner._hw.update(blocks=WINDOW_BLOCKS, **dict(WINDOW_SHAPE,
-                                                   batch=batch))
+    runner._hw.update(blocks=WINDOW_BLOCKS, **dict(
+        WINDOW_SHAPE, batch=batch, scache_cap=scache_cap))
     return runner.pack(window_items(blocks, A.TxSpec, A.BlockEnv))
 
 

@@ -1,0 +1,239 @@
+#!/usr/bin/env python3
+"""Phases spec and hot of ``chip_smoke.py`` on two checkouts in one
+machine, interleaved, and traced spec replays of each.
+
+Run from the root of a checkout, on a machine with a card, with another
+checkout (for example the parent commit unpacked by ``git archive`` into
+a directory that ``.gitignore`` lists) as BASE:
+
+    python3 window_ab.py BASE
+
+Each run is a child process that imports the ``chip_smoke.py`` and the
+``coreth_tpu_torch`` of its checkout (so each runs its own kernels,
+built into its own tree), builds the kernels and the ERC-20 chain of
+phase spec, replays 16 of its blocks untimed (the chain's K7 variant is
+built there), and then, as ``chip_smoke.py`` does:
+
+- phase spec twice (the chain's 128 blocks x 256 txs through the window
+  path with K7), with its root, launch and counter checks;
+- phase shard_erc20 once on each runner (the same chain on a 4-shard
+  engine: K9, then the single-chip runner over the sharded tables);
+- phase hot once (the hot-contract chain on one shard, then 2 and 4);
+- ``launch``: window (a) of phase k6 (the chain's first 8 blocks)
+  through ``machine.run_occ_window`` 20 times without a synchronize,
+  the host milliseconds a call (what a launch costs the replay's
+  thread) beside the device milliseconds a launch (CUDA events over
+  the 20).
+
+The children run in the order BASE, this, this, BASE.  Then one more
+child of each checkout replays the chain once under ``torch.profiler``
+(the same 16 blocks untimed first), then again on a 4-shard engine
+(phase shard_erc20's sharded runner: K9 windows, K8r's sender streams),
+and reads, for every window launch (K6/K7 or K9) of each trace, on the
+card's clock, the gap between the end of the previous kernel of its
+stream and its start (where a launch would wait for its group's CTAs to
+be co-resident while other streams' kernels hold the SMs), and the K2
+(``secp``) kernels of other streams that ran in that gap.
+
+Every child prints the JSON lines of the phases it ran; this script
+prints them prefixed by the run ("base", "this") and its place in the
+order, and then one JSON line that sums the A/B.  The traces themselves
+are not kept.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TXS, N_BLOCKS, N_KEYS = 256, 128, 1024
+
+
+def _setup(tree: str):
+    """The checkout's chip_smoke module, its kernels built, the card,
+    nvidia-smi's line and the ERC-20 chain after an untimed replay of
+    16 of its blocks.  Nothing of ``coreth_tpu_torch`` may be imported
+    before this (it would come from this script's checkout)."""
+    sys.path.insert(0, tree)
+    os.chdir(tree)
+    import torch
+    import chip_smoke as CS
+    from coreth_tpu_torch import kernels, nativebuild
+    if not os.path.abspath(kernels.CSRC).startswith(tree + os.sep):
+        raise RuntimeError(f"window_ab: coreth_tpu_torch imported from "
+                           f"{kernels.CSRC}, not from {tree}")
+    kernels.build()
+    nativebuild.ensure_built()
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    genesis, blocks = CS.build_erc20_chain(N_BLOCKS, TXS, N_KEYS)
+    CS._replay_erc20(dev, genesis, blocks[:16], TXS, device_occ=True,
+                     specialize=True)
+    return CS, dev, smi, genesis, blocks
+
+
+def _launch_cost(CS, dev, genesis, blocks, reps: int = 20) -> dict:
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    pk = CS.window_from_chain(dev, genesis, blocks)
+    args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
+    M.run_occ_window(*args)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    host = 0.0
+    e0.record()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        M.run_occ_window(*args)
+        host += time.perf_counter() - t0
+    e1.record()
+    torch.cuda.synchronize()
+    return {"phase": "launch", "reps": reps,
+            "host_ms_per_call": 1000 * host / reps,
+            "device_ms_per_launch": e0.elapsed_time(e1) / reps}
+
+
+def child_runs(tree: str) -> int:
+    CS, dev, smi, genesis, blocks = _setup(tree)
+    for order in (1, 2):
+        CS.phase_window(dev, smi, genesis, blocks, TXS, True, order)
+    for order, shard_occ in ((1, True), (2, False)):
+        CS.phase_shard_erc20(dev, smi, genesis, blocks, TXS, shard_occ,
+                             order)
+    CS.phase_hot(dev, smi)
+    CS.emit(_launch_cost(CS, dev, genesis, blocks))
+    return 0
+
+
+def _is_window(name: str) -> bool:
+    return "occ_window_kernel" in name or "occ_sharded_kernel" in name
+
+
+def _queue_delays(trace: dict) -> dict:
+    """Per window launch of a chrome trace, on the card's clock: the gap
+    from the end of the previous kernel of its stream to its start (the
+    time the window was next in its stream but did not run: the host's
+    launch, or a wait for its group's SMs), and the K2 (``secp``) kernels of
+    other streams running in that gap; and the host duration of its
+    launch call."""
+    evs = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    kern = sorted((e for e in evs if e.get("cat") == "kernel"),
+                  key=lambda e: e["ts"])
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    secp = [e for e in kern if "secp" in e["name"] or "recover" in e["name"]]
+    last_end, rows = {}, []
+    for e in kern:
+        st = e["args"].get("stream")
+        prev = last_end.get(st)
+        last_end[st] = e["ts"] + e["dur"]
+        if not _is_window(e["name"]) or prev is None:
+            continue
+        k2 = [x for x in secp if x["args"].get("stream") != st
+              and x["ts"] < e["ts"] and x["ts"] + x["dur"] > prev]
+        call = calls.get(e["args"].get("correlation"))
+        rows.append({"gap_us": e["ts"] - prev, "k2_other": len(k2),
+                     "device_us": e["dur"],
+                     "call_us": call["dur"] if call else None})
+    n = len(rows)
+
+    def mean(k):
+        v = [r[k] for r in rows if r[k] is not None]
+        return sum(v) / len(v) if v else None
+    return {"window_launches": n,
+            "mean_gap_us": mean("gap_us"),
+            "max_gap_us": max((r["gap_us"] for r in rows), default=None),
+            "launches_with_k2_of_other_streams_in_gap":
+                sum(r["k2_other"] > 0 for r in rows),
+            "mean_device_us": mean("device_us"),
+            "mean_call_us": mean("call_us"),
+            "k2_kernels": len(secp),
+            "k2_streams": sorted({str(x["args"].get("stream"))
+                                  for x in secp}),
+            "window_streams": sorted({str(e["args"].get("stream"))
+                                      for e in kern
+                                      if _is_window(e["name"])})}
+
+
+def child_trace(tree: str, out_dir: str) -> int:
+    from torch.profiler import ProfilerActivity, profile
+    CS, dev, smi, genesis, blocks = _setup(tree)
+    from coreth_tpu_torch.parallel import make_mesh
+    for name, mesh in (("spec", None), ("shard_erc20_n4", make_mesh(4))):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _eng, root, dt, launches, _st = CS._replay_erc20(
+                dev, genesis, blocks, TXS, device_occ=True,
+                specialize=True, mesh=mesh)
+        if root != blocks[-1].header.root:
+            raise AssertionError(f"traced {name} replay: root differs")
+        path = os.path.join(out_dir, f"trace_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        os.remove(path)
+        CS.emit({"phase": "trace", "replay": name, "replay_s": dt,
+                 "launches": launches, "card": smi,
+                 **_queue_delays(trace)})
+    return 0
+
+
+def _child(mode: str, tree: str, out_dir: str) -> list:
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", mode,
+           tree, out_dir]
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=1500)
+    if r.returncode != 0:
+        raise RuntimeError(f"{mode} {tree}: rc {r.returncode}\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-6000:]}")
+    return [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+def main() -> int:
+    if len(sys.argv) >= 5 and sys.argv[1] == "--child":
+        mode, tree, out_dir = sys.argv[2:5]
+        out_dir = os.path.abspath(out_dir)      # before _setup's chdir
+        return (child_runs(tree) if mode == "runs"
+                else child_trace(tree, out_dir))
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("window_ab: no CUDA device", file=sys.stderr)
+        return 1
+    base = os.path.abspath(sys.argv[1])
+    out_dir = os.path.join(HERE, "coreth_tpu_torch", "csrc", "build",
+                           "window_ab")            # the traces, deleted
+    os.makedirs(out_dir, exist_ok=True)
+    trees = {"base": base, "this": HERE}
+    summary = {"order": ["base", "this", "this", "base"]}
+    for place, who in enumerate(summary["order"], 1):
+        for row in _child("runs", trees[who], out_dir):
+            print(json.dumps({"run": who, "place": place, **row}),
+                  flush=True)
+            key = row["phase"] + (
+                f"_n{row['n_shards']}" if row["phase"] == "hot" else
+                f"_{row['runner']}" if row["phase"] == "shard_erc20" else "")
+            val = row.get("txs_per_s", row.get("host_ms_per_call"))
+            summary.setdefault(f"{who}_{key}", []).append(val)
+    for who in ("base", "this"):
+        for row in _child("trace", trees[who], out_dir):
+            print(json.dumps({"run": who, **row}), flush=True)
+            summary[f"{who}_trace_{row['replay']}"] = {
+                k: row[k] for k in ("mean_gap_us", "max_gap_us",
+                                    "launches_with_k2_of_other_streams_in_gap",
+                                    "mean_device_us", "mean_call_us",
+                                    "window_launches")}
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
