@@ -17,9 +17,11 @@ Phases, each printing one JSON line:
    must be equal exactly (tolerance 0: integer results);
 4. K2     — the secp256k1 recovery kernel against its plain version on 4096
    signatures made with the port's ``sign`` plus malformed rows (r or s out
-   of range, recid 2/3, x >= p): the 102-byte rows must be equal exactly,
-   and the addresses recovered through the kernel must equal the native
-   C++ ``recover_addresses_batch``;
+   of range, recid 2/3, x >= p) and on the ladder's corner rows
+   (``corner_batch``): the 102-byte rows must be equal exactly, and the
+   addresses recovered through the kernel must equal the native C++
+   ``recover_addresses_batch``; the design's group width (threads a
+   signature), block size and warps an SM at 4096 and 1024 rows;
 5. main   — the benchmark's transfer shape (1024 keys, 128 txs/block, every
    other recipient fresh, TEST_CHAIN_CONFIG, gap 10), cut to 256 blocks,
    built by the port's sequential chain builder and replayed through
@@ -102,8 +104,12 @@ the one card):
 3b. k8     — the sharded window (one cluster launch of n CTAs) against its
    plain version on phase k1's window, in both exchange modes: tables,
    fetch rows and every shard's working set equal (tolerance 0), the n
-   working sets equal, the fetch rows equal to K1's; ms beside K1's on
-   the same window, the exchange bytes, and K1's bound;
+   working sets equal, the fetch rows equal to K1's; the same on 8-block
+   windows of the hot shape (every lane of a block pays one recipient and
+   one token slot) and with out-of-range pad rows (``shaped_window``);
+   ms beside K1's on the same window, the exchange bytes, K1's bound, and
+   the design: the slab layout the launches took, shared memory a CTA,
+   barriers a block;
 4b. k8r    — the sharded ladder (K2 on each of n slices, each on its own
    stream) against K2 on phase k2's signatures: rows equal;
 5b. shard  — phase main's chain (fresh decodes from the wire) through
@@ -310,6 +316,44 @@ def random_window(rng, K: int, pad: int, B: int, cap: int, scap: int,
             t_idxs, s_idxs)
 
 
+def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
+    """``random_window`` reshaped for K8's corners.  "hot": every lane of a
+    block pays one recipient and one token slot (the hot chain's shape;
+    blocks 1 and 2 keep their insolvent sender and nonce mismatch);
+    "pad_rows": the masked pad lanes' accounts and slots out of range
+    (past the locals and negative) and block 3's coinbase past the
+    locals.  The fetch rows list each block's touched rows."""
+    win = list(random_window(rng, K, pad, B, **kw))
+    txds, t_idxs, s_idxs = win[5], win[6], win[7]
+    L, SL = win[3].shape[0], win[4].shape[0]
+    n_acct = int((win[3] < kw["cap"]).sum())
+    n_slot = int((win[4] < kw["scap"]).sum())
+    for k in range(K):
+        txd = txds[k]
+        if shape == "hot":
+            txd[:B, 1] = int(rng.integers(0, n_acct))
+            txd[:B, 55] = int(rng.integers(0, n_slot))
+        elif shape == "pad_rows":
+            txd[B:, 0] = L + 5
+            txd[B:, 1] = -3
+            txd[B:, 54] = SL + 1
+            txd[B:, 55] = -1
+            if k == 3:
+                txd[:, 5] = L
+        else:
+            raise ValueError(f"shaped_window: unknown shape {shape!r}")
+        touched = sorted({int(v) for v in txd[:B, :2].ravel()}
+                         | {int(txd[0, 5])} & set(range(L)))
+        t_idxs[k] = 0
+        t_idxs[k, :min(len(touched), t_idxs.shape[1])] = \
+            touched[:t_idxs.shape[1]]
+        stouched = sorted({int(v) for v in txd[:B, 54:56].ravel()})
+        s_idxs[k] = 0
+        s_idxs[k, :min(len(stouched), s_idxs.shape[1])] = \
+            stouched[:s_idxs.shape[1]]
+    return tuple(win)
+
+
 # ------------------------------------------------------------ K2 inputs
 
 def signature_batch(n: int, seed: int):
@@ -350,19 +394,64 @@ def signature_batch(n: int, seed: int):
     return packed, (x, parity, u1w, u2w)
 
 
+def corner_batch(seed: int):
+    """Kernel inputs (x, parity, u1w, u2w) built straight from field
+    values, one row per corner of the ladder: R = G (the 2G entry),
+    R = -G (the infinite G+R entry, so the steps with both bits set add
+    nothing), a doubling collision (R = 2G with u1 = 2, u2 = 1), u1 = 0,
+    u2 = 0, u1 = u2 = 0, and both scalars with only their top bit set.
+    The free rows take x from signatures of ``signature_batch``."""
+    import random
+    from coreth_tpu_torch.ops.secp import G2X, G2Y, GX, GY
+    rnd = random.Random(seed)
+    _packed, (sx, spar, _u1, _u2) = signature_batch(12, seed)
+    free = [(int.from_bytes(sx[i].tobytes(), "little"), int(spar[i]))
+            for i in range(3)]          # rows past 4 are the malformed ones
+    top = 1 << 255
+    rows = [(GX, GY & 1, rnd.getrandbits(256), rnd.getrandbits(256)),
+            (GX, 1 - (GY & 1), rnd.getrandbits(256), rnd.getrandbits(256)),
+            (G2X, G2Y & 1, 2, 1),
+            (*free[0], 0, rnd.getrandbits(256)),
+            (*free[1], rnd.getrandbits(256), 0),
+            (*free[2], 0, 0),
+            (*free[0], top, top)]
+    x = np.array([np.frombuffer(v.to_bytes(33, "little"), np.uint8)
+                  for v, _p, _a, _b in rows])
+    parity = np.array([p for _v, p, _a, _b in rows], dtype=np.int32)
+
+    def words(v):
+        return np.frombuffer(v.to_bytes(32, "little"), "<u4").astype(np.int32)
+    u1w = np.array([words(a) for _v, _p, a, _b in rows])
+    u2w = np.array([words(b) for _v, _p, _a, b in rows])
+    return x, parity, u1w, u2w
+
+
+# the function's squarings and multiplies per row outside the ladder: x^3
+# and the y^2 check (2 squarings, 1 multiply), the G+R entry (1, 2), and
+# the addition chains of the square root ((p + 1) / 4: 253 squarings, 13
+# multiplies) and the inversion (p - 2: 255, 15)
+FIXED_SQRS = 2 + 1 + 253 + 255
+FIXED_MULS = 1 + 2 + 13 + 15
+# 32-bit multiply-adds of one multiply (64 word products, lo and hi
+# halves) and of one squaring (36 products: 8 squares, 28 doubled cross
+# products); the fold by 2^256 = 2^32 + 977 is left out (shifts and adds
+# can do it)
+MUL_IMADS, SQR_IMADS = 128, 72
+
+
 def ladder_imads(u1w: np.ndarray, u2w: np.ndarray) -> int:
-    """32-bit multiply-adds the recovery kernel does on these inputs:
-    128 per field multiply (64 word products, lo and hi halves); per row
-    the two exponentiations, 7 multiplies per doubling, and 11 per ladder
+    """32-bit multiply-adds the recovery kernel's function needs on these
+    inputs: per row the products outside the ladder, 5 squarings and 2
+    multiplies per doubling, and 3 squarings and 8 multiplies per ladder
     step that adds (a set bit of u1 or u2, after the first)."""
-    from coreth_tpu_torch.ops.secp import P
-    pow_muls = 512 + bin((P + 1) // 4).count("1") + bin(P - 2).count("1")
-    fixed = 4 + 6 + pow_muls + 7 * 256      # y^2 check, G+R entry
+    rows = u1w.shape[0]
     bits = np.unpackbits(
         (u1w.view(np.uint32) | u2w.view(np.uint32)).view(np.uint8),
         axis=1).sum(axis=1)
-    adds = np.maximum(bits.astype(np.int64) - 1, 0)
-    return int(128 * (fixed * u1w.shape[0] + 11 * adds.sum()))
+    adds = int(np.maximum(bits.astype(np.int64) - 1, 0).sum())
+    sqrs = (FIXED_SQRS + 5 * 256) * rows + 3 * adds
+    muls = (FIXED_MULS + 2 * 256) * rows + 8 * adds
+    return SQR_IMADS * sqrs + MUL_IMADS * muls
 
 
 # ------------------------------------------------------------ K4 inputs
@@ -1525,6 +1614,28 @@ def phase_k8(dev, win, k1, k1_fetches):
     K, pad = win[5].shape[:2]
     L, SL = win[3].shape[0], win[4].shape[0]
     k1_ms = cuda_ms(lambda: E._transfer_window(*args))
+    design = SH.window_design(pad)
+    shapes = {}
+    for shape in ("hot", "pad_rows"):
+        swin = shaped_window(np.random.default_rng(SEED + 8), shape, 8, pad,
+                             pad * 3 // 4, cap=32768, scap=1024, n_acct=1500,
+                             n_slot=40, L=2048, SL=64, t_pad=512, s_pad=64)
+        for n in SHARD_WIDTHS:
+            perm = SH.interleave_txs(pad, n)
+            sw = swin[:5] + (np.ascontiguousarray(swin[5][:, perm]),) \
+                + swin[6:]
+            sargs = [torch.from_numpy(a).to(dev) for a in sw]
+            for mode in ("psum", "ppermute"):
+                got = SH.sharded_transfer_window(*sargs, n=n, mode=mode,
+                                                 return_replicas=True)
+                want = SH._sharded_window_plain(*sargs, n, mode,
+                                                return_replicas=True)
+                if not all(torch.equal(g, w) for g, w in
+                           zip(got[:4] + got[4], want[:4] + want[4])):
+                    raise AssertionError(f"K8 n={n} {mode} {shape}: differs "
+                                         "from the plain version")
+        shapes[shape] = {"K": 8, "pad": pad, "layout":
+                         SH.window_design(pad)["layout"], "equal": True}
     rows, k8 = {}, None
     for n in SHARD_WIDTHS:
         perm = torch.from_numpy(SH.interleave_txs(pad, n)).to(dev)
@@ -1569,7 +1680,8 @@ def phase_k8(dev, win, k1, k1_fetches):
                       "bound_by": k1["bound_by"], "library_ms": None}
     k8["max_abs_err"] = max(r["max_abs_err"] for r in rows.values())
     emit({"phase": "k8", "equal": True, "K": K, "pad": pad, "L": L,
-          "SL": SL, "k1_ms_same_window": round(k1_ms, 4), "widths": rows,
+          "SL": SL, "design": design, "shapes": shapes,
+          "k1_ms_same_window": round(k1_ms, 4), "widths": rows,
           "ms_is": f"n={HEADLINE_WIDTH}, psum, CUDA events around the "
           "wrapper", "bound_is": "K1's on the same window", **k8})
     return k8
@@ -2305,7 +2417,17 @@ def main() -> int:
             okb[i] and addrs[20 * i:20 * i + 20] != addrs_n[20 * i:20 * i + 20]
             for i in range(n_sig)):
         raise AssertionError("K2 addresses differ from the native batch")
-    k2_ms = cuda_ms(lambda: S.recover_kernel(*dargs))
+    # the corner rows
+    corner = [torch.from_numpy(a).to(dev) for a in corner_batch(SEED)]
+    corner_plain = S.recover_kernel_plain(*corner)
+    if not torch.equal(S.recover_kernel(*corner), corner_plain):
+        raise AssertionError("K2 corner rows differ from the plain version")
+    design = S.kernel_design()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # three medians of 10 launches each: the spread within this run
+    k2_runs = [round(cuda_ms(lambda: S.recover_kernel(*dargs)), 4)
+               for _ in range(3)]
+    k2_ms = float(np.median(k2_runs))
     k2_plain_ms = once_ms(lambda: S.recover_kernel_plain(*dargs))
     k2_bytes = sum(a.nbytes for a in kin) + n_sig * 102
     k2_imads = ladder_imads(kin[2], kin[3])
@@ -2322,7 +2444,13 @@ def main() -> int:
           >= k2_bytes / H100_BYTES_PER_S else "bytes",
           "library_ms": None}
     emit({"phase": "k2", "equal": True, "rows": n_sig,
-          "valid_sigs": sum(okb), "imads": k2_imads, **k2})
+          "valid_sigs": sum(okb), "imads": k2_imads,
+          "corner_rows_equal": len(corner_plain), "ms_runs": k2_runs,
+          "g": design["g"],
+          "block": design["block"],
+          "warps_per_sm": {str(r): round(r * design["g"] / 32 / sms, 2)
+                           for r in (4096, 1024)},
+          **k2})
 
     # ---- 4b. K8r against K2 on the same signatures
     k8r = phase_k8r(dev, dargs, k2)

@@ -20,6 +20,9 @@
 //                   nonce bump;
 //   write_fetch   - the block's fetch rows (touched accounts, touched
 //                   slots, the ok flag).
+// K8 alone uses accumulate_limbs (accumulate's sums into its compact
+// per-block rows, one thread a limb) and the warp-wide limb chains hw_*
+// (nvcc only).
 //
 // Accumulators are uint32 limb sums normalized once: a limb takes at most
 // 2 * pad adds of < 2^16, which fits while pad <= 32768 (the wrappers
@@ -168,6 +171,85 @@ __device__ void accumulate(const int* __restrict__ txd, int lo, int hi,
     }
   }
 }
+
+// accumulate's sums for the sharded window (K8), one thread a (lane, limb)
+// of lanes [lo, hi): into the accumulator row arow(r) of account r and
+// srow(r) of slot r (K8's compact per-block rows), the same words as
+// accumulate.  A limb's debit takes the value + fee carry chain up to it.
+template <class ARow, class SRow>
+__device__ void accumulate_limbs(const int* __restrict__ txd, int lo, int hi,
+                                 int L, int SL, const int* __restrict__ ln,
+                                 ARow arow, SRow srow, int* bad) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int cb = txd[5];
+  for (int e = tid; e < (hi - lo) * LIMBS; e += nt) {
+    const int* row = txd + (int64_t)(lo + e / LIMBS) * COLS;
+    const int j = e % LIMBS;
+    if (row[4] == 0) continue;  // masked-out pad row adds nothing
+    const int s = row[0], r = row[1];
+    const int* value = row + 6;
+    const int* fee = row + 22;
+    int carry = 0;
+    for (int i = 0; i < j; ++i) carry = (value[i] + fee[i] + carry) >> 16;
+    const unsigned debit = (unsigned)((value[j] + fee[j] + carry) & 0xFFFF);
+    if (in_range(s, L)) {
+      unsigned* a = arow(s);
+      atomicAdd(a + j, debit);
+      atomicAdd(a + LIMBS + j, (unsigned)row[38 + j]);
+      if (j == 0) atomicAdd(a + 3 * LIMBS, 1u);
+    }
+    if (in_range(r, L)) atomicAdd(arow(r) + 2 * LIMBS + j, (unsigned)value[j]);
+    if (in_range(cb, L)) atomicAdd(arow(cb) + 2 * LIMBS + j, (unsigned)fee[j]);
+    const int fs = row[54], ts = row[55];
+    const unsigned amt = (unsigned)row[56 + j];
+    if (in_range(fs, SL)) atomicAdd(srow(fs) + j, amt);
+    if (in_range(ts, SL)) atomicAdd(srow(ts) + LIMBS + j, amt);
+    if (j == 0 && row[2] != ln[clamp_idx(s, L)] + row[3]) *bad = 1;
+  }
+}
+
+#ifdef __CUDACC__
+constexpr unsigned FULL = 0xFFFFFFFFu;
+
+// u256 limb chains across a warp, one limb a lane: a 16-limb number in
+// each 16-lane half (lane & 15 = limb).  A chain's carries resolve in one
+// step: with G the limbs that carry out and P the limbs that pass a carry
+// on (all ones), the carries in are (P + (G << 1)) ^ P, per half, the
+// carry out of limb 15 dropped (mod 2^256).  Every lane of the warp calls
+// these together.
+__device__ __forceinline__ unsigned hw_carry_in(bool gen, bool prop,
+                                               int lane) {
+  const int h = lane & 16;
+  const unsigned G = (__ballot_sync(FULL, gen) >> h) & 0xFFFFu;
+  const unsigned P = (__ballot_sync(FULL, prop) >> h) & 0xFFFFu;
+  return (((P + (G << 1)) ^ P) >> (lane & 15)) & 1u;
+}
+
+// uint32 limb sums (< 2^32) -> 16-bit limbs, as normalize
+__device__ __forceinline__ unsigned hw_normalize(unsigned v, int lane) {
+  unsigned c = __shfl_up_sync(FULL, v >> 16, 1);
+  if ((lane & 15) == 0) c = 0;
+  v = (v & 0xFFFFu) + c;  // < 2^17
+  const bool gen = v > 0xFFFFu;
+  v &= 0xFFFFu;
+  return (v + hw_carry_in(gen, v == 0xFFFFu, lane)) & 0xFFFFu;
+}
+
+// (a + b) mod 2^256, limbs < 2^16
+__device__ __forceinline__ unsigned hw_add(unsigned a, unsigned b, int lane) {
+  unsigned s = a + b;
+  const bool gen = s > 0xFFFFu;
+  s &= 0xFFFFu;
+  return (s + hw_carry_in(gen, s == 0xFFFFu, lane)) & 0xFFFFu;
+}
+
+// (a - b) mod 2^256, limbs < 2^16: a borrow passes through a zero limb
+__device__ __forceinline__ unsigned hw_sub(unsigned a, unsigned b, int lane) {
+  const bool brw = a < b;
+  const unsigned d = (a - b) & 0xFFFFu;
+  return (d - hw_carry_in(brw, d == 0, lane)) & 0xFFFFu;
+}
+#endif
 
 // Each row a lane of [0, pad) or the coinbase touches, once (the first
 // thread to stamp it with this block's k): its sums sum_a(r, c) /

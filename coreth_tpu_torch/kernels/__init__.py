@@ -162,8 +162,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.transfer_window_launch.restype = I
     elif name == "sharded_window":
         lib.sharded_window_launch.argtypes = [
-            I, P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I] + [P] * 12
+            I, I, P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I] + [
+                P] * 11
         lib.sharded_window_launch.restype = I
+        lib.sharded_window_layout.argtypes = [I, P]
+        lib.sharded_window_layout.restype = I
     elif name == "sharded_step":
         lib.sharded_transfer_step_launch.argtypes = [I] + [P] * 10 + [
             I, I, I] + [P] * 6
@@ -174,6 +177,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "secp_recover":
         lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
         lib.secp_recover_launch.restype = I
+        lib.secp_recover_info.argtypes = [P, P]
+        lib.secp_recover_info.restype = I
     elif name == "keccak256_blocks":
         lib.keccak256_blocks_launch.argtypes = [P, P, P, I, I, P]
         lib.keccak256_blocks_launch.restype = I

@@ -327,6 +327,16 @@ def recover_kernel(x_bytes: torch.Tensor, parity: torch.Tensor,
     return out
 
 
+def kernel_design() -> dict:
+    """The built kernel's group width ``g`` (threads a signature) and its
+    block size in threads."""
+    import ctypes
+    lib = kernels.load("secp_recover")
+    g, block = ctypes.c_int(), ctypes.c_int()
+    lib.secp_recover_info(ctypes.byref(g), ctypes.byref(block))
+    return {"g": g.value, "block": block.value}
+
+
 # ------------------------------------------------ sharded ladder (K8r)
 # Port of reference parallel/mesh.py:202 sharded_recover: the batch
 # splits into n contiguous equal slices (the reference's PS("dp")), and

@@ -181,6 +181,36 @@ def sharded_transfer_window(balances, nonces, slot_vals, acct_rows,
     if dev.type == "cpu":
         return _sharded_window_plain(*args, n, mode, return_replicas)
     global LAUNCHES
+    nb, nn, nsv, fetches, reps = _launch(args, n, mode,
+                                         window_design(P)["layout"])
+    LAUNCHES += 1
+    out = (nb, nn, nsv, fetches)
+    return out + (reps,) if return_replicas else out
+
+
+def window_design(pad: int) -> dict:
+    """K8's design at ``pad`` lanes a block (any width): the slab layout
+    ("dsmem": each CTA's compact slabs in its shared memory, read by its
+    peers through distributed shared memory; "global": the same slabs in
+    device memory, read through L2, when two buffers do not fit the
+    card's opt-in shared memory), the dynamic shared memory a CTA, and the
+    barriers a block."""
+    import ctypes
+    lib = kernels.load("sharded_window")
+    b = ctypes.c_int()
+    dsmem = lib.sharded_window_layout(pad, ctypes.byref(b))
+    return {"layout": "dsmem" if dsmem else "global", "smem_bytes": b.value,
+            "cluster_barriers_a_block": 1, "cta_barriers_a_block": 2}
+
+
+def _launch(args, n: int, mode: str, layout: str):
+    """One launch of K8 on CUDA tensors in slab layout ``layout``; returns
+    (balances, nonces, slots, fetches, each shard's working set)."""
+    balances, nonces, slot_vals, acct_rows, slot_rows, txds, t_idxs, \
+        s_idxs = args
+    dev = balances.device
+    K, P = txds.shape[:2]
+    A, SA = balances.shape[0], slot_vals.shape[0]
     L, SL = acct_rows.shape[0], slot_rows.shape[0]
     lib = kernels.load("sharded_window")
     acct_rows, slot_rows, txds, t_idxs, s_idxs = (
@@ -190,29 +220,30 @@ def sharded_transfer_window(balances, nonces, slot_vals, acct_rows,
     lb = torch.empty((n, L, u256.LIMBS), **i32)
     ln = torch.empty((n, L), **i32)
     ls = torch.empty((n, SL, u256.LIMBS), **i32)
-    stamp = torch.empty((n, L), **i32)
-    sstamp = torch.empty((n, SL), **i32)
-    xa = torch.empty((2, n, L, ACCW), **i32)
-    xs = torch.empty((2, n, SL, 2 * u256.LIMBS), **i32)
-    xn = torch.empty((2, n), **i32)
-    ra = torch.empty((n, L, ACCW), **i32)
-    rs = torch.empty((n, SL, 2 * u256.LIMBS), **i32)
+    amap = torch.empty((n, L), **i32)
+    smap = torch.empty((n, SL), **i32)
+    ga = torch.empty((n, L, u256.LIMBS + 1), **i32)
+    gs = torch.empty((n, SL, u256.LIMBS), **i32)
+    slabs = layout == "global"
+    xa = torch.empty((2, n, 2 * P + 1, ACCW) if slabs else (1,), **i32)
+    xs = torch.empty((2, n, 2 * P, 2 * u256.LIMBS) if slabs else (1,), **i32)
     t_pad, s_pad = t_idxs.shape[1], s_idxs.shape[1]
     fetches = torch.empty((K, t_pad + s_pad + 1, u256.LIMBS + 1), **i32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.sharded_window_launch(
-        n, nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), A // n, SA // n,
-        acct_rows.data_ptr(), L, slot_rows.data_ptr(), SL, txds.data_ptr(),
-        K, P, t_idxs.data_ptr(), t_pad, s_idxs.data_ptr(), s_pad,
-        int(mode == "ppermute"), lb.data_ptr(), ln.data_ptr(), ls.data_ptr(),
-        stamp.data_ptr(), sstamp.data_ptr(), xa.data_ptr(), xs.data_ptr(),
-        xn.data_ptr(), ra.data_ptr(), rs.data_ptr(), fetches.data_ptr(),
+        n, int(not slabs), nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(),
+        A // n, SA // n, acct_rows.data_ptr(), L, slot_rows.data_ptr(), SL,
+        txds.data_ptr(), K, P, t_idxs.data_ptr(), t_pad, s_idxs.data_ptr(),
+        s_pad, int(mode == "ppermute"), lb.data_ptr(), ln.data_ptr(),
+        ls.data_ptr(), amap.data_ptr(), smap.data_ptr(), ga.data_ptr(),
+        gs.data_ptr(), xa.data_ptr(), xs.data_ptr(), fetches.data_ptr(),
         stream)
     if rc == -1:
         raise RuntimeError(f"sharded_window: no cluster of {n} CTAs x 1024 "
                            "threads fits on this card")
+    if rc == -3:
+        raise ValueError(f"sharded_window: {K} blocks of {P} lanes; K8 takes "
+                         "fewer than 16384 blocks of at most 16384 lanes")
     kernels.check(rc, "sharded_window")
-    LAUNCHES += 1
-    out = (nb, nn, nsv, fetches)
-    return out + ((lb, ln, ls),) if return_replicas else out
+    return nb, nn, nsv, fetches, (lb, ln, ls)
 

@@ -56,6 +56,23 @@ def test_recover_kernel_matches_plain(cuda):
     assert torch.equal(rows, S.recover_kernel_plain(*args))
 
 
+def test_recover_kernel_matches_plain_on_corner_rows(cuda):
+    """The ladder's corner rows (chip_smoke.corner_batch: the 2G entry,
+    the infinite G+R entry, a doubling collision, zero and top-bit
+    scalars) with signature rows behind them: rows equal to the plain
+    version's."""
+    from coreth_tpu_torch.ops import secp as S
+    corner = chip_smoke.corner_batch(17)
+    _packed, sigs = chip_smoke.signature_batch(57, 8)
+    args = [torch.from_numpy(np.concatenate(p)).to(cuda)
+            for p in zip(corner, sigs)]
+    want = S.recover_kernel_plain(*args)
+    launches = S.LAUNCHES
+    assert torch.equal(S.recover_kernel(*args), want)
+    assert S.LAUNCHES == launches + 1
+    assert want[:7, 100].tolist() == [0, 0, 1, 0, 0, 0, 0]
+
+
 def test_replay_on_the_card(cuda):
     from coreth_tpu_torch.replay import ReplayEngine
     from coreth_tpu_torch.state import StateStore
@@ -72,32 +89,56 @@ def test_replay_on_the_card(cuda):
     assert eng.stats.sigs_device == 4 * 32
 
 
-@pytest.mark.parametrize("mode", ["psum", "ppermute"])
-@pytest.mark.parametrize("n", [2, 4, 8])
-def test_sharded_window_kernel_matches_plain(cuda, n, mode):
-    """K8 (one cluster of n CTAs) against its plain version on a window
-    with an insolvent and a nonce-mismatch block: tables, fetches and
-    every shard's working set equal, and the n working sets equal."""
+def _k8_window(n, case):
     from coreth_tpu_torch.replay import shard as SH
-    rng = np.random.default_rng(10 + n)
-    win = chip_smoke.random_window(rng, 8, 64, 48, cap=1024, scap=64,
-                                   n_acct=300, n_slot=10, L=512, SL=16,
-                                   t_pad=128, s_pad=16)
+    kw = dict(cap=1024, scap=64, n_acct=300, n_slot=10, L=512, SL=16,
+              t_pad=128, s_pad=16)
+    if case == "random":
+        win = chip_smoke.random_window(np.random.default_rng(10 + n), 8, 64,
+                                       48, **kw)
+    else:
+        win = chip_smoke.shaped_window(np.random.default_rng(30 + n), case,
+                                       8, 64, 48, **kw)
     perm = SH.interleave_txs(64, n)
-    win = win[:5] + (np.ascontiguousarray(win[5][:, perm]),) + win[6:]
-    args = [torch.from_numpy(a).to(cuda) for a in win]
+    return win[:5] + (np.ascontiguousarray(win[5][:, perm]),) + win[6:]
+
+
+def _k8_params():
+    out = [pytest.param(n, m, "random", id=f"{n}-{m}")
+           for m in ("psum", "ppermute") for n in (2, 4, 8)]
+    return out + [pytest.param(n, m, c, id=f"{c}-{m}-{n}")
+                  for c in ("hot", "pad_rows") for m in ("psum", "ppermute")
+                  for n in (2, 4, 8)]
+
+
+@pytest.mark.parametrize("n,mode,case", _k8_params())
+def test_sharded_window_kernel_matches_plain(cuda, n, mode, case):
+    """K8 (one cluster of n CTAs) against its plain version on a window
+    with an insolvent and a nonce-mismatch block ("random"), with every
+    lane of a block paying one recipient and one token slot ("hot"), and
+    with out-of-range pad rows and coinbase ("pad_rows"): tables, fetches
+    and every shard's working set equal, the n working sets equal; the
+    same with the slabs in device memory (the layout of a pad too wide
+    for shared memory)."""
+    from coreth_tpu_torch.replay import shard as SH
+    args = [torch.from_numpy(a).to(cuda) for a in _k8_window(n, case)]
     launches = SH.LAUNCHES
     got = SH.sharded_transfer_window(*args, n=n, mode=mode,
                                      return_replicas=True)
     assert SH.LAUNCHES == launches + 1
+    assert SH.window_design(64)["layout"] == "dsmem"
     want = SH._sharded_window_plain(*args, n, mode, return_replicas=True)
     for g, w in zip(got[:4], want[:4]):
         assert torch.equal(g, w)
     for g, w in zip(got[4], want[4]):
         assert torch.equal(g, w)
         assert torch.equal(g, g[:1].expand_as(g))
-    oks = got[3][:, -1, 0].tolist()
-    assert oks[1] == 0 and oks[2] == 0 and sum(oks) == 6
+    if case == "random":
+        oks = got[3][:, -1, 0].tolist()
+        assert oks[1] == 0 and oks[2] == 0 and sum(oks) == 6
+    glob = SH._launch(args, n, mode, "global")
+    for g, w in zip(glob[:4] + glob[4], want[:4] + want[4]):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

@@ -9,12 +9,14 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke
+import secp_host_build
 from coreth_tpu.ops import secp as jsecp
 from coreth_tpu.ops import u256 as ju256
 from coreth_tpu.replay import engine as jengine
@@ -143,3 +145,106 @@ def test_recover_wrapper_rejects_bad_input(sig_batch):
         tsecp.recover_kernel(*(t.to("meta") for t in args))
     with pytest.raises(ValueError):
         tsecp.recover_kernel(args[0], args[1].long(), args[2], args[3])
+
+
+@pytest.fixture(scope="module")
+def corner_rows():
+    return chip_smoke.corner_batch(17)
+
+
+def test_recover_plain_matches_jax_on_corner_rows(corner_rows, sig_batch):
+    """R = G (the 2G entry), R = -G (the infinite G+R entry), a doubling
+    collision, u1 = 0, u2 = 0, u1 = u2 = 0 and top-bit scalars: rows equal
+    to the reference's, with the collision and infinity flags where the
+    rows put them.  Signature rows fill the batch to the fixture's 64, the
+    shape the reference's program is already compiled for."""
+    n = len(corner_rows[0])
+    kin = [np.concatenate([c, s[:64 - n]])
+           for c, s in zip(corner_rows, sig_batch[1])]
+    want = np.asarray(jsecp.recover_kernel(*kin))
+    got = tsecp.recover_kernel_plain(*(torch.from_numpy(a) for a in kin))
+    assert np.array_equal(got.numpy(), want)
+    got = got[:n].numpy()
+    assert got[:, 100].tolist() == [0, 0, 1, 0, 0, 0, 0]   # collision
+    assert got[:, 99].tolist() == [0, 0, 0, 0, 0, 1, 0]    # at infinity
+    assert got[:, 101].all()                                # residues
+
+
+# ------------------------------------------- host build of K2's source
+
+@pytest.fixture(scope="module")
+def host_k2(tmp_path_factory):
+    """The host builds at group widths 1 and 4, by width."""
+    if secp_host_build.gxx() is None:
+        pytest.skip("needs g++")
+    tmp = str(tmp_path_factory.mktemp("host_k2"))
+    return {g: secp_host_build.build(tmp, g) for g in (1, 4)}
+
+
+@pytest.mark.parametrize("g", [1, 4])
+def test_host_build_of_k2_matches_plain(host_k2, corner_rows, sig_batch, g):
+    """``csrc/secp_recover.cu`` built for the host (tests/secp_host_build.py:
+    the PTX carry chains on a portable flag; at group width 4 each lane a
+    host thread and every shuffle and vote a barrier) equals the plain
+    version byte for byte on the corner rows and on the signature batch
+    with its malformed rows (its last 8 rows at width 4).  The shuffle
+    path as the card schedules it is checked only on the card
+    (tests/test_torch_cuda.py, chip_smoke.py phase k2)."""
+    sigs = sig_batch[1] if g == 1 else [a[-8:] for a in sig_batch[1]]
+    for kin in (corner_rows, sigs):
+        want = tsecp.recover_kernel_plain(*(torch.from_numpy(a) for a in kin))
+        got = secp_host_build.run(host_k2[g], *kin)
+        assert np.array_equal(got, want.numpy())
+
+
+_P = tsecp.P
+_WRAP = 2**32 + 977                      # 2^256 mod p
+_FE_EDGES = [0, 1, 2, 977, _WRAP, 2**64 - 1, 2**64, 2**255, _P - 1, _P,
+             _P + 1, 2**256 - 2, 2**256 - 1]
+
+
+def _fe_operands():
+    """Every pair of edge values, seeded random pairs, and products whose
+    fold leaves the low 64-bit digit within 2^32 + 977 of 2^64 after the
+    wrap: (p - 1) * (p - (2^32 + 977 + r)) = 2^32 + 977 + r (mod p)."""
+    rng = np.random.default_rng(31)
+    pairs = [(a, b) for a in _FE_EDGES for b in _FE_EDGES]
+    pairs += [(int.from_bytes(rng.bytes(32), "little"),
+               int.from_bytes(rng.bytes(32), "little")) for _ in range(16)]
+    pairs += [(_P - 1, _P - (_WRAP + r))
+              for r in (2**64 - 1, 2**64 - 977, 2**64 - _WRAP, 2**65 - 1,
+                        3 * 2**64 - 5)]
+    return [a for a, _ in pairs], [b for _, b in pairs]
+
+
+_FE_WANT = {
+    "mul": lambda a, b: (a * b, 0),
+    "add": lambda a, b: (a + b, 0),
+    "sub": lambda a, b: (a - b, 0),
+    "mul2": lambda a, b: (a * b, a * a),
+    "subadd": lambda a, b: (a - b, a + b),
+    "wrap": lambda a, b: (a + (b & 15) * 2**256, 0),
+}
+
+
+@pytest.mark.parametrize("op", list(secp_host_build.FE_OPS))
+@pytest.mark.parametrize("g", [1, 4])
+def test_host_build_field_ops_match_integers(host_k2, g, op):
+    """K2's field operations, one a row, at group widths 1 and 4 on edge
+    operands (0, 1, p - 1, p, p + 1, 2^256 - 1, ...), random ones, and
+    products built to carry out of the low digit after the fold's wrap:
+    each result below 2^256 and equal mod p to Python's integers ("canon":
+    exactly a mod p, with the zero flag).  These operands take the carry
+    paths that random signatures never reach: an add's or subtract's
+    second wrap, the multiply's carry out of the low digit after the wrap,
+    and the x unpack's second wrap (a copy of the source with any one of
+    them removed fails here).  The shuffle path as the card schedules it is
+    checked only on the card."""
+    a, b = _fe_operands()
+    got = secp_host_build.run_fe(host_k2[g], op, a, b)
+    for x, y, r in zip(a, b, got):
+        if op == "canon":
+            assert r == (x % _P, int(x % _P == 0)), (x, y)
+        else:
+            w = _FE_WANT[op](x, y)
+            assert (r[0] - w[0]) % _P == 0 and (r[1] - w[1]) % _P == 0, (x, y)

@@ -11,8 +11,11 @@ sizes (capacity 256, batch_pad 64, window 4).
 
 The CUDA sources of K1 and K8 cannot run here, but their device code is
 plain C++: a host build (g++, CUDA spellings shimmed, each CTA of the
-cluster one host thread, the cluster barrier a ``std::barrier``) must
-equal the plain versions.  tests/test_torch_cuda.py runs the kernels on
+cluster one host thread, the cluster barrier a ``std::barrier``, each
+CTA's dynamic shared memory a buffer its peers reach through the shimmed
+``map_shared_rank``) must equal the plain versions.  K8's host build runs
+its reduce in the one-thread form (``SW_LANES`` 1); the warp form is
+checked on the card only.  tests/test_torch_cuda.py runs the kernels on
 the card.
 """
 
@@ -121,14 +124,32 @@ def _window(seed, K=6, pad=32, B=24, cap=512, scap=64):
                                     t_pad=64, s_pad=16)
 
 
-@pytest.mark.parametrize("mode", ["psum", "ppermute"])
-@pytest.mark.parametrize("n", [2, 4])
-def test_sharded_window_plain_matches_reference(n, mode):
+def _reference_params():
+    out = [pytest.param(n, m, "random", id=f"{n}-{m}")
+           for n in (2, 4) for m in ("psum", "ppermute")]
+    return out + [pytest.param(n, m, case, id=f"{case}-{n}-{m}")
+                  for case in ("hot", "pad_rows") for n in (2, 4)
+                  for m in ("psum", "ppermute")]
+
+
+def _shaped(case, seed):
+    if case == "random":
+        return _window(seed)
+    return chip_smoke.shaped_window(
+        np.random.default_rng(seed), case, 6, 32, 24, cap=512, scap=64,
+        n_acct=200, n_slot=10, L=256, SL=16, t_pad=64, s_pad=16)
+
+
+@pytest.mark.parametrize("n,mode,case", _reference_params())
+def test_sharded_window_plain_matches_reference(n, mode, case):
     """Seeded windows with an insolvent block, a nonce-mismatch block,
     token slot amounts and out-of-bounds pad rows: new tables and
     fetches exactly equal to the reference's sharded window; at n = 2
-    the fetches also equal K1's plain version on the un-sharded window."""
-    win = _window(100 + n)
+    the fetches also equal K1's plain version on the un-sharded window.
+    "hot": every lane of a block pays one recipient and one token slot;
+    "pad_rows": the pad lanes' rows and one coinbase out of range (the
+    windows of K8's host-build and card cases)."""
+    win = _shaped(case, 100 + n)
     bal, non, sv, rows, srows, txds, ti, si = win
     perm = tshard.interleave_txs(txds.shape[1], n)
     assert np.array_equal(perm, rshard.interleave_txs(txds.shape[1], n))
@@ -166,17 +187,26 @@ _SHIM = r"""
 #include <vector>
 #define __device__
 #define __global__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
 #define __shared__ static thread_local
+#define __align__(x) alignas(x)
+#define SW_LANES 1
 struct Dim3Shim { unsigned x, y, z; };
 inline Dim3Shim dim3(unsigned x, unsigned y, unsigned z) { return {x, y, z}; }
 static thread_local Dim3Shim threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
 static Dim3Shim blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
 inline void __syncthreads() {}
+inline void __syncwarp() {}
 template <class T> T atomicAdd(T* p, T v) { T o = *p; *p = o + v; return o; }
 template <class T> T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
+template <class T> T atomicMax(T* p, T v) {
+  T o = *p;
+  if (v > o) *p = v;
+  return o;
+}
 template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }
 typedef void* cudaStream_t;
@@ -184,11 +214,18 @@ typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
 inline int cudaGetLastError() { return 0; }
 static std::barrier<>* shim_barrier = nullptr;
+// each CTA's dynamic shared memory, by rank (DSMEM: a peer's address is
+// the same offset into the peer's buffer)
+static std::vector<uint8_t*> shim_smem_all;
+static thread_local uint8_t* shim_smem = nullptr;
 namespace cooperative_groups {
 struct cluster_group {
   unsigned block_rank() const { return blockIdx.x; }
   unsigned num_blocks() const { return gridDim.x; }
   void sync() const { shim_barrier->arrive_and_wait(); }
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {
+    return (T*)(shim_smem_all[r] + ((uint8_t*)p - shim_smem));
+  }
 };
 inline cluster_group this_cluster() { return {}; }
 }
@@ -209,6 +246,16 @@ inline int cudaOccupancyMaxActiveClusters(int* n, const void*,
   *n = 1;
   return 0;
 }
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 232448;  // an H100's opt-in shared memory a block
+  return 0;
+}
+template <class K> int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return 0;
+}
 template <class... P, class... A>
 int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
                        A&&... args) {
@@ -216,9 +263,17 @@ int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
   gridDim = {n, 1, 1};
   std::barrier<> bar(n);
   shim_barrier = &bar;
+  std::vector<std::vector<uint64_t>> smem(
+      n, std::vector<uint64_t>(cfg->dynamicSmemBytes / 8 + 2));
+  shim_smem_all.clear();
+  for (auto& v : smem) shim_smem_all.push_back((uint8_t*)v.data());
   std::vector<std::thread> cta;
   for (unsigned b = 0; b < n; ++b)
-    cta.emplace_back([&, b] { blockIdx = {b, 0, 0}; k(args...); });
+    cta.emplace_back([&, b] {
+      blockIdx = {b, 0, 0};
+      shim_smem = shim_smem_all[b];
+      k(args...);
+    });
   for (auto& t : cta) t.join();
   return 0;
 }
@@ -243,6 +298,8 @@ def host_kernels(tmp_path_factory):
                     "#include <cooperative_groups.h>"):
             src = src.replace(inc, "")
         src = src.replace("<<<1, 1024, 0, (cudaStream_t)stream>>>", "")
+        src = src.replace("extern __shared__ __align__(16) uint8_t sw_smem[];",
+                          "uint8_t* sw_smem = shim_smem;")
         (tmp / f"{name}.cpp").write_text(_SHIM + src)
         out = tmp / f"lib{name}.so"
         r = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
@@ -255,7 +312,7 @@ def host_kernels(tmp_path_factory):
     return libs
 
 
-def _run_host_k8(lib, args, n, mode):
+def _run_host_k8(lib, args, n, mode, layout=1):
     bal, non, sv, rows, srows, txds, ti, si = args
     K, P = txds.shape[:2]
     L, SL = rows.shape[0], srows.shape[0]
@@ -264,35 +321,73 @@ def _run_host_k8(lib, args, n, mode):
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int32)
     lb, ln, ls = z(n, L, 16), z(n, L), z(n, SL, 16)
-    stamp, sstamp = z(n, L), z(n, SL)
-    xa, xs, xn = z(2, n, L, tengine.ACCW), z(2, n, SL, 32), z(2, n)
-    ra, rs = z(n, L, tengine.ACCW), z(n, SL, 32)
+    amap, smap = z(n, L), z(n, SL)
+    ga, gs = z(n, L, 17), z(n, SL, 16)
+    xa = z(2, n, 2 * P + 1, tengine.ACCW) if layout == 0 else z(1)
+    xs = z(2, n, 2 * P, 32) if layout == 0 else z(1)
     f = z(K, ti.shape[1] + si.shape[1] + 1, 17)
     rc = lib.sharded_window_launch(
-        n, nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), bal.shape[0] // n,
-        sv.shape[0] // n, rows.data_ptr(), L, srows.data_ptr(), SL,
-        txds.data_ptr(), K, P, ti.data_ptr(), ti.shape[1], si.data_ptr(),
-        si.shape[1], int(mode == "ppermute"), lb.data_ptr(), ln.data_ptr(),
-        ls.data_ptr(), stamp.data_ptr(), sstamp.data_ptr(), xa.data_ptr(),
-        xs.data_ptr(), xn.data_ptr(), ra.data_ptr(), rs.data_ptr(),
-        f.data_ptr(), None)
+        n, layout, nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(),
+        bal.shape[0] // n, sv.shape[0] // n, rows.data_ptr(), L,
+        srows.data_ptr(), SL, txds.data_ptr(), K, P, ti.data_ptr(),
+        ti.shape[1], si.data_ptr(), si.shape[1], int(mode == "ppermute"),
+        lb.data_ptr(), ln.data_ptr(), ls.data_ptr(), amap.data_ptr(),
+        smap.data_ptr(), ga.data_ptr(), gs.data_ptr(), xa.data_ptr(),
+        xs.data_ptr(), f.data_ptr(), None)
     assert rc == 0
     return (nb, nn, nsv, f), (lb, ln, ls)
 
 
-@pytest.mark.parametrize("n,mode", [(1, "psum"), (2, "psum"),
-                                    (4, "ppermute"), (8, "psum"),
-                                    (8, "ppermute")])
-def test_host_build_of_k8_matches_plain(host_kernels, n, mode):
-    win = [torch.from_numpy(a) for a in _window(200 + n)]
+def _k8_case(case, n):
+    """K8's host-build and card windows: "random" (``_window``), "hot"
+    and "pad_rows" (``chip_smoke.shaped_window``), tx axis interleaved
+    for n shards."""
+    win = _shaped(case, (200 if case == "random" else 220) + n)
+    win = [torch.from_numpy(a) for a in win]
     perm = torch.from_numpy(tshard.interleave_txs(win[5].shape[1], n))
-    args = win[:5] + [win[5][:, perm].contiguous()] + win[6:]
+    return win[:5] + [win[5][:, perm].contiguous()] + win[6:]
+
+
+def _k8_params():
+    base = [(1, "psum"), (2, "psum"), (4, "ppermute"), (8, "psum"),
+            (8, "ppermute")]
+    out = [pytest.param(n, m, "random", id=f"{n}-{m}") for n, m in base]
+    for case in ("hot", "pad_rows"):
+        out += [pytest.param(n, m, case, id=f"{case}-{n}-{m}")
+                for n in (2, 4, 8) for m in ("psum", "ppermute")]
+    return out
+
+
+@pytest.mark.parametrize("n,mode,case", _k8_params())
+def test_host_build_of_k8_matches_plain(host_kernels, n, mode, case):
+    """K8 (slabs in each CTA's shared memory, read by the peers through
+    the shimmed DSMEM) equal to the plain version: tables, fetches and
+    every shard's working set.  "hot": every lane of a block pays one
+    recipient and one token slot; "pad_rows": out-of-range pad rows and
+    coinbase."""
+    args = _k8_case(case, n)
     got, reps = _run_host_k8(host_kernels["sharded_window"], args, n, mode)
     want = tshard._sharded_window_plain(*args, n, mode,
                                         return_replicas=True)
     for g, w in zip(got, want[:4]):
         assert torch.equal(g, w)
     for g, w in zip(reps, want[4]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,mode,case", [(2, "psum", "random"),
+                                         (4, "ppermute", "hot"),
+                                         (8, "psum", "pad_rows")])
+def test_host_build_of_k8_global_slabs_match_plain(host_kernels, n, mode,
+                                                   case):
+    """The same kernel with its slabs in device memory (the layout a pad
+    too wide for shared memory takes) equal to the plain version."""
+    args = _k8_case(case, n)
+    got, reps = _run_host_k8(host_kernels["sharded_window"], args, n, mode,
+                             layout=0)
+    want = tshard._sharded_window_plain(*args, n, mode,
+                                        return_replicas=True)
+    for g, w in zip(got + reps, want[:4] + want[4]):
         assert torch.equal(g, w)
 
 
