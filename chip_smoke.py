@@ -13,8 +13,11 @@ Phases, each printing one JSON line:
 3. K1     — the transfer-window kernel against its plain PyTorch version on
    the card, at main-path shapes (128 blocks x 128 txs, ~9.4k window
    locals), on a window with token slot amounts, an insolvent block, a
-   nonce-mismatch block and out-of-bounds pad gids: tables and fetch rows
-   must be equal exactly (tolerance 0: integer results);
+   nonce-mismatch block and out-of-bounds pad gids, and on the "hot" and
+   "pad_rows" shapes of ``shaped_window``: tables and fetch rows must be
+   equal exactly (tolerance 0: integer results); ms on each window, the
+   launch's time by phase (blocks, rows, fetch), the scratch and phase
+   (a)'s layout;
 4. K2     — the secp256k1 recovery kernel against its plain version on 4096
    signatures made with the port's ``sign`` plus malformed rows (r or s out
    of range, recid 2/3, x >= p) and on the ladder's corner rows
@@ -40,7 +43,9 @@ Phases, each printing one JSON line:
    INVALID or escape HOST: packed rows and step counts equal to the plain
    version's (tolerance 0); then the launch's time split: the same batch
    with every lane a lone STOP (wrapper and lane set-up only), and the
-   kernel's device time from a ``torch.profiler`` trace of both;
+   kernel's device time from a ``torch.profiler`` trace of both; the
+   group the batch ran on (lanes a CTA, CTAs, shared memory a CTA, the
+   lane slots' layout);
 9. machine — the benchmark's ERC-20 shape (1024 keys, 256 txs/block, every
    third recipient the next key, TEST_CHAIN_CONFIG, the bench genesis),
    cut from 256 to 128 blocks because the chain is built with pure-Python
@@ -317,12 +322,20 @@ def random_window(rng, K: int, pad: int, B: int, cap: int, scap: int,
 
 
 def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
-    """``random_window`` reshaped for K8's corners.  "hot": every lane of a
-    block pays one recipient and one token slot (the hot chain's shape;
-    blocks 1 and 2 keep their insolvent sender and nonce mismatch);
-    "pad_rows": the masked pad lanes' accounts and slots out of range
-    (past the locals and negative) and block 3's coinbase past the
-    locals.  The fetch rows list each block's touched rows."""
+    """``random_window`` reshaped for the window kernels' corners.  "hot":
+    every lane of a block pays one recipient and one token slot (the hot
+    chain's shape; blocks 1 and 2 keep their insolvent sender and nonce
+    mismatch); "pad_rows": the masked pad lanes' accounts and slots out
+    of range (past the locals and negative) and block 3's coinbase past
+    the locals; "wrap": block 0's first sender with two lanes requires
+    2^255 more on each, so its required total wraps past 2^256 (and
+    passes), and block 1's insolvent lane sends 2^255, so its sender's
+    balance wraps below zero for the blocks on top; "untouched": each
+    block's fetch rows also list rows the block does not touch (the
+    previous block's, a local past the touched set, an index past the
+    end, which clamps) and slots likewise.  The fetch rows list each block's touched
+    rows first."""
+    from coreth_tpu_torch.ops import u256
     win = list(random_window(rng, K, pad, B, **kw))
     txds, t_idxs, s_idxs = win[5], win[6], win[7]
     L, SL = win[3].shape[0], win[4].shape[0]
@@ -340,14 +353,29 @@ def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
             txd[B:, 55] = -1
             if k == 3:
                 txd[:, 5] = L
-        else:
+        elif shape == "wrap":
+            if k == 0:
+                s, n = np.unique(txd[:B, 0], return_counts=True)
+                lanes = np.flatnonzero(txd[:B, 0] == s[n >= 2][0])[:2]
+                for i in lanes:
+                    req = sum(int(v) << 16 * j
+                              for j, v in enumerate(txd[i, 38:54]))
+                    txd[i, 38:54] = u256.pack_np([(1 << 255) + req])
+            if k == 1:
+                txd[0, 6:22] = u256.pack_np([1 << 255])
+        elif shape != "untouched":
             raise ValueError(f"shaped_window: unknown shape {shape!r}")
         touched = sorted({int(v) for v in txd[:B, :2].ravel()}
                          | {int(txd[0, 5])} & set(range(L)))
+        stouched = sorted({int(v) for v in txd[:B, 54:56].ravel()})
+        if shape == "untouched":
+            prev = {int(v) for v in txds[k - 1][:B, :2].ravel()} if k else set()
+            touched += sorted(prev - set(touched))[:3] + [
+                n_acct + k % max(L - n_acct, 1), L + 7]
+            stouched += [n_slot + k % max(SL - n_slot, 1), SL + 3]
         t_idxs[k] = 0
         t_idxs[k, :min(len(touched), t_idxs.shape[1])] = \
             touched[:t_idxs.shape[1]]
-        stouched = sorted({int(v) for v in txd[:B, 54:56].ravel()})
         s_idxs[k] = 0
         s_idxs[k, :min(len(stouched), s_idxs.shape[1])] = \
             stouched[:s_idxs.shape[1]]
@@ -659,6 +687,77 @@ def bound(n_bytes: int, n_ops: int):
         "bytes" if t_bytes >= t_ops else "operations"
 
 
+def phase_k1(dev, rng):
+    """K1 against its plain version at main-path shapes (128 blocks x 128
+    txs, ~9.4k window locals) on ``random_window`` and on the "hot" and
+    "pad_rows" shapes of ``shaped_window``: tables and fetch rows equal
+    (tolerance 0).  ms per window on each, the launch's time by phase
+    ((a) blocks with M's reset, (b) rows, (c) fetch: CUDA events between
+    its launches, medians of 5), the scratch and phase (a)'s layout.
+    Returns the random window, K1's kernels-line entry and its fetch
+    rows."""
+    import torch
+    from coreth_tpu_torch.replay import engine as E
+    K, pad, B, t_pad, s_pad = 128, 128, 128, 512, 64
+    cap, scap, L, SL = 32768, 1024, 16384, 64
+    kw = dict(cap=cap, scap=scap, n_acct=9400, n_slot=40, L=L, SL=SL,
+              t_pad=t_pad, s_pad=s_pad)
+    wins = {"random": random_window(rng, K, pad, B, **kw)}
+    for i, shape in enumerate(("hot", "pad_rows"), 1):
+        wins[shape] = shaped_window(np.random.default_rng(SEED + i), shape,
+                                    K, pad, B, **kw)
+    rows, errs = {}, []
+    for name, win in wins.items():
+        args = [torch.from_numpy(a).to(dev) for a in win]
+        got = E._transfer_window(*args)
+        want = E._transfer_window_plain(*args)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("balances", "nonces", "slot_vals",
+                                          "fetches")):
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5].tolist()
+                raise AssertionError(f"K1 {what} differ from the plain "
+                                     f"version on the {name} window at "
+                                     f"{bad}")
+        oks = got[3][:, -1, 0].cpu().numpy()
+        if oks[1] != 0 or oks[2] != 0 or oks.sum() != K - 2:
+            raise AssertionError(f"K1 ok flags unexpected on the {name} "
+                                 f"window: {oks[:4]}")
+        errs.append(max_abs_err(got, want))
+        splits = []
+        for _ in range(5):
+            split = []
+            E._transfer_window(*args, split_ms=split)
+            splits.append(split)
+        rows[name] = {
+            "ms": round(cuda_ms(lambda: E._transfer_window(*args)), 4),
+            "split_ms": dict(zip(("a_blocks", "b_rows", "c_fetch"), (
+                round(float(v), 4) for v in np.median(splits, axis=0)))),
+            "ok_flags_0_4": oks[:4].tolist()}
+        if name == "random":
+            plain_ms = once_ms(lambda: E._transfer_window_plain(*args))
+            n_bytes = sum(a.nbytes for a in win) + sum(
+                t.numel() * 4 for t in got)
+            fetches = got[3]
+    n_ops = K * B * 400     # ~400 int32 ops per tx: limb sums + chains
+    bound_ms = 1000 * max(n_bytes / H100_BYTES_PER_S,
+                          n_ops / H100_INT32_OPS_PER_S)
+    words, smem, layout, ca = E.window_plan(dev, K, pad, L, SL, t_pad, s_pad)
+    k1 = {"name": "transfer_window", "route": "cuda",
+          "source": "coreth_tpu_torch/csrc/transfer_window.cu",
+          "replaces": "coreth_tpu/replay/engine.py:245",
+          "max_abs_err": max(errs), "ms": rows["random"]["ms"],
+          "plain_ms": round(plain_ms, 3), "bound_ms": round(bound_ms, 5),
+          "bound_by": "bytes" if n_bytes / H100_BYTES_PER_S
+          >= n_ops / H100_INT32_OPS_PER_S else "operations",
+          "library_ms": None}
+    emit({"phase": "k1", "equal": True, "K": K, "pad": pad, "L": L,
+          "SL": SL, "windows": rows, "scratch_bytes": 4 * words,
+          "compact_rows_a_block": ca, "a_shared_bytes": smem,
+          "a_layout": "shared" if layout else "device", **k1})
+    return wins["random"], k1, fetches
+
+
 def phase_k3(dev, rng):
     import torch
     from coreth_tpu_torch.crypto import native
@@ -782,7 +881,11 @@ def phase_k5(dev, rng):
           "ms": round(ms, 4), "plain_ms": round(plain_ms, 1),
           "bound_ms": round(bound_ms, 5), "bound_by": bound_by,
           "library_ms": None}
+    lpc, ctas, smem, layout = M.machine_group(p, dev)
     emit({"phase": "k5", "equal": True, "batch": p.batch,
+          "group": {"lanes_a_cta": lpc, "ctas": ctas,
+                    "shared_bytes_a_cta": smem,
+                    "layout": "shared" if layout else "device"},
           "code_cap": p.code_cap, "scache_cap": p.scache_cap,
           "width": p.width, "statuses": statuses, "miss_rows": misses,
           "lane_steps": n_steps, "max_lane_steps": int(steps.max()),
@@ -2360,44 +2463,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
 
     # ---- 3. K1 against its plain version, main-path shapes
-    K, pad, B = 128, 128, 128
-    cap, scap, L, SL = 32768, 1024, 16384, 64
-    win = random_window(rng, K, pad, B, cap, scap, n_acct=9400, n_slot=40,
-                        L=L, SL=SL, t_pad=512, s_pad=64)
-    args = [torch.from_numpy(a).to(dev) for a in win]
-    got = E._transfer_window(*args)
-    want = E._transfer_window_plain(*args)
-    torch.cuda.synchronize()
-    for g, w, what in zip(got, want, ("balances", "nonces", "slot_vals",
-                                      "fetches")):
-        if not torch.equal(g, w):
-            bad = (g != w).nonzero()[:5].tolist()
-            raise AssertionError(f"K1 {what} differ from the plain "
-                                 f"version at {bad}")
-    oks = got[3][:, -1, 0].cpu().numpy()
-    if oks[1] != 0 or oks[2] != 0 or oks.sum() != K - 2:
-        raise AssertionError(f"K1 ok flags unexpected: {oks[:4]}")
-    k1_ms = cuda_ms(lambda: E._transfer_window(*args))
-    k1_plain_ms = once_ms(lambda: E._transfer_window_plain(*args))
-    k1_bytes = sum(a.nbytes for a in win) + sum(
-        t.numel() * 4 for t in got)
-    k1_ops = K * B * 400     # ~400 int32 ops per tx: limb sums + chains
-    k1_bound = 1000 * max(k1_bytes / H100_BYTES_PER_S,
-                          k1_ops / H100_INT32_OPS_PER_S)
-    k1 = {"name": "transfer_window", "route": "cuda",
-          "source": "coreth_tpu_torch/csrc/transfer_window.cu",
-          "replaces": "coreth_tpu/replay/engine.py:245",
-          "max_abs_err": max_abs_err(got, want), "ms": round(k1_ms, 4),
-          "plain_ms": round(k1_plain_ms, 3),
-          "bound_ms": round(k1_bound, 5),
-          "bound_by": "bytes" if k1_bytes / H100_BYTES_PER_S
-          >= k1_ops / H100_INT32_OPS_PER_S else "operations",
-          "library_ms": None}
-    emit({"phase": "k1", "equal": True, "K": K, "pad": pad, "L": L,
-          "ok_flags_0_4": oks[:4].tolist(), **k1})
+    win, k1, k1_fetches = phase_k1(dev, rng)
 
     # ---- 3b. K8 against its plain version on the same window
-    k8 = phase_k8(dev, win, k1, got[3])
+    k8 = phase_k8(dev, win, k1, k1_fetches)
 
     # ---- 4. K2 against its plain version, 4096 signatures
     n_sig = 4096

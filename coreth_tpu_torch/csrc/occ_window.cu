@@ -672,9 +672,7 @@ __device__ void occ_group(const MachineIn& in, const MachineDims& d,
   int32_t* own_pend = own_nk + g.lpc;
   int32_t* own_logc = own_pend + g.lpc;
   __shared__ int s_flag;
-  // the lane thread's slot: lanes spread over the warps
-  const int nw = nt / 32 > 0 ? nt / 32 : 1;
-  const int slot = (tid % 32) * nw + tid / 32;
+  const int slot = sm_lane_slot(tid, nt);
   const int nslot = g.nslot < nt ? g.nslot : nt;
   uint8_t* lane_mem = occ_smem + (size_t)slot * g.lstride;
 
@@ -861,7 +859,7 @@ __device__ void occ_group(const MachineIn& in, const MachineDims& d,
             int32_t* row = pk + (size_t)i * PW;
             const int pid = b.prog_id[wb + i];
             b.steps[wb + i] +=
-                pid < 0 ? sm_run_lane(v, bd, 0, row, lane_mem, true)
+                pid < 0 ? sm_run_lane(v, bd, 0, row, lane_mem)
                         : spec_dispatch(pid, v, bd, 0, row,
                                         b.kdig + (wb + i) * kKdigCap * 16);
           }
@@ -1047,8 +1045,7 @@ int occ_layout(const MachineDims& d, int n, int c, int avail, bool can_stage,
   g->n = n;
   g->c = c;
   g->lpc = (B + c - 1) / c;
-  g->lstride = (((d.arena_w + 3) / 4) | 1) * 4;  // odd words: no bank
-                                                 // conflict lane to lane
+  g->lstride = sm_lane_stride(d.arena_w);
   g->stage_lane = d.data_cap + 16 * S;           // int32 words
   const int sweep = sweep_layout(B, S, g);
   const int sort = g->sort_bytes;

@@ -39,8 +39,8 @@
 //       n slabs in the mode's order (psum: shard order; ppermute: the
 //       ring from d, d, d-1, d-2, ...) through DSMEM, coalesced; three
 //       lanes normalize debit / required / credit, one checks solvency
-//       on the replicated row and applies (transfer_block.cuh's chains,
-//       as K1).  The other buffer, which no CTA reads any more, is
+//       on the replicated row and applies (transfer_block.cuh's
+//       chains).  The other buffer, which no CTA reads any more, is
 //       zeroed for block k + 1.  CTA barrier;
 //    d. fetch: every CTA writes its share of the block's fetch rows
 //       (rows i = d mod n), CTA 0 the ok flag (no solvency failure, no

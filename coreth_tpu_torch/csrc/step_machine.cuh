@@ -12,11 +12,13 @@
 //
 // State: pc/gas/sp/msize/counters in registers; the stack (8 x u32
 // words per slot), memory bytes and the transient cache in the lane's
-// scratch arena: in shared memory under the fused window (occ_window.cu
-// gives each lane thread a slot of its CTA's dynamic shared memory,
-// slots an odd number of words apart so that lanes at the same offset
-// hit different banks), in device memory under K5's batch kernel
-// (step_machine.cu).  Nothing is zeroed up front: the stack is never
+// scratch arena: a slot of its CTA's dynamic shared memory under the
+// fused window (occ_window.cu) and under K5's batch kernel
+// (step_machine.cu), slots an odd number of words apart so that lanes at
+// the same offset hit different banks (sm_lane_stride, sm_lane_slot);
+// in device memory under K5 when one arena does not fit a CTA's shared
+// memory.  The caller seeds the lane's row first (sm_seed_row, a CTA's
+// threads together).  Nothing is zeroed up front: the stack is never
 // read at or above sp, the transient cache never past its count, and
 // memory is zeroed word by word only as far as msize grows (every read
 // lies below the new msize), so a lane pays for the memory it touches,
@@ -114,28 +116,48 @@ __device__ __forceinline__ RowLayout sm_row_layout(const MachineDims& d) {
   return o;
 }
 
+// Lane slots in a CTA's dynamic shared memory (K5's batch kernel and
+// K6's group): a slot of a lane's arena (stack_cap * 32 + mem_cap + 2 *
+// TC * 32 bytes) rounded up to an odd number of words, so that lanes at
+// the same offset hit different banks; the slot of thread tid of nt,
+// lanes spread over the warps (slot s on warp s % warps).
+__host__ __device__ __forceinline__ int sm_lane_stride(int arena_w) {
+  return (((arena_w + 3) / 4) | 1) * 4;
+}
+
+__device__ __forceinline__ int sm_lane_slot(int tid, int nt) {
+  const int nw = nt / 32 > 0 ? nt / 32 : 1;
+  return (tid % 32) * nw + tid / 32;
+}
+
 // A lane's row before it runs: the storage cache is the lane's seeded
-// input, the log pool empty.
+// input, the log pool empty.  Columns first, first + stride, ... of
+// [SFLAG, width), so a CTA's threads seed a row together.
 __device__ __forceinline__ void sm_seed_row(const MachineIn& in,
                                             const MachineDims& d, int i,
-                                            int32_t* row) {
-  const int S = d.S;
+                                            int32_t* row, int first,
+                                            int stride) {
   const RowLayout o = sm_row_layout(d);
-  for (int j = 0; j < S; ++j) row[o.SFLAG + j] = in.sflag[i * S + j];
-  for (int k = 0; k < 16 * S; ++k) {
-    row[o.SKEY + k] = in.skey[(size_t)i * 16 * S + k];
-    row[o.SVAL + k] = in.sval[(size_t)i * 16 * S + k];
-    row[o.SORIG + k] = in.sorig[(size_t)i * 16 * S + k];
+  const size_t cache = (size_t)i * 16 * d.S;
+  for (int k = o.SFLAG + first; k < d.width; k += stride) {
+    int32_t v = 0;
+    if (k < o.SKEY)
+      v = in.sflag[(size_t)i * d.S + k - o.SFLAG];
+    else if (k < o.SVAL)
+      v = in.skey[cache + k - o.SKEY];
+    else if (k < o.SORIG)
+      v = in.sval[cache + k - o.SVAL];
+    else if (k < o.LOGNT)
+      v = in.sorig[cache + k - o.SORIG];
+    row[k] = v;
   }
-  for (int k = o.LOGNT; k < d.width; ++k) row[k] = 0;
 }
 
 // Run lane i; returns the steps it executed.  `row` is the lane's
-// packed output row, `arena` its scratch bytes; `seeded`: the caller has
-// already written the row's storage cache and cleared its log pool
-// (sm_seed_row's work).
+// packed output row, already seeded (sm_seed_row: its storage cache
+// written, its log pool cleared); `arena` its scratch bytes.
 __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
-                           int32_t* row, uint8_t* arena, bool seeded) {
+                           int32_t* row, uint8_t* arena) {
   const int S = d.S, LC = d.LC, LD = d.LD, TC = d.TC;
   const int CW = d.code_cap + 33;
   const RowLayout o = sm_row_layout(d);
@@ -155,8 +177,6 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
   uint8_t* mem = arena + (size_t)d.stack_cap * 32;
   u256* tkey = (u256*)(mem + d.mem_cap);
   u256* tval = tkey + TC;
-
-  if (!seeded) sm_seed_row(in, d, i, row);
 
   int pc = 0, gas = in.start_gas[i], sp = 0, msize = 0, refund = 0;
   int status = in.active[i] ? SM_RUN : SM_SKIP, hreason = R_NONE;

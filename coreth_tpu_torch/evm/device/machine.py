@@ -152,13 +152,17 @@ _TABLES: Dict[tuple, Dict[str, torch.Tensor]] = {}
 
 
 def _tables(fork: str, device) -> Dict[str, torch.Tensor]:
+    """The fork's op tables on ``device``, and under "stack" the (4, 256)
+    int32 stack (const gas, nin, nout, supported) the kernels take."""
     key = (fork, str(device))
     tb = _TABLES.get(key)
     if tb is None:
         ot = T.op_tables(fork)
-        tb = _TABLES[key] = {
-            k: torch.from_numpy(getattr(ot, k)).to(device)
-            for k in ("const_gas", "nin", "nout", "supported")}
+        names = ("const_gas", "nin", "nout", "supported")
+        tb = {k: torch.from_numpy(getattr(ot, k)).to(device) for k in names}
+        tb["stack"] = torch.stack([tb[k] for k in names]).to(
+            torch.int32).contiguous()
+        _TABLES[key] = tb
     return tb
 
 
@@ -686,11 +690,55 @@ _ENV_WORDS = ("coinbase_w", "chainid_w", "basefee_w")
 OPS_PER_STEP = 200
 
 LAUNCHES = 0
+# (device index, batch, stack_cap, mem_cap, tcache_cap) -> the group
+# step_machine_group gives: (lanes a CTA, CTAs, shared bytes a CTA,
+# layout)
+_GROUPS: Dict[tuple, tuple] = {}
 
 
-def _env_words(inputs, dev) -> torch.Tensor:
-    return torch.stack([inputs[k].reshape(LIMBS).to(dev)
-                        for k in _ENV_WORDS])
+def _dims(p: MachineParams, inputs) -> np.ndarray:
+    """The kernel's int32[18] dims: the shape, the block's scalars, the
+    row width and a lane's arena bytes (stack, memory, transient
+    cache)."""
+    return np.array([p.batch, p.stack_cap, p.mem_cap, p.code_cap,
+                     p.data_cap, p.scache_cap, p.tcache_cap, p.log_cap,
+                     p.log_data_cap, p.keccak_cap, p.copy_cap, p.max_steps,
+                     int(p.refunds), int(inputs["timestamp"]),
+                     int(inputs["number"]), int(inputs["gaslimit"]),
+                     p.width, p.stack_cap * 32 + p.mem_cap
+                     + 2 * p.tcache_cap * 32], dtype=np.int32)
+
+
+def _kernel_inputs(inputs, dev) -> list:
+    """The kernel's lane inputs and env words in its order, as contiguous
+    int32 tensors (each itself when it is one); raises ValueError for one
+    on another device or of another type than int32 or bool."""
+    out = []
+    for k in ("code",) + _LANE_INPUTS + _ENV_WORDS:
+        t = inputs[k]
+        if t.device != dev or t.dtype not in (torch.int32, torch.bool):
+            raise ValueError(f"run_machine: {k} must be int32 on {dev}")
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            t = t.to(torch.int32).contiguous()
+        out.append(t)
+    return out
+
+
+def machine_group(p: MachineParams, dev: torch.device) -> tuple:
+    """The group K5 runs a batch of ``p`` on (``step_machine_group``):
+    (lanes a CTA, CTAs, dynamic shared bytes a CTA, layout: 1 lane slots
+    in shared memory, 0 arenas in device memory)."""
+    key = (dev.index, p.batch, p.stack_cap, p.mem_cap, p.tcache_cap)
+    grp = _GROUPS.get(key)
+    if grp is None:
+        dims = _dims(p, dict(timestamp=0, number=0, gaslimit=0))
+        out = np.zeros(4, dtype=np.int32)
+        with torch.cuda.device(dev):
+            rc = kernels.load("step_machine").step_machine_group(
+                dims.ctypes.data, out.ctypes.data)
+        kernels.check(rc, "step_machine_group")
+        grp = _GROUPS[key] = tuple(int(v) for v in out)
+    return grp
 
 
 def run_machine(p: MachineParams, inputs: Dict[str, torch.Tensor]):
@@ -703,45 +751,42 @@ def run_machine(p: MachineParams, inputs: Dict[str, torch.Tensor]):
     if code.shape != (B, p.code_cap + 33):
         raise ValueError(f"run_machine: code {tuple(code.shape)} != "
                          f"({B}, {p.code_cap + 33})")
-    for k in ("code",) + _LANE_INPUTS + _ENV_WORDS:
-        t = inputs[k]
-        if t.device != dev or t.dtype not in (torch.int32, torch.bool):
-            raise ValueError(f"run_machine: {k} must be int32 on {dev}")
     if dev.type == "cpu":
+        _kernel_inputs(inputs, dev)
         st = run_plain(p, inputs)
         return st["packed"], st["steps"]
     if dev.type != "cuda":
         raise ValueError(f"run_machine: unsupported device {dev}")
+    if B < 1:
+        raise ValueError("run_machine: an empty batch")
     global LAUNCHES
     lib = kernels.load("step_machine")
-    lane = [inputs[k].to(torch.int32).contiguous() for k in _LANE_INPUTS]
-    code = code.contiguous()
-    env = _env_words(inputs, dev).contiguous()
-    tb = _tables(p.fork, dev)
-    tables = torch.stack([tb["const_gas"], tb["nin"], tb["nout"],
-                          tb["supported"]]).to(torch.int32).contiguous()
-    S, TC = p.scache_cap, p.tcache_cap
-    packed = torch.empty((B, p.width), dtype=torch.int32, device=dev)
-    steps = torch.empty((B,), dtype=torch.int32, device=dev)
-    # per-lane scratch arena: stack (8 x u32 words), memory bytes, and
-    # the transient cache (keys + values, 8 x u32 words each)
-    arena = torch.empty(
-        (B, p.stack_cap * 32 + p.mem_cap + 2 * TC * 32),
-        dtype=torch.uint8, device=dev)
-    dims = np.array([B, p.stack_cap, p.mem_cap, p.code_cap, p.data_cap, S,
-                     TC, p.log_cap, p.log_data_cap, p.keccak_cap,
-                     p.copy_cap, p.max_steps, int(p.refunds),
-                     int(inputs["timestamp"]),
-                     int(inputs["number"]), int(inputs["gaslimit"]),
-                     p.width, arena.shape[1]], dtype=np.int32)
+    args, packed, steps = machine_launch_args(
+        p, inputs, machine_group(p, dev)[3])
     rc = lib.step_machine_launch(
-        code.data_ptr(), *(t.data_ptr() for t in lane), env.data_ptr(),
-        tables.data_ptr(), dims.ctypes.data, packed.data_ptr(),
-        steps.data_ptr(), arena.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *pointers(args), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(rc, "step_machine")
     LAUNCHES += 1
     return packed, steps
+
+
+def machine_launch_args(p: MachineParams, inputs, layout: int):
+    """``step_machine_launch``'s arguments but the stream (``pointers``
+    gives the launch's values) for ``layout`` (``machine_group``), and
+    its outputs (packed, steps): the wrapper allocates the outputs, and
+    the lanes' arenas in device memory for layout 0; the kernel
+    allocates nothing."""
+    dev = inputs["code"].device
+    B = p.batch
+    lane = _kernel_inputs(inputs, dev)
+    dims = _dims(p, inputs)
+    packed = torch.empty((B, p.width), dtype=torch.int32, device=dev)
+    steps = torch.empty((B,), dtype=torch.int32, device=dev)
+    arena = None if layout else torch.empty(
+        (B, int(dims[17])), dtype=torch.uint8, device=dev)
+    args = lane + [_tables(p.fork, dev)["stack"], dims, layout, packed,
+                   steps, arena]
+    return args, packed, steps
 
 
 # ------------------------------------------------------------------- OCC
@@ -1053,9 +1098,7 @@ def occ_launch_args(p: MachineParams, occ: OccParams, table: torch.Tensor,
         torch.int32).contiguous()                            # (W, 3, 16)
     scal = torch.stack([blocks_in[k].to(torch.int32) for k in
                         ("timestamp", "number", "gaslimit")]).contiguous()
-    tb = _tables(p.fork, dev)
-    tables = torch.stack([tb["const_gas"], tb["nin"], tb["nout"],
-                          tb["supported"]]).to(torch.int32).contiguous()
+    tables = _tables(p.fork, dev)["stack"]
     TC = p.tcache_cap
     out_table = table.to(torch.int32).clone()
     key_tab = key_tab.to(torch.int32).contiguous()
@@ -1109,8 +1152,10 @@ def _check_group(rc: int, what: str, n: int) -> None:
 
 
 def pointers(args):
-    """The addresses of launch arguments (tensors and host arrays)."""
-    return [a.ctypes.data if isinstance(a, np.ndarray) else a.data_ptr()
+    """The values of launch arguments: the addresses of tensors and host
+    arrays; ints and None as they are."""
+    return [a if a is None or isinstance(a, int) else
+            a.ctypes.data if isinstance(a, np.ndarray) else a.data_ptr()
             for a in args]
 
 

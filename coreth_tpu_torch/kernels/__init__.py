@@ -158,8 +158,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     if name == "transfer_window":
         lib.transfer_window_launch.argtypes = [
-            P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I] + [P] * 9
+            P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I, P,
+            ctypes.c_longlong, P, P, P]
         lib.transfer_window_launch.restype = I
+        lib.transfer_window_plan.argtypes = [I] * 7 + [P]
+        lib.transfer_window_plan.restype = I
     elif name == "sharded_window":
         lib.sharded_window_launch.argtypes = [
             I, I, P, P, P, I, I, P, I, P, I, P, I, I, P, I, P, I, I] + [
@@ -186,8 +189,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.u256x_eval_launch.argtypes = [I, P, P, P, P, I, P]
         lib.u256x_eval_launch.restype = I
     elif name == "step_machine":
-        lib.step_machine_launch.argtypes = [P] * 24
+        lib.step_machine_launch.argtypes = [P] * 22 + [I] + [P] * 4
         lib.step_machine_launch.restype = I
+        lib.step_machine_group.argtypes = [P, P]
+        lib.step_machine_group.restype = I
     elif name == "occ_window" or name.startswith("occ_window_spec_"):
         lib.occ_window_launch.argtypes = [P] * 27
         lib.occ_window_launch.restype = I

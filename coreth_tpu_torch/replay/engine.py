@@ -48,6 +48,7 @@ refuses loudly instead.
 
 from __future__ import annotations
 
+import ctypes
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -288,11 +289,38 @@ def check_window_args(what: str, args) -> torch.device:
     return dev
 
 
+# K1's scratch cap (int32 words; csrc/transfer_window.cu's header gives
+# its size by shape)
+MAX_WINDOW_SCRATCH = 1 << 30
+# (device index, K, pad, L, SL, t_pad, s_pad) -> transfer_window_plan's
+# (scratch words, shared bytes, layout, compact rows)
+_PLANS: Dict[tuple, tuple] = {}
+
+
+def window_plan(dev: torch.device, K: int, pad: int, L: int, SL: int,
+                t_pad: int, s_pad: int) -> tuple:
+    """K1's plan for a window shape on ``dev``: (scratch int32 words,
+    shared bytes of phase (a)'s accumulators, layout: 1 sums in shared
+    memory / 0 in device memory, compact account rows a block)."""
+    key = (dev.index, K, pad, L, SL, t_pad, s_pad)
+    plan = _PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_longlong * 4)()
+        with torch.cuda.device(dev):
+            rc = kernels.load("transfer_window").transfer_window_plan(
+                K, pad, L, SL, t_pad, s_pad, -1, out)
+        kernels.check(rc, "transfer_window_plan")
+        plan = _PLANS[key] = tuple(out)
+    return plan
+
+
 def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
-                     txds, t_idxs, s_idxs):
-    """One window of blocks: the CUDA kernel (``csrc/transfer_window.cu``)
-    for CUDA tensors, asynchronous on the current stream; the plain
-    version for CPU tensors.  The input tables are not modified."""
+                     txds, t_idxs, s_idxs, split_ms=None):
+    """One window of blocks: the CUDA kernel (``csrc/transfer_window.cu``,
+    three launches on the current stream, asynchronous) for CUDA
+    tensors; the plain version for CPU tensors.  The input tables are not
+    modified.  ``split_ms`` (a list, CUDA only) receives the milliseconds
+    of the kernel's phases (a), (b), (c); the call then waits for them."""
     args = (balances, nonces, slot_vals, acct_gids, slot_gids, txds,
             t_idxs, s_idxs)
     dev = check_window_args("_transfer_window", args)
@@ -301,31 +329,32 @@ def _transfer_window(balances, nonces, slot_vals, acct_gids, slot_gids,
     global LAUNCHES
     K, pad = txds.shape[:2]
     L, SL = acct_gids.shape[0], slot_gids.shape[0]
+    t_pad, s_pad = t_idxs.shape[1], s_idxs.shape[1]
+    words, _smem, layout, _ca = window_plan(dev, K, pad, L, SL, t_pad,
+                                            s_pad)
+    if words > MAX_WINDOW_SCRATCH:
+        raise ValueError(f"_transfer_window: the kernel's scratch of {words} "
+                         f"words is past {MAX_WINDOW_SCRATCH}")
     lib = kernels.load("transfer_window")
     (acct_gids, slot_gids, txds, t_idxs, s_idxs) = (
         t.contiguous() for t in (acct_gids, slot_gids, txds, t_idxs,
                                  s_idxs))
     nb, nn, nsv = balances.clone(), nonces.clone(), slot_vals.clone()
     i32 = dict(dtype=torch.int32, device=dev)
-    lb = torch.empty((L, u256.LIMBS), **i32)
-    ln = torch.empty((L,), **i32)
-    ls = torch.empty((SL, u256.LIMBS), **i32)
-    acc = torch.empty((L, ACCW), **i32)
-    stamp = torch.empty((L,), **i32)
-    sacc = torch.empty((SL, 2 * u256.LIMBS), **i32)
-    sstamp = torch.empty((SL,), **i32)
-    t_pad, s_pad = t_idxs.shape[1], s_idxs.shape[1]
+    scratch = torch.empty((words,), **i32)
     fetches = torch.empty((K, t_pad + s_pad + 1, u256.LIMBS + 1), **i32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    split = (ctypes.c_float * 3)() if split_ms is not None else None
     rc = lib.transfer_window_launch(
         nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), nb.shape[0],
         nsv.shape[0], acct_gids.data_ptr(), L, slot_gids.data_ptr(), SL,
         txds.data_ptr(), K, pad, t_idxs.data_ptr(), t_pad,
-        s_idxs.data_ptr(), s_pad, lb.data_ptr(), ln.data_ptr(),
-        ls.data_ptr(), acc.data_ptr(), stamp.data_ptr(), sacc.data_ptr(),
-        sstamp.data_ptr(), fetches.data_ptr(), stream)
+        s_idxs.data_ptr(), s_pad, layout, scratch.data_ptr(), words,
+        fetches.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        split)
     kernels.check(rc, "transfer_window")
     LAUNCHES += 1
+    if split is not None:
+        split_ms[:] = list(split)
     return nb, nn, nsv, fetches
 
 

@@ -1,5 +1,5 @@
 """A host build of ``coreth_tpu_torch/csrc/occ_window.cu`` (K6, K7's
-variants, K9, K9x) for the CPU tests.
+variants, K9, K9x) and ``csrc/step_machine.cu`` (K5) for the CPU tests.
 
 The kernel's device code is plain C++ once the CUDA spellings are
 shimmed: each CTA of the cluster is a host thread with one thread (the
@@ -141,11 +141,12 @@ void host_grid(unsigned g, K k, A... args) {
 
 
 def host_source(src: str) -> str:
-    """``occ_window.cu`` for the host: the shared-memory buffer the
-    launch's per-CTA buffer, the K9x launch a loop over its grid."""
+    """A kernel source (``occ_window.cu``, ``step_machine.cu``) for the
+    host: each dynamic shared-memory buffer the launch's per-CTA buffer,
+    the K9x launch a loop over its grid."""
     src = src.replace("#include <cuda_runtime.h>", "")
-    src = src.replace("extern __shared__ __align__(16) uint8_t occ_smem[];",
-                      "uint8_t* occ_smem = shim_smem;")
+    src = re.sub(r"extern __shared__ __align__\(16\) (\w+) (\w+)\[\];",
+                 r"\1* \2 = (\1*)shim_smem;", src)
     src = src.replace(
         "shard_flags_kernel<<<W, 256, 0, (cudaStream_t)stream>>>(",
         "host_grid(W, shard_flags_kernel, ")
@@ -158,14 +159,14 @@ def gxx() -> str:
 
 
 def write_csrc(tmp: str) -> None:
-    """``csrc/`` into ``tmp``, occ_window.cu as ``host_source`` makes
-    it."""
+    """``csrc/`` into ``tmp``, occ_window.cu and step_machine.cu as
+    ``host_source`` makes them."""
     from coreth_tpu_torch.kernels import CSRC
     for fn in os.listdir(CSRC):
         if fn.endswith((".cu", ".cuh")):
             with open(os.path.join(CSRC, fn)) as f:
                 src = f.read()
-            if fn == "occ_window.cu":
+            if fn in ("occ_window.cu", "step_machine.cu"):
                 src = host_source(src)
             with open(os.path.join(tmp, fn), "w") as f:
                 f.write(src)

@@ -30,13 +30,22 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_transfer_window_kernel_matches_plain(cuda, seed):
+@pytest.mark.parametrize("seed,case", [
+    (0, "random"), (1, "random"), (2, "hot"), (3, "pad_rows"), (4, "wrap"),
+    (5, "untouched")])
+def test_transfer_window_kernel_matches_plain(cuda, seed, case):
+    """K1 (phases blocks, rows, fetch) against its plain version on random
+    windows and on the shapes of ``chip_smoke.shaped_window``: one
+    recipient and slot a block, out-of-range pad rows and coinbase,
+    wrapping totals with blocks on top of a failed one, fetched rows a
+    block does not touch."""
     from coreth_tpu_torch.replay import engine as E
     rng = np.random.default_rng(seed)
-    win = chip_smoke.random_window(rng, 8, 32, 24, cap=512, scap=64,
-                                   n_acct=200, n_slot=10, L=256, SL=16,
-                                   t_pad=64, s_pad=16)
+    kw = dict(cap=512, scap=64, n_acct=200, n_slot=10, L=256, SL=16,
+              t_pad=64, s_pad=16)
+    win = chip_smoke.random_window(rng, 8, 32, 24, **kw) \
+        if case == "random" else \
+        chip_smoke.shaped_window(rng, case, 8, 32, 24, **kw)
     args = [torch.from_numpy(a).to(cuda) for a in win]
     launches = E.LAUNCHES
     got = E._transfer_window(*args)
@@ -238,6 +247,31 @@ def test_step_machine_kernel_matches_plain(cuda, fork, name):
     assert torch.equal(packed, plain["packed"])
     assert torch.equal(steps, plain["steps"])
     assert len(results) == len(lanes)
+
+
+@pytest.mark.parametrize("mem_cap,layout", [(4096, 1), (1 << 18, 0)])
+@pytest.mark.parametrize("fork,B", [("durango", 1), ("durango", 17),
+                                    ("cancun", 300)])
+def test_step_machine_kernel_batches_and_layouts(cuda, fork, B, mem_cap,
+                                                 layout):
+    """K5 on one mixed batch of every case's lanes (``batch_lanes``) at
+    B = 1, 17 (more than a CTA's lanes) and 300, with the lanes' arenas
+    in shared-memory slots (mem_cap 4096) and in device memory (256 KiB,
+    past a CTA's shared memory): packed rows and step counts equal to
+    the plain version's."""
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.evm.device import machine as M
+    p = M.MachineParams(fork=fork, mem_cap=mem_cap, **dict(_SHAPE, batch=B))
+    assert M.machine_group(p, cuda)[3] == layout
+    runner = A.MachineRunner(fork, C.env(A.BlockEnv), lambda a, k: 0,
+                             device=cuda)
+    inputs = runner.pack(C.batch_lanes(fork, B, A.TxSpec), p)
+    launches = M.LAUNCHES
+    packed, steps = M.run_machine(p, inputs)
+    assert M.LAUNCHES == launches + 1
+    plain = M.run_plain(p, inputs)
+    assert torch.equal(packed, plain["packed"])
+    assert torch.equal(steps, plain["steps"])
 
 
 def test_step_machine_step_bound_on_the_card(cuda):

@@ -10,6 +10,7 @@ Integer results: tolerance 0.  Both runners use one shared shape
 (``_SHAPE``) so the reference compiles its machine once per fork.
 """
 
+import ctypes
 import os
 import sys
 
@@ -27,7 +28,9 @@ from coreth_tpu_torch.evm.device import adapter as tadapter
 from coreth_tpu_torch.evm.device import machine as tM
 from coreth_tpu_torch.evm.device import tables as ttables
 
+import occ_host_build as H
 import torch_machine_cases as C
+from coreth_tpu_torch import kernels
 
 _SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
 _ALL_FEATURES = frozenset(jtables.FEATURE_OPS.values())
@@ -128,3 +131,51 @@ def test_runner_refuses_ineligible_code_and_cuda_without_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             tadapter.MachineRunner("durango", C.env(tadapter.BlockEnv),
                                    lambda a, k: 0)
+
+
+# --------------------------------------------------- host build of K5
+@pytest.fixture(scope="module")
+def host_k5(tmp_path_factory):
+    """K5's ``csrc/step_machine.cu`` built for the host
+    (``tests/occ_host_build.py``'s shims): each CTA of the launch a host
+    thread with one thread, which runs the CTA's lanes one after the
+    other in its slot, each CTA's dynamic shared memory a buffer."""
+    if H.gxx() is None:
+        pytest.skip("needs g++")
+    tmp = tmp_path_factory.mktemp("host_k5")
+    out = tmp / "libstep_machine.so"
+    r = H.build(str(tmp), '#include "step_machine.cu"\n', str(out), "-O1")
+    assert r.returncode == 0, r.stderr[:4000]
+    lib = ctypes.CDLL(str(out))
+    kernels._declare("step_machine", lib)
+    return lib
+
+
+@pytest.mark.parametrize("mem_cap,layout", [(4096, 1), (1 << 18, 0)])
+@pytest.mark.parametrize("fork,B", [("durango", 1), ("durango", 17),
+                                    ("cancun", 17)])
+def test_host_build_of_k5_matches_plain(host_k5, fork, B, mem_cap, layout):
+    """K5 from the CUDA source, built for the host, against the plain
+    version: packed rows and step counts of every lane.  A lane's arena
+    fits a shared-memory slot at mem_cap 4096 (layout 1), not at 256 KiB
+    (layout 0: the arenas in device memory); 17 lanes are more than one
+    CTA's.  ``step_machine_group`` picks the layout by shape and the
+    launch refuses the other."""
+    p = tM.MachineParams(fork=fork, batch=B, mem_cap=mem_cap,
+                         code_cap=512, data_cap=128, scache_cap=16)
+    runner = _PortRunner(fork, C.env(tadapter.BlockEnv),
+                         lambda a, k: 0, device="cpu")
+    inputs = runner.pack(C.batch_lanes(fork, B, tadapter.TxSpec), p)
+    grp = np.zeros(4, dtype=np.int32)
+    assert host_k5.step_machine_group(tM._dims(p, inputs).ctypes.data,
+                                      grp.ctypes.data) == 0
+    lpc, ctas, smem, got_layout = grp.tolist()
+    assert got_layout == layout and ctas == -(-B // lpc) and ctas >= min(B, 2)
+    assert smem == layout * lpc * (tM._dims(p, inputs)[17] // 4 | 1) * 4
+    args, packed, steps = tM.machine_launch_args(p, inputs, layout)
+    assert host_k5.step_machine_launch(*tM.pointers(args), None) == 0
+    plain = tM.run_plain(p, inputs)
+    assert torch.equal(packed, plain["packed"])
+    assert torch.equal(steps, plain["steps"])
+    wrong, _, _ = tM.machine_launch_args(p, inputs, 1 - layout)
+    assert host_k5.step_machine_launch(*tM.pointers(wrong), None) == -3

@@ -183,6 +183,7 @@ _SHIM = r"""
 #include <barrier>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <thread>
 #include <vector>
 #define __device__
@@ -202,17 +203,44 @@ inline void __syncthreads() {}
 inline void __syncwarp() {}
 template <class T> T atomicAdd(T* p, T v) { T o = *p; *p = o + v; return o; }
 template <class T> T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
+template <class T> T atomicCAS(T* p, T c, T v) {
+  T o = *p;
+  if (o == c) *p = v;
+  return o;
+}
 template <class T> T atomicMax(T* p, T v) {
   T o = *p;
   if (v > o) *p = v;
   return o;
 }
+template <class T> T atomicMin(T* p, T v) {
+  T o = *p;
+  if (v < o) *p = v;
+  return o;
+}
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 template <class T> T __ldcg(const T* p) { return *p; }
 template <class T> void __stcg(T* p, T v) { *p = v; }
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+typedef int cudaEvent_t;
 constexpr int cudaSuccess = 0;
 inline int cudaGetLastError() { return 0; }
+inline int cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return 0;
+}
+inline int cudaEventCreate(cudaEvent_t*) { return 0; }
+inline int cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
+inline int cudaEventSynchronize(cudaEvent_t) { return 0; }
+inline int cudaEventElapsedTime(float* ms, cudaEvent_t, cudaEvent_t) {
+  *ms = 0;
+  return 0;
+}
+inline int cudaEventDestroy(cudaEvent_t) { return 0; }
 static std::barrier<>* shim_barrier = nullptr;
 // each CTA's dynamic shared memory, by rank (DSMEM: a peer's address is
 // the same offset into the peer's buffer)
@@ -283,7 +311,9 @@ int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
 @pytest.fixture(scope="module")
 def host_kernels(tmp_path_factory):
     """K1 and K8 built for the host: one thread per CTA (every stride
-    loop runs serially), each CTA of K8's cluster a host thread."""
+    loop runs serially), each CTA of a launch a host thread (K1's
+    launches one after the other, each joined before the next: the
+    grid-wide step; K8's cluster barrier a ``std::barrier``)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -297,9 +327,11 @@ def host_kernels(tmp_path_factory):
         for inc in ("#include <cuda_runtime.h>",
                     "#include <cooperative_groups.h>"):
             src = src.replace(inc, "")
-        src = src.replace("<<<1, 1024, 0, (cudaStream_t)stream>>>", "")
         src = src.replace("extern __shared__ __align__(16) uint8_t sw_smem[];",
                           "uint8_t* sw_smem = shim_smem;")
+        src = src.replace(
+            "extern __shared__ __align__(16) unsigned tw_smem[];",
+            "unsigned* tw_smem = (unsigned*)shim_smem;")
         (tmp / f"{name}.cpp").write_text(_SHIM + src)
         out = tmp / f"lib{name}.so"
         r = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
@@ -391,28 +423,63 @@ def test_host_build_of_k8_global_slabs_match_plain(host_kernels, n, mode,
         assert torch.equal(g, w)
 
 
-def test_host_build_of_k1_matches_plain(host_kernels):
-    """K1 after its per-block body moved into transfer_block.cuh."""
-    bal, non, sv, rows, srows, txds, ti, si = (
-        torch.from_numpy(a) for a in _window(300))
+def _k1_case(case):
+    """K1's host-build windows: "random" (``_window``: an insolvent and a
+    nonce-mismatch block with blocks on top) and the shapes of
+    ``chip_smoke.shaped_window``."""
+    if case == "random":
+        return _window(300)
+    return chip_smoke.shaped_window(
+        np.random.default_rng(310), case, 6, 32, 24, cap=512, scap=64,
+        n_acct=200, n_slot=10, L=256, SL=16, t_pad=64, s_pad=16)
+
+
+def _run_host_k1(lib, args, layout):
+    bal, non, sv, rows, srows, txds, ti, si = args
     K, P = txds.shape[:2]
     L, SL = rows.shape[0], srows.shape[0]
+    plan = (ctypes.c_longlong * 4)()
+    assert lib.transfer_window_plan(K, P, L, SL, ti.shape[1], si.shape[1],
+                                    layout, plan) == 0
     nb, nn, nsv = bal.clone(), non.clone(), sv.clone()
-
-    def z(*shape):
-        return torch.zeros(shape, dtype=torch.int32)
-    scratch = (z(L, 16), z(L), z(SL, 16), z(L, tengine.ACCW), z(L),
-               z(SL, 32), z(SL))
-    f = z(K, ti.shape[1] + si.shape[1] + 1, 17)
-    rc = host_kernels["transfer_window"].transfer_window_launch(
+    scratch = torch.zeros((plan[0],), dtype=torch.int32)
+    f = torch.zeros((K, ti.shape[1] + si.shape[1] + 1, 17),
+                    dtype=torch.int32)
+    rc = lib.transfer_window_launch(
         nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), bal.shape[0],
         sv.shape[0], rows.data_ptr(), L, srows.data_ptr(), SL,
         txds.data_ptr(), K, P, ti.data_ptr(), ti.shape[1], si.data_ptr(),
-        si.shape[1], *(t.data_ptr() for t in scratch), f.data_ptr(), None)
+        si.shape[1], layout, scratch.data_ptr(), plan[0], f.data_ptr(),
+        None, None)
     assert rc == 0
-    want = tengine._transfer_window_plain(bal, non, sv, rows, srows, txds,
-                                          ti, si)
-    for g, w in zip((nb, nn, nsv, f), want):
+    assert lib.transfer_window_launch(
+        nb.data_ptr(), nn.data_ptr(), nsv.data_ptr(), bal.shape[0],
+        sv.shape[0], rows.data_ptr(), L, srows.data_ptr(), SL,
+        txds.data_ptr(), K, P, ti.data_ptr(), ti.shape[1], si.data_ptr(),
+        si.shape[1], layout, scratch.data_ptr(), plan[0] - 1, f.data_ptr(),
+        None, None) == -4        # a short scratch is refused
+    return (nb, nn, nsv, f), plan
+
+
+@pytest.mark.parametrize("layout", [1, 0])
+@pytest.mark.parametrize("case", ["random", "hot", "pad_rows", "wrap",
+                                  "untouched"])
+def test_host_build_of_k1_matches_plain(host_kernels, case, layout):
+    """K1's row-parallel walk (phase (a) a CTA a block, (b) a thread a
+    row, (c) the fetch rows; each launch's CTAs host threads) equal to
+    the plain version: tables and fetches, with the sums in shared
+    memory (layout 1) and in device memory (layout 0)."""
+    args = [torch.from_numpy(a) for a in _k1_case(case)]
+    got, plan = _run_host_k1(host_kernels["transfer_window"], args, layout)
+    fits = (ctypes.c_longlong * 4)()
+    assert host_kernels["transfer_window"].transfer_window_plan(
+        *(int(v) for v in (args[5].shape[0], args[5].shape[1],
+                           args[3].shape[0], args[4].shape[0],
+                           args[6].shape[1], args[7].shape[1])), -1,
+        fits) == 0
+    assert fits[2] == 1          # these shapes take the shared layout
+    want = tengine._transfer_window_plain(*args)
+    for g, w in zip(got, want):
         assert torch.equal(g, w)
 
 

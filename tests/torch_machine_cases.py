@@ -493,6 +493,22 @@ def specs(lanes, TxSpec) -> list:
                    gas_price=GAS_PRICE) for ln in lanes]
 
 
+def batch_lanes(fork: str, B: int, TxSpec) -> list:
+    """B TxSpecs cycling through every case of the fork (the durango
+    catalog, and cancun's transient cases with it), every other lane with
+    up to four slots of its contract's committed storage seeded into its
+    cache: one mixed batch for the step machine's batch and layout
+    tests."""
+    cases = dict(CASES, **(CANCUN_CASES if fork == "cancun" else {}))
+    lanes = [ln for name in sorted(cases) for ln in cases[name]]
+    txs = specs([lanes[i % len(lanes)] for i in range(B)], TxSpec)
+    for i, t in enumerate(txs):
+        if i % 2:
+            src = lanes[i % len(lanes)]["storage"]
+            t.storage = {k: (v, v) for k, v in list(src.items())[:4]}
+    return txs
+
+
 def env(BlockEnv):
     return BlockEnv(coinbase=COINBASE, timestamp=TIME, number=NUMBER,
                     gas_limit=GAS_LIMIT, chain_id=CHAIN_ID,

@@ -7,6 +7,13 @@ checkout (for example the parent commit unpacked by ``git archive`` into
 a directory that ``.gitignore`` lists) as BASE:
 
     python3 window_ab.py BASE
+    python3 window_ab.py BASE --kernels
+
+With ``--kernels`` each child only times the window kernels on phase
+k6's window (a) (the chain's first 8 blocks x 256 lanes), in CUDA events
+over 20 launches after one, three times: K6 generic, K6+K7 (every lane
+traced) and K9 at n = 4 with key-range placement and K7 (``kernels``
+lines), in the order BASE, this, this, BASE; nothing else runs.
 
 Each run is a child process that imports the ``chip_smoke.py`` and the
 ``coreth_tpu_torch`` of its checkout (so each runs its own kernels,
@@ -53,10 +60,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TXS, N_BLOCKS, N_KEYS = 256, 128, 1024
 
 
-def _setup(tree: str):
+def _setup(tree: str, n_blocks: int = N_BLOCKS):
     """The checkout's chip_smoke module, its kernels built, the card,
-    nvidia-smi's line and the ERC-20 chain after an untimed replay of
-    16 of its blocks.  Nothing of ``coreth_tpu_torch`` may be imported
+    nvidia-smi's line and the ERC-20 chain of ``n_blocks`` after an
+    untimed replay of its first 16 blocks.  Nothing of ``coreth_tpu_torch`` may be imported
     before this (it would come from this script's checkout)."""
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -72,7 +79,7 @@ def _setup(tree: str):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    genesis, blocks = CS.build_erc20_chain(N_BLOCKS, TXS, N_KEYS)
+    genesis, blocks = CS.build_erc20_chain(n_blocks, TXS, N_KEYS)
     CS._replay_erc20(dev, genesis, blocks[:16], TXS, device_occ=True,
                      specialize=True)
     return CS, dev, smi, genesis, blocks
@@ -97,6 +104,31 @@ def _launch_cost(CS, dev, genesis, blocks, reps: int = 20) -> dict:
     return {"phase": "launch", "reps": reps,
             "host_ms_per_call": 1000 * host / reps,
             "device_ms_per_launch": e0.elapsed_time(e1) / reps}
+
+
+def child_kernels(tree: str) -> int:
+    import numpy as np
+    CS, dev, smi, genesis, blocks = _setup(tree, n_blocks=8)
+    from coreth_tpu_torch.evm.device import machine as M
+    gen = CS.window_from_chain(dev, genesis, blocks)
+    spec = CS.window_from_chain(dev, genesis, blocks, specialize=True)
+    k9 = CS.sharded_windows(dev, genesis, blocks)[(4, True)]
+
+    def occ(pk, programs):
+        return lambda: M.run_occ_window(pk["p"], pk["occ"], pk["table"],
+                                        pk["key_tab"], pk["inputs"],
+                                        programs)
+    calls = {"k6": occ(gen, ()), "k6_k7": occ(spec, spec["spec"]),
+             "k9_n4": lambda: M.run_occ_sharded(
+                 k9["p"], k9["occ"], k9["table"], k9["key_tab"],
+                 k9["inputs"], k9["spec"], 4, k9["sync_rows"], "psum")}
+    row = {"phase": "kernels", "card": smi}
+    for name, fn in calls.items():
+        runs = [CS.cuda_ms(fn, reps=20, warmup=1) for _ in range(3)]
+        row[name] = float(np.median(runs))
+        row[name + "_runs"] = runs
+    CS.emit(row)
+    return 0
 
 
 def child_runs(tree: str) -> int:
@@ -199,9 +231,13 @@ def main() -> int:
     if len(sys.argv) >= 5 and sys.argv[1] == "--child":
         mode, tree, out_dir = sys.argv[2:5]
         out_dir = os.path.abspath(out_dir)      # before _setup's chdir
-        return (child_runs(tree) if mode == "runs"
-                else child_trace(tree, out_dir))
-    if len(sys.argv) != 2:
+        if mode == "runs":
+            return child_runs(tree)
+        if mode == "kernels":
+            return child_kernels(tree)
+        return child_trace(tree, out_dir)
+    kernels_only = sys.argv[2:] == ["--kernels"]
+    if len(sys.argv) != 2 and not kernels_only:
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -214,6 +250,15 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     trees = {"base": base, "this": HERE}
     summary = {"order": ["base", "this", "this", "base"]}
+    if kernels_only:
+        for place, who in enumerate(summary["order"], 1):
+            for row in _child("kernels", trees[who], out_dir):
+                print(json.dumps({"run": who, "place": place, **row}),
+                      flush=True)
+                for k in ("k6", "k6_k7", "k9_n4"):
+                    summary.setdefault(f"{who}_{k}", []).append(row[k])
+        print(json.dumps(summary), flush=True)
+        return 0
     for place, who in enumerate(summary["order"], 1):
         for row in _child("runs", trees[who], out_dir):
             print(json.dumps({"run": who, "place": place, **row}),
