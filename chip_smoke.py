@@ -13,8 +13,10 @@ Phases, each printing one JSON line:
 3. K1     — the transfer-window kernel against its plain PyTorch version on
    the card, at main-path shapes (128 blocks x 128 txs, ~9.4k window
    locals), on a window with token slot amounts, an insolvent block, a
-   nonce-mismatch block and out-of-bounds pad gids, and on the "hot" and
-   "pad_rows" shapes of ``shaped_window``: tables and fetch rows must be
+   nonce-mismatch block and out-of-bounds pad gids, and on the "hot",
+   "pad_rows" and "negative" shapes of ``shaped_window`` (the last a
+   sender and fetch indices below zero, which wrap as a jnp gather
+   does): tables and fetch rows must be
    equal exactly (tolerance 0: integer results); ms on each window, the
    launch's time by phase (blocks, rows, fetch), the scratch and phase
    (a)'s layout;
@@ -111,7 +113,8 @@ the one card):
    fetch rows and every shard's working set equal (tolerance 0), the n
    working sets equal, the fetch rows equal to K1's; the same on 8-block
    windows of the hot shape (every lane of a block pays one recipient and
-   one token slot) and with out-of-range pad rows (``shaped_window``);
+   one token slot), with out-of-range pad rows and with negative indices
+   (``shaped_window``);
    ms beside K1's on the same window, the exchange bytes, K1's bound, and
    the design: the slab layout the launches took, shared memory a CTA,
    barriers a block;
@@ -128,12 +131,17 @@ the one card):
    shard (K1) and at n = 4 (K8): root equal, every block on the window
    path, K5, K6, K7 and K9 never launched; txs/s beside phase window's;
 12a'. k8s  — the per-block sharded steps (K8s, ``parallel/mesh.py``
-   ``sharded_transfer_step`` / ``sharded_slot_step``, one cluster launch
-   each) against their plain versions on random inputs at A = S = 16384,
-   B = 512, n = 2, 4, 8 (tolerance 0), then on the path: the counters
-   zeroed, one call of each at n = 4 fed by the chain's first block as
-   the token-path engine classifies it, the counters read, the results
-   equal to the single-chip plain steps; ms, plain ms, bound;
+   ``sharded_transfer_step`` / ``sharded_slot_step``, one row-parallel
+   launch each over every SM, the same at every n) against their plain
+   versions on random inputs at A = S = 16384, B = 512, n = 2, 4, 8, and
+   on them reshaped by ``k8s_shaped`` (one sender paying the coinbase,
+   every tx masked, sender -2): tolerance 0; the split by phase at n = 4
+   (``window_split.py``'s instrumented copy, built beside the kernels in
+   phase build) and the wrapper's host ms; then on the path: the
+   counters zeroed, one call of each at n = 4 fed by the chain's first
+   block as the token-path engine classifies it, the counters read, the
+   results equal to the single-chip plain steps; ms, plain ms, bound,
+   the launch's design (rows a CTA, CTAs, shared memory);
 12b. k9    — the sharded OCC window (one cluster launch of n x c CTAs)
    against its plain version on phase k6's window (a) packed by sharded
    runners at n = 2, 4 and 8, with key-range placement off (the token on its
@@ -143,12 +151,18 @@ the one card):
    too on the variant; ms per window, the bound over the shards' lanes
    and arenas (``_window_bound``), plain ms; at n = 4 with the sync set
    the split, group and barriers as in phase k6;
-12c. k9x   — the flags reduce against its plain version on every phase-k9
-   output: (W, 2) flags equal; ms and the byte bound;
+12c. k9x   — the shards' flags reduce (the reference's K9x), K9's
+   epilogue with no launch of its own: K9's (W, 2) flags of every
+   phase-k9 output equal to the plain version's; the byte bound, ms
+   null, and K9's write-back split beside; in the kernels line its
+   launches are phase shard_erc20's launches of ``flags_fill_kernel``
+   (the only kernel whose work is the flags alone: a window without
+   lanes) and ``carried_by_k9`` that phase's K9 launches;
 13. shard_erc20 — the ERC-20 chain through the window path with K7 on a
    4-shard engine four times, in the order sharded, single, single,
    sharded: the sharded runner (the reference default: K9 at least once
-   a window, K9x, the single-chip K6/K7 never, ``kr_lanes`` > 0) and the
+   a window, its last window's flags equal to the plain version's, the
+   single-chip K6/K7 never, ``kr_lanes`` > 0) and the
    single-chip runner over the sharded tables (``shard_occ=False``: K6+K7,
    K9 never); root equal, no dirty block, nothing built inside the timed
    replay; then a closing ``shard_erc20_ab`` line;
@@ -156,7 +170,8 @@ the one card):
    (64 blocks x 128 txs, 256 keys, Zipf alpha 1.1, seed 20260804; one
    ERC-20-shaped contract takes every tx) replayed as the bench does on
    one shard and at n = 2 and 4: root equal, every block on the machine
-   path with no dirty block; txs/s, ``load_imbalance``, ``kr_lanes``,
+   path with no dirty block, on the mesh K9's last window's flags equal
+   to the plain version's; txs/s, ``load_imbalance``, ``kr_lanes``,
    ``cross_shard`` and the exchange counts.
 
 Phases machine, window, spec, shard_erc20 and hot measure the machine
@@ -173,6 +188,7 @@ exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -333,8 +349,12 @@ def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
     balance wraps below zero for the blocks on top; "untouched": each
     block's fetch rows also list rows the block does not touch (the
     previous block's, a local past the touched set, an index past the
-    end, which clamps) and slots likewise.  The fetch rows list each block's touched
-    rows first."""
+    end, which clamps) and slots likewise; "negative": block 0's first pad
+    lane unmasked, sending nothing from account -2 with the nonce of
+    local row L - 2 (a jnp gather wraps -2 to L - 2), and every block's
+    fetch rows also list accounts -2 and -(L + 3) and slots -2 and
+    -(SL + 3) (rows L - 2 and 0, SL - 2 and 0).  The fetch rows list each
+    block's touched rows first."""
     from coreth_tpu_torch.ops import u256
     win = list(random_window(rng, K, pad, B, **kw))
     txds, t_idxs, s_idxs = win[5], win[6], win[7]
@@ -363,6 +383,18 @@ def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
                     txd[i, 38:54] = u256.pack_np([(1 << 255) + req])
             if k == 1:
                 txd[0, 6:22] = u256.pack_np([1 << 255])
+        elif shape == "negative":
+            if k == 0:
+                if txd.shape[0] <= B:
+                    raise ValueError("shaped_window: 'negative' needs a pad "
+                                     "lane (pad > B)")
+                gids, cap = win[3], win[0].shape[0]
+                lnon = [int(win[1][g]) if g < cap else 0
+                        for g in (gids[L - 2], gids[0])]
+                if lnon[0] == lnon[1]:
+                    raise ValueError("shaped_window: local rows L - 2 and 0 "
+                                     "hold one nonce")
+                txd[B, :5] = (-2, 0, lnon[0], 0, 1)
         elif shape != "untouched":
             raise ValueError(f"shaped_window: unknown shape {shape!r}")
         touched = sorted({int(v) for v in txd[:B, :2].ravel()}
@@ -373,6 +405,9 @@ def shaped_window(rng, shape: str, K: int, pad: int, B: int, **kw):
             touched += sorted(prev - set(touched))[:3] + [
                 n_acct + k % max(L - n_acct, 1), L + 7]
             stouched += [n_slot + k % max(SL - n_slot, 1), SL + 3]
+        elif shape == "negative":
+            touched += [-2, -(L + 3)]
+            stouched += [-2, -(SL + 3)]
         t_idxs[k] = 0
         t_idxs[k, :min(len(touched), t_idxs.shape[1])] = \
             touched[:t_idxs.shape[1]]
@@ -689,8 +724,9 @@ def bound(n_bytes: int, n_ops: int):
 
 def phase_k1(dev, rng):
     """K1 against its plain version at main-path shapes (128 blocks x 128
-    txs, ~9.4k window locals) on ``random_window`` and on the "hot" and
-    "pad_rows" shapes of ``shaped_window``: tables and fetch rows equal
+    txs, ~9.4k window locals) on ``random_window`` and on the "hot",
+    "pad_rows" and "negative" shapes of ``shaped_window`` (the last with
+    120 txs a block, so a pad lane is free): tables and fetch rows equal
     (tolerance 0).  ms per window on each, the launch's time by phase
     ((a) blocks with M's reset, (b) rows, (c) fetch: CUDA events between
     its launches, medians of 5), the scratch and phase (a)'s layout.
@@ -703,9 +739,10 @@ def phase_k1(dev, rng):
     kw = dict(cap=cap, scap=scap, n_acct=9400, n_slot=40, L=L, SL=SL,
               t_pad=t_pad, s_pad=s_pad)
     wins = {"random": random_window(rng, K, pad, B, **kw)}
-    for i, shape in enumerate(("hot", "pad_rows"), 1):
+    for i, shape in enumerate(("hot", "pad_rows", "negative"), 1):
         wins[shape] = shaped_window(np.random.default_rng(SEED + i), shape,
-                                    K, pad, B, **kw)
+                                    K, pad, B - 8 * (shape == "negative"),
+                                    **kw)
     rows, errs = {}, []
     for name, win in wins.items():
         args = [torch.from_numpy(a).to(dev) for a in win]
@@ -904,7 +941,7 @@ def _zero_launches() -> None:
     E.LAUNCHES = S.LAUNCHES = M.LAUNCHES = M.OCC_LAUNCHES = 0
     M.SPEC_LAUNCHES = K.LAUNCHES = u256x.LAUNCHES = 0
     SH.LAUNCHES = S.SHARD_LAUNCHES = 0
-    M.OCC_SHARDED_LAUNCHES = M.SHARD_FLAGS_LAUNCHES = 0
+    M.OCC_SHARDED_LAUNCHES = M.FLAGS_FILL_LAUNCHES = 0
     PM.TRANSFER_STEP_LAUNCHES = PM.SLOT_STEP_LAUNCHES = 0
 
 
@@ -923,7 +960,7 @@ def _read_launches() -> dict:
             "sharded_window": SH.LAUNCHES,
             "sharded_recover": S.SHARD_LAUNCHES,
             "occ_sharded": M.OCC_SHARDED_LAUNCHES,
-            "shard_flags": M.SHARD_FLAGS_LAUNCHES,
+            "flags_fill": M.FLAGS_FILL_LAUNCHES,
             "sharded_transfer_step": PM.TRANSFER_STEP_LAUNCHES,
             "sharded_slot_step": PM.SLOT_STEP_LAUNCHES}
 
@@ -971,7 +1008,7 @@ class HostSpans:
         targets += [(SHR.ShardedWindowRunner, n) for n in
                     ("pack", "issue", "poll_clean", "can_pipeline",
                      "_placements")]
-        targets += [(M, "run_occ_sharded"), (M, "shard_flags")]
+        targets += [(M, "run_occ_sharded")]
         targets += [(A, "fill_kdig"), (M, "run_occ_window"),
                     (SP, "occ_library"), (SP, "trace_eligible"),
                     (SP, "spec_requests"), (kernels, "load"),
@@ -1719,7 +1756,7 @@ def phase_k8(dev, win, k1, k1_fetches):
     k1_ms = cuda_ms(lambda: E._transfer_window(*args))
     design = SH.window_design(pad)
     shapes = {}
-    for shape in ("hot", "pad_rows"):
+    for shape in ("hot", "pad_rows", "negative"):
         swin = shaped_window(np.random.default_rng(SEED + 8), shape, 8, pad,
                              pad * 3 // 4, cap=32768, scap=1024, n_acct=1500,
                              n_slot=40, L=2048, SL=64, t_pad=512, s_pad=64)
@@ -1923,7 +1960,8 @@ def phase_k9(dev, windows, split_libs):
     version runs once per window: its result does not depend on the mode
     (integer sums and maxes; tests/test_torch_shard_occ.py holds both
     modes against the reference).  Returns (the kernels-line entry, the
-    K9 outputs for phase k9x).  ``split_libs``: phase k6's and k7's
+    K9 outputs for phase k9x, the headline window's split).
+    ``split_libs``: phase k6's and k7's
     instrumented libraries (the variant's program set under "spec"); the
     headline window's split runs on the variant when the window has that
     program set, else on the generic library with every prog_id -1."""
@@ -1931,7 +1969,7 @@ def phase_k9(dev, windows, split_libs):
     from coreth_tpu_torch.evm.device import machine as M
     from coreth_tpu_torch import kernels
     from coreth_tpu_torch.evm.device import specialize as SP
-    rows, k9, outs = {}, None, {}
+    rows, k9, outs, split = {}, None, {}, None
     for (n, keyrange), pk in windows.items():
         args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"], pk["inputs"])
         spec, sync = pk["spec"], pk["sync_rows"]
@@ -1978,7 +2016,8 @@ def phase_k9(dev, windows, split_libs):
                 "generic_ms": round(gen_ms, 4),
                 "plain_ms": round(plain_ms, 1),
                 "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
-            outs[(n, keyrange, mode)] = (got["packed"], pk["inputs"]["active"])
+            outs[(n, keyrange, mode)] = (got["packed"], pk["inputs"]["active"],
+                                         got["flags"], gen["flags"])
             if n == HEADLINE_WIDTH and keyrange and mode == "psum":
                 k9 = {"name": "occ_sharded", "route": "cuda",
                       "source": "coreth_tpu_torch/csrc/occ_window.cu",
@@ -2000,6 +2039,7 @@ def phase_k9(dev, windows, split_libs):
                         dict(pk, inputs=gen_in), (), gen, n, sync))
                 rows[key]["split_on"] = ("variant" if spec ==
                                          split_libs["spec"] else "generic")
+                split = rows[key]["split_ms"]
             if keyrange == (sync is None):
                 raise AssertionError(f"K9 n={n} keyrange={keyrange}: sync "
                                      f"rows {sync is not None}")
@@ -2008,58 +2048,88 @@ def phase_k9(dev, windows, split_libs):
           "ms_is": f"n={HEADLINE_WIDTH}, key range, psum, K7 variant, CUDA "
           "events around the wrapper", "bound_is": "K6's over the union of "
           "the shards' lanes and arenas", **k9})
-    return k9, outs
+    return k9, outs, split
 
 
-def phase_k9x(dev, outs):
-    """K9x against its plain version on every K9 output of phase k9, in
-    its mode: (W, 2) flags equal.  Bound: bytes, ``active`` read once,
-    the packed rows' three flag columns of the active lanes only (an
-    inactive lane reads nothing more), the flags written."""
+def phase_k9x(dev, outs, k9_split):
+    """The shards' flags reduce (the reference's K9x), K9's epilogue
+    since it has no launch of its own: the (W, 2) flags of every K9
+    output of phase k9 (n = 2, 4, 8; key range and bucket; psum and
+    ppermute; the variant and the generic library) equal to
+    ``shard_flags_plain`` of its packed rows (tolerance 0).  Its
+    kernels-line entry keeps the bound (bytes: ``active`` read once, the
+    active lanes' three flag columns, the flags written), with ms null;
+    ``main`` sets its launches to the main path's launches of the one
+    kernel whose only work is the flags (``flags_fill_kernel``, a window
+    without lanes) and ``carried_by_k9`` to the main path's K9 launches,
+    whose epilogue reduced the flags, both counted by the K9 wrapper;
+    beside it K9's write-back split on phase k9's headline window (the
+    epilogue's part of K9's time)."""
     import torch
     from coreth_tpu_torch.evm.device import machine as M
-    rows, k9x = {}, None
-    for (n, keyrange, mode), (packed, active) in outs.items():
-        got = M.shard_flags(packed, active, n, mode)
+    rows, k9x, errs = {}, None, []
+    for (n, keyrange, mode), (packed, active, flags, gen_flags) in \
+            outs.items():
         t0 = time.perf_counter()
         want = M.shard_flags_plain(packed, active, n, mode)
         torch.cuda.synchronize()
         plain_ms = 1000 * (time.perf_counter() - t0)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K9x n={n} {mode}: {got.tolist()} != "
-                                 f"{want.tolist()}")
+        for what, got in (("variant", flags), ("generic", gen_flags)):
+            if not torch.equal(got, want):
+                raise AssertionError(f"K9's flags n={n} {mode} {what}: "
+                                     f"{got.tolist()} != {want.tolist()}")
+            errs.append(max_abs_err([got], [want]))
         W, NB = active.shape
-        ms = cuda_ms(lambda: M.shard_flags(packed, active, n, mode))
         n_act = int((active != 0).sum())
         bound_ms, bound_by = bound(active.numel() * 4 + n_act * 3 * 4
                                    + W * 2 * 4, active.numel() + n_act * 3)
         key = f"n{n}_{'keyrange' if keyrange else 'bucket'}_{mode}"
-        rows[key] = {"flags": got.tolist(), "ms": round(ms, 4),
-                     "plain_ms": round(plain_ms, 3),
+        rows[key] = {"flags": flags.tolist(), "plain_ms": round(plain_ms, 3),
                      "bound_ms": round(bound_ms, 6), "bound_by": bound_by}
         if n == HEADLINE_WIDTH and keyrange and mode == "psum":
             k9x = {"name": "shard_flags", "route": "cuda",
                    "source": "coreth_tpu_torch/csrc/occ_window.cu",
+                   "in": "K9 (occ_sharded_launch), the epilogue blk_flags",
                    "replaces": "coreth_tpu/evm/device/shard.py:267",
-                   "max_abs_err": max_abs_err([got], [want]),
-                   "ms": round(ms, 4), "plain_ms": round(plain_ms, 3),
+                   "ms": None, "plain_ms": round(plain_ms, 3),
                    "bound_ms": round(bound_ms, 6), "bound_by": bound_by,
                    "library_ms": None}
+    k9x["max_abs_err"] = max(errs)
     emit({"phase": "k9x", "equal": True, "windows": rows,
-          "ms_is": f"n={HEADLINE_WIDTH}, key range, psum, CUDA events "
-          "around the wrapper", **k9x})
+          "ms_is": "none: K9's epilogue, no launch of its own",
+          "k9_writeback_split_ms": None if k9_split is None
+          else k9_split.get("writeback"), **k9x})
     return k9x
+
+
+def check_last_window(eng, what: str) -> list:
+    """The flags of the last window ``eng``'s sharded runner issued (K9's
+    epilogue), equal to ``shard_flags_plain`` of its packed rows."""
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    runner = eng._machine_executor()._runner
+    h = getattr(runner, "last_handle", None)
+    if h is None:
+        raise AssertionError(f"{what}: no K9 launch")
+    want = M.shard_flags_plain(h["out"]["packed"], h["active"],
+                               runner.n_shards, h["xchg_mode"])
+    if not torch.equal(h["ex"], want):
+        raise AssertionError(f"{what}: the last window's flags "
+                             f"{h['ex'].tolist()} != the plain version's "
+                             f"{want.tolist()}")
+    return want.tolist()
 
 
 def phase_shard_erc20(dev, smi, genesis, blocks, txs: int, shard_occ: bool,
                       order: int):
     """The ERC-20 chain through the window path with K7 on a 4-shard
     engine: with ``shard_occ`` (the default) on the sharded runner (K9
-    launched at least once a window, K9x too, the single-chip K6/K7
-    never, the token hot: ``kr_lanes`` > 0), without it on the
-    single-chip runner over the sharded tables (K9 never).  Root equal,
-    no dirty block, no kernel built inside the timed replay.  ``order``:
-    the run's place in the sharded/single A/B."""
+    launched at least once a window, the flags of its last window equal
+    to the plain version's, the single-chip K6/K7 never, the token hot:
+    ``kr_lanes`` > 0), without it on the single-chip runner over the
+    sharded tables (K9 never).  Root equal, no dirty block, no kernel
+    built inside the timed replay.  ``order``: the run's place in the
+    sharded/single A/B."""
     from coreth_tpu_torch import kernels
     from coreth_tpu_torch.parallel import make_mesh
     built = dict(kernels.BUILD_SECONDS)
@@ -2074,15 +2144,15 @@ def phase_shard_erc20(dev, smi, genesis, blocks, txs: int, shard_occ: bool,
     if mc["blocks"] != len(blocks) or mc["dirty_blocks"] != 0:
         raise AssertionError(f"shard_erc20 {name}: {mc['blocks']} blocks, "
                              f"{mc['dirty_blocks']} dirty")
+    last_flags = None
     if shard_occ:
         ok = (launches["occ_sharded"] >= mc["windows"] >= 1
-              and launches["shard_flags"] >= 1
               and launches["occ_window_spec"] == 0
               and launches["occ_window"] == 0 and mc["kr_lanes"] > 0)
+        last_flags = check_last_window(eng, f"shard_erc20 {name}")
     else:
         ok = (launches["occ_window_spec"] >= mc["windows"] >= 1
-              and launches["occ_sharded"] == 0
-              and launches["shard_flags"] == 0)
+              and launches["occ_sharded"] == 0)
     if not ok or launches["sharded_recover"] < 1 \
             or launches["step_machine"] != 0:
         raise AssertionError(f"shard_erc20 {name}: launches {launches}, "
@@ -2094,7 +2164,8 @@ def phase_shard_erc20(dev, smi, genesis, blocks, txs: int, shard_occ: bool,
           "n_shards": HEADLINE_WIDTH, "blocks": len(blocks),
           "txs_per_block": txs, "replay_s": round(dt, 4),
           "txs_per_s": round(len(blocks) * txs / dt, 1), **steady,
-          "root_matches_header": True, "launches": launches, "machine": mc,
+          "root_matches_header": True, "launches": launches,
+          "last_window_flags": last_flags, "machine": mc,
           "stats": eng.stats.row(), "card": smi})
     return launches, steady
 
@@ -2185,6 +2256,45 @@ def k8s_inputs(rng, A: int, S: int, B: int):
     return transfer, int(rng.integers(0, A)), slot
 
 
+K8S_SHAPES = ("same_sender", "all_masked", "negative")
+
+
+def k8s_shaped(transfer, coinbase: int, slot, shape: str):
+    """K8s's inputs (``k8s_inputs``' layout) reshaped for the kernel's
+    corners.  "same_sender": every tx from one sender to the coinbase
+    (one row takes every debit, the coinbase every credit and fee;
+    nonces in sequence, the sender funded), every slot tx from one slot
+    to another; "all_masked": every tx masked out, so no row is touched;
+    "negative": the first tx, unmasked, sends from account -2 with the
+    nonce of row A - 2, which differs from row 0's (a jnp gather wraps
+    -2 to A - 2).  Returns copies (transfer, coinbase, slot)."""
+    from coreth_tpu_torch.ops import u256
+    t = [np.array(a, copy=True) for a in transfer]
+    s = [np.array(a, copy=True) for a in slot]
+    bal, nonces, sender, recip, _v, _f, _r, tx_nonce, offsets, mask = t
+    A = bal.shape[0]
+    if shape == "same_sender":
+        s0 = int(sender[0])
+        sender[:] = s0
+        recip[:] = coinbase
+        bal[s0] = u256.pack_np([1 << 200])[0]
+        offsets[:] = np.cumsum(mask != 0) - (mask != 0)
+        tx_nonce[:] = nonces[s0] + offsets
+        f0, t0 = int(s[1][0]), int(s[2][0])
+        s[1][:], s[2][:] = f0, t0
+        s[0][f0] = u256.pack_np([1 << 200])[0]
+    elif shape == "all_masked":
+        mask[:] = 0
+        s[4][:] = 0
+    elif shape == "negative":
+        nonces[A - 2] = nonces[0] + 3
+        sender[0], offsets[0], mask[0] = -2, 0, 1
+        tx_nonce[0] = nonces[A - 2]
+    else:
+        raise ValueError(f"k8s_shaped: unknown shape {shape!r}")
+    return t, coinbase, s
+
+
 def classified_step_inputs(dev, genesis, blocks, txs: int):
     """K8s's inputs from a real block: the ERC-20 chain's first block
     classified by a token-path engine on the card, in global rows over
@@ -2226,54 +2336,71 @@ def classified_step_inputs(dev, genesis, blocks, txs: int):
     return transfer, int(rows[batch["coinbase"]]), slot
 
 
-def phase_k8s(dev, smi, genesis, blocks, txs: int, rng):
-    """K8s (the per-block sharded transfer and slot steps, one cluster of
-    n CTAs each) against their plain versions on random inputs at A = S
-    = 16384 (the capacity and slot_capacity floor of bench.py:570-575)
-    and B = 512 (the largest protocol-valid transfer block) at n = 2, 4
-    and 8, bit for bit; then the path: the launch counters zeroed, one
-    call of each at n = 4 through ``sharded_transfer_step(make_mesh(4),
-    A)`` / ``sharded_slot_step`` fed by a real classified block of the
-    ERC-20 chain, the counters read, the results equal to the
-    single-chip plain steps (``_transfer_step_plain``,
-    ``_slot_step_plain``).  ms at n = 4 on the random inputs (CUDA
-    events around the wrapper), plain ms, bound."""
+def phase_k8s(dev, smi, genesis, blocks, txs: int, rng, split_lib):
+    """K8s (the per-block sharded transfer and slot steps, one row-parallel
+    launch each over every SM, the same launch at every n) against their
+    plain versions (which run shard by shard) on random inputs at A = S =
+    16384 (the capacity and slot_capacity floor of bench.py:570-575) and
+    B = 512 (the largest protocol-valid transfer block) at n = 2, 4 and
+    8, bit for bit, and on the same inputs reshaped by ``k8s_shaped``
+    (one sender paying the coinbase, every tx masked, sender -2); the
+    split by phase of each step at n = 4 (``window_split.k8s_split``'s
+    instrumented copy, ``split_lib``: the longest CTA's load, sums, rows
+    and store, the launch's span) beside the wrapper's host ms a call;
+    then the path: the launch counters zeroed, one call of each at n = 4
+    through ``sharded_transfer_step(make_mesh(4), A)`` /
+    ``sharded_slot_step`` fed by a real classified block of the ERC-20
+    chain, the counters read, the results equal to the single-chip plain
+    steps (``_transfer_step_plain``, ``_slot_step_plain``).  ms (CUDA
+    events around the wrapper) at every n and on each shape, plain ms,
+    bound, the launch's design."""
     import torch
+    import window_split
     from coreth_tpu_torch import parallel as P
     from coreth_tpu_torch.replay import engine as E
     A = S = 1 << 14
     B = 512
     t_np, coinbase, s_np = k8s_inputs(rng, A, S, B)
-    targs = [torch.from_numpy(a).to(dev) for a in t_np] + [coinbase]
-    sargs = [torch.from_numpy(a).to(dev) for a in s_np]
-    rows, errs = {}, {"transfer": 0, "slot": 0}
-    heads = {}
-    for n in SHARD_WIDTHS:
-        mesh = P.make_mesh(n)
-        for name, fn, plain, args in (
-                ("transfer", P.sharded_transfer_step(mesh, A),
-                 P.sharded_transfer_step_plain, targs),
-                ("slot", P.sharded_slot_step(mesh, S),
-                 P.sharded_slot_step_plain, sargs)):
-            got = fn(*args)
-            t0 = time.perf_counter()
-            want = plain(*args, n)
-            torch.cuda.synchronize()
-            plain_ms = 1000 * (time.perf_counter() - t0)
-            for g, w in zip(got, want):
-                if not torch.equal(g, w):
-                    bad = (g != w).nonzero()[:5].tolist()
-                    raise AssertionError(f"K8s {name} n={n}: differs from "
-                                         f"the plain version at {bad}")
-            if not bool(got[-1]):
-                raise AssertionError(f"K8s {name} n={n}: ok is False on "
-                                     "valid inputs")
-            errs[name] = max(errs[name], max_abs_err(got, want))
-            ms = cuda_ms(lambda: fn(*args))
-            rows[f"{name}_n{n}"] = {"ms": round(ms, 4),
-                                    "plain_ms": round(plain_ms, 2)}
-            if n == HEADLINE_WIDTH:
-                heads[name] = (ms, plain_ms)
+    inputs = {"random": (t_np, coinbase, s_np)}
+    for shape in K8S_SHAPES:
+        inputs[shape] = k8s_shaped(t_np, coinbase, s_np, shape)
+    rows, errs, heads, split = {}, {"transfer": 0, "slot": 0}, {}, {}
+    for shape, (tn, cb, sn) in inputs.items():
+        targs = [torch.from_numpy(a).to(dev) for a in tn] + [cb]
+        sargs = [torch.from_numpy(a).to(dev) for a in sn]
+        for n in SHARD_WIDTHS:
+            mesh = P.make_mesh(n)
+            for name, fn, plain, args in (
+                    ("transfer", P.sharded_transfer_step(mesh, A),
+                     P.sharded_transfer_step_plain, targs),
+                    ("slot", P.sharded_slot_step(mesh, S),
+                     P.sharded_slot_step_plain, sargs)):
+                got = fn(*args)
+                t0 = time.perf_counter()
+                want = plain(*args, n)
+                torch.cuda.synchronize()
+                plain_ms = 1000 * (time.perf_counter() - t0)
+                for g, w in zip(got, want):
+                    if not torch.equal(g, w):
+                        bad = (g != w).nonzero()[:5].tolist()
+                        raise AssertionError(
+                            f"K8s {name} n={n} {shape}: differs from the "
+                            f"plain version at {bad}")
+                if not bool(got[-1]):
+                    raise AssertionError(f"K8s {name} n={n} {shape}: ok is "
+                                         "False on valid inputs")
+                errs[name] = max(errs[name], max_abs_err(got, want))
+                if shape != "random" and n != HEADLINE_WIDTH:
+                    continue
+                ms = cuda_ms(lambda: fn(*args), reps=20)
+                rows[f"{name}_{shape}_n{n}"] = {
+                    "ms": round(ms, 4), "plain_ms": round(plain_ms, 2)}
+                if n == HEADLINE_WIDTH and shape == "random":
+                    heads[name] = (ms, plain_ms)
+                    split[name] = window_split.k8s_split(
+                        split_lib, fn, args, plain, n)
+                    split[name]["host_ms"] = round(
+                        window_split.host_ms(lambda: fn(*args)), 4)
     # the path: a real classified block through the entry points at n = 4
     tr, cb, sl = classified_step_inputs(dev, genesis, blocks, txs)
     mesh = P.make_mesh(HEADLINE_WIDTH)
@@ -2311,11 +2438,15 @@ def phase_k8s(dev, smi, genesis, blocks, txs: int, rng):
             "plain_ms": round(plain_ms, 2), "bound_ms": round(b_ms, 6),
             "bound_by": b_by, "library_ms": None})
     emit({"phase": "k8s", "equal": True, "A": A, "S": S, "B": B,
-          "widths": rows, "classified_block_txs": int(tr[2].shape[0]),
+          "shapes": ["random", *K8S_SHAPES], "calls": rows,
+          "split_n4": split,
+          "design": {"transfer": P.step_design(A),
+                     "slot": P.step_design(S, slot=True)},
+          "classified_block_txs": int(tr[2].shape[0]),
           "classified_block_equal_to_single_chip": True,
           "launches": launches,
-          "ms_is": f"n={HEADLINE_WIDTH}, CUDA events around the wrapper",
-          "kernels": out, "card": smi})
+          "ms_is": f"n={HEADLINE_WIDTH}, random, CUDA events around the "
+          "wrapper, median of 20", "kernels": out, "card": smi})
     return out
 
 
@@ -2331,8 +2462,8 @@ def phase_hot(dev, smi):
     window 16, the first block alone before the timed replay) on one
     shard and at n = 2 and 4: root equal to the header, every block on
     the machine path, no dirty block; on the mesh the token hot (key
-    range), K9 and K9x launched and the single-chip K6/K7 not.  Returns
-    {n: launches}."""
+    range), K9 launched (the flags of its last window equal to the plain
+    version's) and the single-chip K6/K7 not.  Returns {n: launches}."""
     import torch
     from coreth_tpu_torch.evm.device import adapter as A
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
@@ -2373,11 +2504,13 @@ def phase_hot(dev, smi):
         if mc["blocks"] != len(fresh) or mc["dirty_blocks"]:
             raise AssertionError(f"hot n={n}: {mc['blocks']} machine "
                                  f"blocks, {mc['dirty_blocks']} dirty")
+        last_flags = None
         if n > 1:
             ok = (launches["occ_sharded"] >= mc["windows"] >= 1
-                  and launches["shard_flags"] >= 1 and mc["kr_lanes"] > 0
+                  and mc["kr_lanes"] > 0
                   and launches["occ_window"] + launches["occ_window_spec"]
                   == 0)
+            last_flags = check_last_window(eng, f"hot n={n}")
         else:
             ok = launches["occ_window_spec"] >= mc["windows"] >= 1
         if not ok:
@@ -2394,7 +2527,8 @@ def phase_hot(dev, smi):
               "exchange_psum": mc["exchange_psum"],
               "exchange_ppermute": mc["exchange_ppermute"],
               "root_matches_header": True, "launches": launches,
-              "machine": mc, "stats": eng.stats.row(), "card": smi})
+              "last_window_flags": last_flags, "machine": mc,
+              "stats": eng.stats.row(), "card": smi})
         out[n] = launches
     return out
 
@@ -2421,6 +2555,7 @@ def main() -> int:
     from coreth_tpu_torch.crypto import native, secp_device
     global occ_split
     import occ_split
+    import window_split
     from coreth_tpu_torch.ops import secp as S
     from coreth_tpu_torch.replay import engine as E
     from coreth_tpu_torch.types import Block
@@ -2447,6 +2582,9 @@ def main() -> int:
     th = threading.Thread(target=build_native)
     th.start()
     split_builds = start_split_builds()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    k8s_split = pool.submit(window_split.build, "sharded_step")
+    pool.shutdown(wait=False)
     took = kernels.build()
     th.join()
     if native_box.get("path") is None or native.load() is None:
@@ -2607,13 +2745,15 @@ def main() -> int:
     phase_token(
         dev, smi, m_genesis, m_blocks, m_txs,
         [st["txs_per_s"] for sp, _ln, st in runs if not sp])
-    k8s_t, k8s_s = phase_k8s(dev, smi, m_genesis, m_blocks, m_txs, rng)
+    k8s_t, k8s_s = phase_k8s(dev, smi, m_genesis, m_blocks, m_txs, rng,
+                             k8s_split.result())
 
-    # ---- 12b. K9 and K9x against their plain versions (phase k7 built
-    # the token's variant, which holds K9 too)
-    k9, k9_outs = phase_k9(dev, sharded_windows(dev, m_genesis, m_blocks),
-                           split_libs)
-    k9x = phase_k9x(dev, k9_outs)
+    # ---- 12b. K9 against its plain version, then its flags (the
+    # reference's K9x) against theirs (phase k7 built the token's
+    # variant, which holds K9 too)
+    k9, k9_outs, k9_split = phase_k9(
+        dev, sharded_windows(dev, m_genesis, m_blocks), split_libs)
+    k9x = phase_k9x(dev, k9_outs, k9_split)
     del k9_outs
 
     # ---- 13. the window path with K7 on a 4-shard engine: the sharded
@@ -2642,7 +2782,8 @@ def main() -> int:
     k8["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_window"]
     k8r["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_recover"]
     k9["launches"] = sh_launches["occ_sharded"]
-    k9x["launches"] = sh_launches["shard_flags"]
+    k9x["launches"] = sh_launches["flags_fill"]
+    k9x["carried_by_k9"] = sh_launches["occ_sharded"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r, k9,
                                   k9x, k8s_t, k8s_s]}), flush=True)
     print(smi, flush=True)

@@ -102,7 +102,8 @@
 // over all rounds (a traced lane counts its leaf's traced steps), for
 // the roofline.
 //
-// The sharded window (K9) and its flags reduce (K9x), for a mesh engine.
+// The sharded window (K9) with its flags reduce (K9x in the reference),
+// for a mesh engine.
 //
 // Replace the reference's jitted device programs
 //   coreth_tpu/evm/device/shard.py:151 build_sharded_occ_machine
@@ -125,9 +126,13 @@
 // card the mode's order cannot be observed, so both modes run the same
 // code).  A shard's offers travel through global slabs the wrapper
 // allocates, double-buffered by block parity, between cluster barriers,
-// read through L2 as in K8 (sharded_window.cu).  K9x reduces each
-// shard's per-block (all active lanes committed, any escape or pending)
-// flags into (W, 2) int32.
+// read through L2 as in K8 (sharded_window.cu).  The reference's
+// separate flags program (K9x) is K9's epilogue here: after a block's
+// write-back each shard's leader folds its lanes' flags, still in its
+// shared memory, into (all active lanes committed, any active lane
+// escaped or pending) with two CTA votes and stores the pair in a
+// (W, n, 2) slot; after the last block CTA 0 sums the pairs in shard
+// order into the window's (W, 2) flags.
 //
 // Bound of K9: K6's, over the union of the shards' lanes; the copies'
 // sync is no necessary work on one card.
@@ -603,6 +608,27 @@ __device__ void blk_writeback(const Sweep& w, const MachineDims& d,
   }
 }
 
+// K9's epilogue, in a shard's leader after the block's write-back: the
+// shard's flags of the block, as the trailing columns it just wrote
+// (every thread of the CTA takes part in the votes).
+__device__ void blk_flags(const Sweep& w, int B, const int32_t* active0,
+                          int32_t* pair) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int clean = 1, dirty = 0;
+  for (int j = tid; j < B; j += nt) {
+    const int lf = w.lfl[j];
+    if (!active0[j]) continue;
+    clean &= (lf & L_OK) != 0;
+    dirty |= (lf & (L_ESC | L_PEND)) != 0;
+  }
+  clean = __syncthreads_and(clean);
+  dirty = __syncthreads_or(dirty);
+  if (tid == 0) {
+    __stcg(pair, clean ? 1 : 0);
+    __stcg(pair + 1, dirty ? 1 : 0);
+  }
+}
+
 // Warp 0 of a CTA issues the bulk copies of block ``w2``'s staged inputs
 // of its first nstage lanes into buffer w2 & 1: the calldata up to
 // data_len, and the key words of each premapped entry.
@@ -643,10 +669,12 @@ __device__ void stage_issue(const MachineIn& in, const MachineDims& d,
 }
 
 // K6's and K9's body: the launch's CTAs are one cluster of n shards x c.
+// K9 passes ``flags``: (W, 2) the window's flags, then the (W, n, 2)
+// slot of the shards' pairs; K6 passes null and folds no flags.
 __device__ void occ_group(const MachineIn& in, const MachineDims& d,
                           OccDims o, OccBuf b, const OccGrp& g,
                           int X, const int32_t* xrows, int32_t* xpre,
-                          int32_t* xxc, int32_t* xxv) {
+                          int32_t* xxc, int32_t* xxv, int32_t* flags) {
   extern __shared__ __align__(16) uint8_t occ_smem[];
   const int rank = grp_rank();
   const int n = g.n, c = g.c, s = rank / c, m = rank % c;
@@ -886,6 +914,8 @@ __device__ void occ_group(const MachineIn& in, const MachineDims& d,
     }
     // @split writeback-start
     if (leader) blk_writeback(w, d, pk, b.table, rnd);
+    if (leader && flags)
+      blk_flags(w, B, active0, flags + 2 * o.W + ((size_t)wi * n + s) * 2);
     if (X > 0) {
       const int buf = wi & 1;
       __syncthreads();
@@ -929,60 +959,46 @@ __device__ void occ_group(const MachineIn& in, const MachineDims& d,
     grp_sync();
     // @split writeback-end
   }
+  // the shards' pairs, summed in shard order (the last block's cluster
+  // barrier ordered every leader's slot stores before these loads)
+  if (flags && rank == 0)
+    for (int e = tid; e < 2 * o.W; e += nt) {
+      const int32_t* pair = flags + 2 * o.W + (size_t)(e >> 1) * n * 2;
+      int v = 0;
+      for (int t = 0; t < n; ++t) v += __ldcg(pair + 2 * t + (e & 1));
+      flags[e] = v;
+    }
   // @split kernel-end
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
     occ_window_kernel(MachineIn in, MachineDims d, OccDims o, OccBuf b,
                       OccGrp g) {
-  occ_group(in, d, o, b, g, 0, nullptr, nullptr, nullptr, nullptr);
+  occ_group(in, d, o, b, g, 0, nullptr, nullptr, nullptr, nullptr, nullptr);
 }
 
 // The key-range sync's inputs and slabs: rows (X, n + 1) int32; pre
 // (n, X, 16) each shard's copies before the block; xc (2, n, X) the
 // shards' writer candidates and xv (2, n, X, 16) their contributions,
-// by block parity.
+// by block parity; and the window's flags with their slot (occ_group).
 struct OccXchg {
   int X;
   const int32_t* rows;
-  int32_t *pre, *xc, *xv;
+  int32_t *pre, *xc, *xv, *flags;
 };
 
 // K9: one cluster of n shards x c CTAs per window.
 __global__ void __launch_bounds__(kThreads, 1)
     occ_sharded_kernel(MachineIn in, MachineDims d, OccDims o, OccBuf b,
                        OccGrp g, OccXchg x) {
-  occ_group(in, d, o, b, g, x.X, x.rows, x.pre, x.xc, x.xv);
+  occ_group(in, d, o, b, g, x.X, x.rows, x.pre, x.xc, x.xv, x.flags);
 }
 
-// K9x: block w's flags, one CTA per block: (shards whose active lanes all
-// committed, shards with an active lane that escaped or is pending).
-__global__ void shard_flags_kernel(const int32_t* __restrict__ packed,
-                                   const int32_t* __restrict__ active,
-                                   int NB, int B, int PW,
-                                   int32_t* __restrict__ flags) {
-  __shared__ int dirty[kMaxShards], esc[kMaxShards];
-  const int n = NB / B, w = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int t = tid; t < n; t += nt) dirty[t] = esc[t] = 0;
-  __syncthreads();
-  for (int i = tid; i < NB; i += nt) {
-    if (!active[(size_t)w * NB + i]) continue;
-    const int32_t* row = packed + ((size_t)w * NB + i) * PW;
-    if (row[PW - 4] == 0) atomicOr(&dirty[i / B], 1);
-    if (row[PW - 3] != 0 || row[PW - 2] != 0) atomicOr(&esc[i / B], 1);
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // the replicated sum, in shard order
-    int c = 0, e = 0;
-    for (int t = 0; t < n; ++t) {
-      c += !dirty[t];
-      e += esc[t];
-    }
-    flags[2 * w] = c;
-    flags[2 * w + 1] = e;
-  }
+// The flags of a window whose blocks have no lane: every shard clean.
+__global__ void flags_fill_kernel(int32_t* __restrict__ flags, int W,
+                                  int n) {
+  for (int e = threadIdx.x; e < 2 * W; e += blockDim.x)
+    flags[e] = e & 1 ? 0 : n;
 }
 
 }  // namespace
@@ -1213,22 +1229,30 @@ extern "C" int occ_window_launch(OCC_PARAMS, void* stream) {
 // K9: n shards as one cluster on `stream`.  The arguments are K6's with
 // every lane tensor n*B wide (dims still hold the per-shard B and G),
 // the tables n*G rows, and the scratch (seeds, lanes, sweep) n times
-// K6's (lanes n*(B + 32) + n); then the sync set: X rows of `rows`
-// (X, n + 1) int32 and the slabs pre (n, X, 16), xc (2, n, X), xv (2, n,
-// X, 16) int32 (unused when X = 0).  Returns -2 for a width past
+// K6's (lanes n*(B + 32) + n); before them the sync set: X rows of
+// `rows` (X, n + 1) int32 and the slabs pre (n, X, 16), xc (2, n, X), xv
+// (2, n, X, 16) int32 (unused when X = 0), and flags, int32[2W(n + 1)]:
+// the window's (W, 2) flags (per block the shards whose active lanes
+// all committed, and the shards with an active lane that escaped or is
+// pending), then their (W, n, 2) slot.  Returns -2 for a width past
 // kMaxShards, else as occ_group_launch.
 extern "C" int occ_sharded_launch(int n, int X, const void* rows,
-                                  void* pre, void* xc, void* xv, OCC_PARAMS,
-                                  void* stream) {
+                                  void* pre, void* xc, void* xv,
+                                  void* flags, OCC_PARAMS, void* stream) {
   if (n < 1 || n > kMaxShards) return -2;
   MachineIn in;
   MachineDims d;
   OccDims o;
   OccBuf b;
   int cap = 0;
-  if (!occ_fill(OCC_ARGS, &in, &d, &o, &b, &cap)) return 0;
+  if (!occ_fill(OCC_ARGS, &in, &d, &o, &b, &cap)) {
+    if (o.W <= 0) return 0;
+    flags_fill_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+        (int32_t*)flags, o.W, n);
+    return (int)cudaGetLastError();
+  }
   OccXchg x{X, (const int32_t*)rows, (int32_t*)pre, (int32_t*)xc,
-            (int32_t*)xv};
+            (int32_t*)xv, (int32_t*)flags};
   return occ_group_launch(occ_sharded_kernel, n, in, d, o, b, cap,
                           (cudaStream_t)stream, x);
 }
@@ -1260,18 +1284,4 @@ extern "C" int occ_group_info(int n, const void* dims, void* out) {
   o[4] = g.smem;
   o[5] = g.sweep_shared;
   return 0;
-}
-
-// K9x: packed (W, NB, PW) and active (W, NB) int32, NB = n*B lanes a
-// block row; flags (W, 2) int32.  Returns -2 for NB not n*B with
-// 1 <= n <= kMaxShards.
-extern "C" int shard_flags_launch(const void* packed, const void* active,
-                                  int W, int NB, int B, int PW,
-                                  void* flags, void* stream) {
-  if (B < 1 || NB % B || NB / B < 1 || NB / B > kMaxShards) return -2;
-  if (W <= 0) return 0;
-  shard_flags_kernel<<<W, 256, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)packed, (const int32_t*)active, NB, B, PW,
-      (int32_t*)flags);
-  return (int)cudaGetLastError();
 }

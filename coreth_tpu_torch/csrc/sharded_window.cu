@@ -367,11 +367,11 @@ __global__ void __launch_bounds__(THREADS) sharded_window_kernel(
       const int j = e % FW, i = (e / FW < tn ? e / FW : e / FW - tn) * n + d;
       if (e / FW < tn) {
         if (i >= t_pad) continue;
-        const int l = tw::clamp_idx(ti[i], L);
+        const int l = tw::wrap_idx(ti[i], L);
         f[i * FW + j] = j < LIMBS ? lb[(int64_t)l * LIMBS + j] : ln[l];
       } else {
         if (i >= s_pad) continue;
-        const int l = tw::clamp_idx(sx[i], SL);
+        const int l = tw::wrap_idx(sx[i], SL);
         f[(t_pad + i) * FW + j] = j < LIMBS ? ls[(int64_t)l * LIMBS + j] : 0;
       }
     }

@@ -41,7 +41,11 @@ __device__ __forceinline__ bool in_range(int i, int n) {
   return i >= 0 && i < n;
 }
 
-__device__ __forceinline__ int clamp_idx(int i, int n) {
+// a gather's row as a jnp gather takes index i of n rows: a negative
+// index counts from the end (i + n), then clamps to [0, n - 1]; so -2
+// reads row n - 2 and -(n + 3) row 0
+__device__ __forceinline__ int wrap_idx(int i, int n) {
+  if (i < 0) i += n;
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
 }
 
@@ -120,7 +124,7 @@ __device__ void accumulate_limbs(const int* __restrict__ txd, int lo, int hi,
     const unsigned amt = (unsigned)row[56 + j];
     if (in_range(fs, SL)) atomicAdd(srow(fs) + j, amt);
     if (in_range(ts, SL)) atomicAdd(srow(ts) + LIMBS + j, amt);
-    if (j == 0 && row[2] != ln[clamp_idx(s, L)] + row[3]) *bad = 1;
+    if (j == 0 && row[2] != ln[wrap_idx(s, L)] + row[3]) *bad = 1;
   }
 }
 

@@ -24,7 +24,7 @@
 // the stream, each spread over the card, with no block-by-block chain:
 //   (a) blocks — one CTA a block, independent of the state: it claims a
 //       compact row for each row the block touches (the masked lanes'
-//       senders, or the row a sender's clamped nonce check reads, their
+//       senders, or the row a sender's wrapped nonce check reads, their
 //       recipients and slots, the coinbase), then for each row its fetch
 //       rows name, in a dense map M (row, k) -> compact row or -1 (the
 //       launch sets M to -1 first); it sums the lanes, one thread a
@@ -46,7 +46,7 @@
 //       rows of four events loaded together before they are applied;
 //   (c) fetch — fetch row (k, i) reads the post-block value of its row's
 //       compact row of block k (a fetched row always has one) as 16-bit
-//       limbs, indices clamped like a jnp gather; the ok row reads ok[k].
+//       limbs, indices wrapped like a jnp gather; the ok row reads ok[k].
 // Limb sums are uint32: a limb takes at most 2 * pad adds of < 2^16
 // (MAX_PAD 16384 in the wrapper).  Table limbs are < 2^16
 // (u256.pack_np), so two make a word exactly.
@@ -77,7 +77,7 @@ namespace {
 using tw::COLS;
 using tw::FW;
 using tw::LIMBS;
-using tw::clamp_idx;
+using tw::wrap_idx;
 using tw::in_range;
 
 constexpr int WORDS = LIMBS / 2;  // a value as 32-bit words
@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(A_THREADS) k1_blocks(
     for (int i = tid; i < pad; i += nt) {
       const int* row = txd + (int64_t)i * COLS;
       if (row[4] == 0) continue;  // masked-out pad row adds nothing
-      claim(am(clamp_idx(row[0], L)), 0, &na);  // also its nonce check's
+      claim(am(wrap_idx(row[0], L)), 0, &na);  // also its nonce check's
       if (in_range(row[1], L)) claim(am(row[1]), 0, &na);
       if (in_range(row[54], SL)) claim(sm(row[54]), 0, &ns);
       if (in_range(row[55], SL)) claim(sm(row[55]), 0, &ns);
@@ -182,9 +182,9 @@ __global__ void __launch_bounds__(A_THREADS) k1_blocks(
       acc[e] = e % ACW == S_NLO ? 0xFFFFFFFFu : 0u;
     for (int e = tid; e < s1 * SCW; e += nt) sacc[e] = 0u;
     for (int i = tid; i < t_pad; i += nt)
-      claim(am(clamp_idx(t_idxs[(int64_t)k * t_pad + i], L)), n1, &nf);
+      claim(am(wrap_idx(t_idxs[(int64_t)k * t_pad + i], L)), n1, &nf);
     for (int i = tid; i < s_pad; i += nt)
-      claim(sm(clamp_idx(s_idxs[(int64_t)k * s_pad + i], SL)), s1, &nsf);
+      claim(sm(wrap_idx(s_idxs[(int64_t)k * s_pad + i], SL)), s1, &nsf);
     __syncthreads();
     // segment sums, one thread a (lane, limb); a limb's debit takes the
     // value + fee carry chain up to it (per tx, as the reference)
@@ -218,7 +218,7 @@ __global__ void __launch_bounds__(A_THREADS) k1_blocks(
       if (in_range(row[55], SL))
         atomicAdd(sacc + (int64_t)*sm(row[55]) * SCW + LIMBS + j, amt);
       if (j == 0) {
-        unsigned* a = acc + (int64_t)*am(clamp_idx(s, L)) * ACW;
+        unsigned* a = acc + (int64_t)*am(wrap_idx(s, L)) * ACW;
         const unsigned want = (unsigned)row[2] - (unsigned)row[3];
         atomicMin(a + S_NLO, want);
         atomicMax(a + S_NHI, want);
@@ -419,10 +419,10 @@ __global__ void __launch_bounds__(F_THREADS) k1_fetch(
     const int k = (int)(e / fw), i = (int)(e % fw) / FW, j = (int)(e % FW);
     const unsigned* c = nullptr;
     if (i < t_pad) {
-      const int r = clamp_idx(t_idxs[(int64_t)k * t_pad + i], L);
+      const int r = wrap_idx(t_idxs[(int64_t)k * t_pad + i], L);
       c = x.ca + ((int64_t)k * x.CA + x.ma[(int64_t)r * K + k]) * AW;
     } else if (i < t_pad + s_pad) {
-      const int r = clamp_idx(s_idxs[(int64_t)k * s_pad + i - t_pad], SL);
+      const int r = wrap_idx(s_idxs[(int64_t)k * s_pad + i - t_pad], SL);
       c = x.cs + ((int64_t)k * x.CS + x.ms[(int64_t)r * K + k]) * SW;
     }
     int v;

@@ -759,7 +759,7 @@ class MachineWindowRunner:
         """Whether the window is known clean before its packed rows are
         fetched, so that the next window may launch first: never here,
         since one card's window has no flags reduce (the sharded runner
-        fetches K9x's)."""
+        fetches K9's)."""
         return False
 
     def invalidate(self) -> None:

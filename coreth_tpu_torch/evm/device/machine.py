@@ -1171,11 +1171,14 @@ _OCC_LANE_INPUTS = ("code", "jdest", "code_len", "calldata", "data_len",
 # evm/device/shard.py:151 build_sharded_occ_machine).  A sharded window's
 # lane tensors are n * batch wide (shard d's lanes at [d*B, (d+1)*B) of
 # every block row) and its tables n * table_cap rows (shard d's arena at
-# [d*G, (d+1)*G)); the per-block leaves and chainid_w are shared.  K9x
-# (:267 get_shard_exchange) reduces the shards' per-block flags.
+# [d*G, (d+1)*G)); the per-block leaves and chainid_w are shared.  The
+# reference's flags reduce (K9x, :267 get_shard_exchange) is K9's
+# epilogue: a window's result carries its per-block flags.
 
 OCC_SHARDED_LAUNCHES = 0
-SHARD_FLAGS_LAUNCHES = 0
+# launches of the one kernel whose only work is the flags: a window whose
+# shards hold no lane (batch 0) gets them from flags_fill_kernel, not K9
+FLAGS_FILL_LAUNCHES = 0
 
 
 def _shard_in(blocks_in: dict, d: int, B: int, w=None) -> dict:
@@ -1208,7 +1211,9 @@ def occ_sharded_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
     and the winner's value goes to every copy (an add-reduce); with no
     offer a row keeps its value.  Both reduces take ``mode``'s order
     (``collective_reduce_plain``).  Returns {"table": (n * G, 16),
-    "packed": (W, n * B, width + 4), "steps": (W, n * B)}."""
+    "packed": (W, n * B, width + 4), "steps": (W, n * B), "flags": (W, 2)},
+    the flags ``shard_flags_plain`` of the packed rows in ``mode``'s
+    order."""
     B, G, W = p.batch, occ.table_cap, occ.blocks
     tabs = [table[d * G:(d + 1) * G] for d in range(n)]
     keys = [key_tab[d * G:(d + 1) * G] for d in range(n)]
@@ -1216,9 +1221,12 @@ def occ_sharded_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
         outs = [occ_run_plain(p, occ, tabs[d], keys[d],
                               _shard_in(blocks_in, d, B), spec)
                 for d in range(n)]
+        packed = torch.cat([o["packed"] for o in outs], dim=1)
         return dict(table=torch.cat([o["table"] for o in outs]),
-                    packed=torch.cat([o["packed"] for o in outs], dim=1),
-                    steps=torch.cat([o["steps"] for o in outs], dim=1))
+                    packed=packed,
+                    steps=torch.cat([o["steps"] for o in outs], dim=1),
+                    flags=shard_flags_plain(packed, blocks_in["active"], n,
+                                            mode))
     occ1 = OccParams(blocks=1, table_cap=G, rounds=occ.rounds)
     rows = sync_rows.long()
     own = rows[:, n]
@@ -1258,17 +1266,24 @@ def occ_sharded_plain(p: MachineParams, occ: OccParams, table: torch.Tensor,
             write(d, torch.where((win[d] > 0)[:, None], val[d], cur[d]))
         packed.append(torch.cat([o["packed"][0] for o in outs]))
         steps.append(torch.cat([o["steps"][0] for o in outs]))
-    return dict(table=torch.cat(tabs), packed=torch.stack(packed),
-                steps=torch.stack(steps))
+    packed = torch.stack(packed)
+    return dict(table=torch.cat(tabs), packed=packed,
+                steps=torch.stack(steps),
+                flags=shard_flags_plain(packed, blocks_in["active"], n, mode))
 
 
 def shard_flags_plain(packed: torch.Tensor, active: torch.Tensor, n: int,
                       mode: str = "psum") -> torch.Tensor:
-    """The plain version of K9x: per block, the shards whose active lanes
-    all committed and the shards with an active lane that escaped or is
+    """The plain version of the flags reduce (the reference's K9x, K9's
+    epilogue on the card): per block, the shards whose active lanes all
+    committed and the shards with an active lane that escaped or is
     still pending (columns -4, -3 and -2 of the packed rows), summed
-    over the shards in ``mode``'s order: (W, 2) int32."""
+    over the shards in ``mode``'s order: (W, 2) int32.  packed (W, n * B,
+    width + 4), active (W, n * B); other shapes raise ``ValueError``."""
     W, NB, _ = packed.shape
+    if NB % n or tuple(active.shape) != (W, NB):
+        raise ValueError(f"shard_flags_plain: packed {tuple(packed.shape)}, "
+                         f"active {tuple(active.shape)}, {n} shards")
     B = NB // n
     act = active.bool()
     com = packed[:, :, -4] != 0
@@ -1298,10 +1313,11 @@ def run_occ_sharded(p: MachineParams, occ: OccParams, table: torch.Tensor,
     of ``csrc/occ_window.cu`` (one cluster of n CTAs, asynchronous on the
     current stream) from the generic library or, for a program set, its
     specialised variant (K7 inside, built at its first use); CPU inputs
-    run ``occ_sharded_plain``.  Same arguments and result; a cluster
-    that does not fit on the card raises.  The kernel sums the shards in
-    shard order whatever ``mode``: integer adds and maxes, so on one card
-    the mode's order cannot be observed."""
+    run ``occ_sharded_plain``.  Same arguments and result, the window's
+    flags included (the kernel's epilogue); a cluster that does not fit
+    on the card raises.  The kernel sums the shards in shard order
+    whatever ``mode``: integer adds and maxes, so on one card the mode's
+    order cannot be observed."""
     from coreth_tpu_torch.evm.device import specialize as SP
     _check_mesh("run_occ_sharded", n, mode)
     dev = _check_window("run_occ_sharded", p, occ, table, key_tab,
@@ -1314,7 +1330,7 @@ def run_occ_sharded(p: MachineParams, occ: OccParams, table: torch.Tensor,
     if dev.type == "cpu":
         return occ_sharded_plain(p, occ, table, key_tab, blocks_in, spec, n,
                                  sync_rows, mode)
-    global OCC_SHARDED_LAUNCHES
+    global OCC_SHARDED_LAUNCHES, FLAGS_FILL_LAUNCHES
     lib = SP.occ_library(spec) if spec else kernels.load("occ_window")
     args, out = occ_launch_args(p, occ, table, key_tab, blocks_in, n)
     i32 = dict(dtype=torch.int32, device=dev)
@@ -1323,42 +1339,17 @@ def run_occ_sharded(p: MachineParams, occ: OccParams, table: torch.Tensor,
     pre = torch.empty((n, max(X, 1), LIMBS), **i32)
     xc = torch.empty((2, n, max(X, 1)), **i32)
     xv = torch.empty((2, n, max(X, 1), LIMBS), **i32)
+    # the (W, 2) flags, then the kernel's (W, n, 2) slot of shard pairs
+    W = occ.blocks
+    flags = torch.empty((2 * W * (n + 1),), **i32)
     rc = lib.occ_sharded_launch(
-        n, X, rows.data_ptr(), pre.data_ptr(),
-        xc.data_ptr(), xv.data_ptr(), *pointers(args),
+        n, X, rows.data_ptr(), pre.data_ptr(), xc.data_ptr(),
+        xv.data_ptr(), flags.data_ptr(), *pointers(args),
         torch.cuda.current_stream(dev).cuda_stream)
     _check_group(rc, "occ_sharded", n)
-    OCC_SHARDED_LAUNCHES += 1
+    if p.batch > 0:
+        OCC_SHARDED_LAUNCHES += 1
+    elif W > 0:
+        FLAGS_FILL_LAUNCHES += 1
+    out["flags"] = flags[:2 * W].view(W, 2)
     return out
-
-
-def shard_flags(packed: torch.Tensor, active: torch.Tensor, n: int,
-                mode: str = "psum") -> torch.Tensor:
-    """K9x: ``shard_flags_launch`` of ``csrc/occ_window.cu`` on CUDA
-    tensors (asynchronous on the current stream, behind K9), the plain
-    version on CPU ones.  packed (W, n * B, width + 4), active (W, n * B)
-    int32; returns (W, 2) int32.  ``mode`` picks the plain version's
-    order only (as for K9)."""
-    _check_mesh("shard_flags", n, mode)
-    W, NB, PW = packed.shape
-    if NB % n or tuple(active.shape) != (W, NB) \
-            or active.device != packed.device:
-        raise ValueError(f"shard_flags: packed {tuple(packed.shape)}, "
-                         f"active {tuple(active.shape)}, {n} shards")
-    dev = packed.device
-    if dev.type == "cpu":
-        return shard_flags_plain(packed, active, n, mode)
-    if dev.type != "cuda":
-        raise ValueError(f"shard_flags: unsupported device {dev}")
-    global SHARD_FLAGS_LAUNCHES
-    lib = kernels.load("occ_window")
-    packed = packed.to(torch.int32).contiguous()
-    active = active.to(torch.int32).contiguous()
-    flags = torch.empty((W, 2), dtype=torch.int32, device=dev)
-    rc = lib.shard_flags_launch(
-        packed.data_ptr(), active.data_ptr(), W, NB, NB // n, PW,
-        flags.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(rc, "shard_flags")
-    SHARD_FLAGS_LAUNCHES += 1
-    return flags

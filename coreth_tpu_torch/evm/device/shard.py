@@ -1,5 +1,6 @@
 """Sharded machine windows: per-shard slot tables, per-shard OCC and the
-key-range replica sync (K9), with the shards' flags reduce (K9x).
+key-range replica sync (K9), with the shards' flags reduce (the
+reference's K9x, K9's epilogue here).
 
 Port of reference ``evm/device/shard.py`` (``ShardedWindowRunner``).  On
 a mesh engine the fused OCC window of the single-card runner
@@ -24,16 +25,18 @@ one thread-block cluster (``csrc/occ_window.cu`` ``occ_sharded_launch``).
   and gives them the owner copy's value at window start.  Placement
   only moves load: every touched key is premapped and co-located, so
   results, and roots, do not depend on it.
-- **The flags exchange.**  Behind each window K9x reduces the shards'
-  per-block (all active lanes committed, any escape or pending) flags
-  into one (W, 2) tensor.  The scheduler fetches that first
+- **The flags exchange.**  K9's epilogue reduces the shards' per-block
+  (all active lanes committed, any escape or pending) flags into one
+  (W, 2) tensor of the window's result, with no launch of its own (the
+  reference's K9x).  The scheduler fetches that first
   (``poll_clean``) and, when the window is clean and the next one needs
   no table rebuild (``can_pipeline``), launches the next window before
   it fetches this one's packed rows.  ``EVENT_LOG`` records the order.
 
 Both reduces' modes (psum, or the ppermute ring) give equal integers,
-and on one card K9 and K9x sum the shards in shard order whatever the
-mode: it picks the counters and the plain version's order.  The
+and on one card K9 and its flags epilogue sum the shards in shard
+order whatever the mode: it picks the counters and the plain version's
+order.  The
 window's mode is chosen once, at the first window with a nonempty
 sync set (or forced by ``exchange``).
 """
@@ -125,6 +128,9 @@ class ShardedWindowRunner(MachineWindowRunner):
         self._xchg_locked = False
         self._sync_last = 0
         self._probe = None            # can_pipeline's prepared window
+        # the last window issued: its handle keeps the result ("out"), the
+        # flags ("ex"), the active lanes and the mode
+        self.last_handle: Optional[dict] = None
 
     # ------------------------------------------------------------ state
     def shard_of(self, contract: bytes) -> int:
@@ -471,7 +477,7 @@ class ShardedWindowRunner(MachineWindowRunner):
 
     # ---------------------------------------------------------- schedule
     def poll_clean(self, handle: dict) -> bool:
-        """Fetch only the window's flags (K9x) and say whether every
+        """Fetch only the window's flags (K9's) and say whether every
         block committed clean on every shard: cheap enough to gate the
         next window's launch before the packed rows' fetch."""
         clean = handle.get("clean")
@@ -560,9 +566,9 @@ class ShardedWindowRunner(MachineWindowRunner):
         return handle
 
     def issue(self, items, discovered=None, attempt: int = 1) -> dict:
-        """Pack and launch one window (K9), then its flags reduce (K9x) on
-        the same stream; returns the handle for ``poll_clean`` and
-        ``complete``.  Nothing here waits for the card."""
+        """Pack and launch one window (K9, its flags reduce inside);
+        returns the handle for ``poll_clean`` and ``complete``.  Nothing
+        here waits for the card."""
         t0 = time.monotonic()
         handle = self.pack(items, discovered, attempt)
         t1 = time.monotonic()
@@ -575,12 +581,10 @@ class ShardedWindowRunner(MachineWindowRunner):
             handle["sync_rows"], handle["xchg_mode"])
         self.table = out["table"]
         self.launches += 1
-        # the flags reduce follows a forced mode on every sharded window;
-        # otherwise the window's
-        handle["ex"] = M.shard_flags(out["packed"], inputs["active"],
-                                     self.n_shards,
-                                     self.exchange or self._xchg_mode)
-        handle.update(out=out, attempt=attempt, seq=seq)
+        handle["ex"] = out["flags"]
+        handle.update(out=out, active=inputs["active"], attempt=attempt,
+                      seq=seq)
+        self.last_handle = handle
         self.t_pack += t1 - t0
         self.t_machine += time.monotonic() - t1
         return handle

@@ -171,12 +171,13 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.sharded_window_layout.argtypes = [I, P]
         lib.sharded_window_layout.restype = I
     elif name == "sharded_step":
-        lib.sharded_transfer_step_launch.argtypes = [I] + [P] * 10 + [
-            I, I, I] + [P] * 6
+        lib.sharded_transfer_step_launch.argtypes = [P] * 10 + [
+            I, I, I] + [P] * 4
         lib.sharded_transfer_step_launch.restype = I
-        lib.sharded_slot_step_launch.argtypes = [I] + [P] * 5 + [I, I] + [
-            P] * 5
+        lib.sharded_slot_step_launch.argtypes = [P] * 5 + [I, I] + [P] * 3
         lib.sharded_slot_step_launch.restype = I
+        lib.sharded_step_design.argtypes = [I, I, P]
+        lib.sharded_step_design.restype = I
     elif name == "secp_recover":
         lib.secp_recover_launch.argtypes = [P, P, P, P, P, I, P]
         lib.secp_recover_launch.restype = I
@@ -196,11 +197,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "occ_window" or name.startswith("occ_window_spec_"):
         lib.occ_window_launch.argtypes = [P] * 27
         lib.occ_window_launch.restype = I
-        # K9 (n, X, rows, pre, xc, xv, K6's 26, stream) and K9x
-        lib.occ_sharded_launch.argtypes = [I, I] + [P] * 31
+        # K9 (n, X, rows, pre, xc, xv, flags, K6's 26, stream)
+        lib.occ_sharded_launch.argtypes = [I, I] + [P] * 32
         lib.occ_sharded_launch.restype = I
-        lib.shard_flags_launch.argtypes = [P, P, I, I, I, I, P, P]
-        lib.shard_flags_launch.restype = I
         lib.occ_group_info.argtypes = [I, P, P]
         lib.occ_group_info.restype = I
 

@@ -15,8 +15,11 @@ The per-block steps (K8s) are the reference's older mesh program, the
 one its multichip dry run drives: each tx shard segment-sums its
 effects over the full table width, one ``psum_scatter`` reduces them
 onto the row sharding, nonces check against an ``all_gather`` of the
-nonce row, and a ``psum`` ANDs the shards' flags.  On the card each
-step is one cluster launch of ``csrc/sharded_step.cu``.
+nonce row, and a ``psum`` ANDs the shards' flags.  Their plain versions
+run shard by shard as the reference does; the result does not depend on
+n (integer sums, an AND of the checks), so on the card each step is one
+row-parallel launch of ``csrc/sharded_step.cu`` over every SM, the same
+launch at every n.
 """
 
 from __future__ import annotations
@@ -99,6 +102,14 @@ def segment_sum(vals: torch.Tensor, idx: torch.Tensor,
     return out.index_add_(0, idx[ok].long(), vals[ok])
 
 
+def gather_index(idx: torch.Tensor, num: int) -> torch.Tensor:
+    """The rows a jnp gather of ``num`` rows reads at ``idx`` (int64): a
+    negative index counts from the end, then the index clamps to
+    [0, num - 1]; -2 reads row num - 2, -(num + 3) row 0."""
+    idx = idx.long()
+    return torch.where(idx < 0, idx + num, idx).clamp(0, num - 1)
+
+
 def _shard_rows(parts: torch.Tensor, n: int) -> torch.Tensor:
     """``psum_scatter(tiled=True)`` of the shards' full-width partials
     [n, R, ...]: the sum (``collective_reduce_plain``), shard d keeping
@@ -153,8 +164,7 @@ def sharded_transfer_step_plain(balances, nonces, sender_idx, recip_idx,
             credit_p[cb] += (fee16[t] * mask_i).sum(0, dtype=torch.int32)
         counts_p = segment_sum(mask_i, sender_idx[t], A)
         parts.append(torch.cat([debit_p, req_p, credit_p, counts_p], dim=1))
-        expected = nonces[sender_idx[t].long().clamp(0, A - 1)] \
-            + nonce_offset[t]
+        expected = nonces[gather_index(sender_idx[t], A)] + nonce_offset[t]
         nonce_ok.append(bool(torch.all(torch.where(m, tx_nonce[t] == expected,
                                                    True))))
     tot = _shard_rows(torch.stack(parts), n)
@@ -195,27 +205,70 @@ def sharded_slot_step_plain(slot_vals, from_slot, to_slot, amount16, mask,
     return new_vals, torch.tensor(ok, device=slot_vals.device)
 
 
-def _as_i32(x, dev: torch.device) -> torch.Tensor:
+def _step_device(mesh: ShardMesh, table) -> tuple:
+    """The device a step runs on (the mesh's, else the table's) and the
+    index ``Tensor.get_device()`` reports there (-1 on the CPU); another
+    device type raises ``ValueError``."""
+    dev = mesh.device or torch.as_tensor(table).device
+    if dev.type == "cpu":
+        return dev, -1
+    if dev.type != "cuda":
+        raise ValueError(f"sharded step: unsupported device {dev}")
+    return dev, (torch.cuda.current_device() if dev.index is None
+                 else dev.index)
+
+
+def _raw_stream(di: int) -> int:
+    """Device ``di``'s current CUDA stream as a raw handle: what
+    ``torch.cuda.current_stream(di).cuda_stream`` gives, without building
+    a Stream object (~10 us a call, most of a step's host work), as
+    PyTorch's own generated launch code takes it.  That binding is
+    private: where a PyTorch build lacks it, the public call gives the
+    same handle."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(di).cuda_stream
+    return raw(di)
+
+
+def _as_i32(x, dev: torch.device, di: int) -> torch.Tensor:
+    """``x`` as a contiguous int32 tensor on ``dev`` (index ``di``):
+    itself when it is one already (the cheap checks first: a call's
+    host work is most of its time on the card)."""
+    if type(x) is torch.Tensor and x.dtype is torch.int32 \
+            and x.get_device() == di and x.is_contiguous():
+        return x
     return torch.as_tensor(x).to(dev, torch.int32).contiguous()
 
 
-def _launch(what: str, rc: int, n: int) -> None:
-    if rc == -1:
-        raise RuntimeError(f"{what}: no cluster of {n} CTAs x 1024 threads "
-                           "fits on this card")
-    kernels.check(rc, what)
+def _table(x, dev: torch.device, di: int) -> torch.Tensor:
+    """A table for the kernel's 16-byte row loads: int32, contiguous, on
+    ``dev``, at a 16-byte aligned address (a copy when it is not)."""
+    t = _as_i32(x, dev, di)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def step_design(rows: int, slot: bool = False) -> dict:
+    """The launch K8s's kernel takes for a table of ``rows`` rows, the
+    same at every mesh width: rows a CTA, CTAs, dynamic shared memory a
+    CTA (bytes)."""
+    import ctypes
+    out = (ctypes.c_int * 3)()
+    kernels.check(kernels.load("sharded_step").sharded_step_design(
+        rows, int(slot), out), "sharded_step_design")
+    return {"rows_per_cta": out[0], "ctas": out[1], "smem_bytes": out[2]}
 
 
 def sharded_transfer_step(mesh: ShardMesh, num_accounts: int):
     """The mesh-sharded transfer step (reference ``sharded_transfer_step``):
     returns a function (balances [A,16], nonces [A], sender_idx,
     recip_idx, value16, fee16, required16, tx_nonce, nonce_offset, mask,
-    coinbase_idx) -> (new_balances, new_nonces, ok), A = num_accounts.
-    It runs on the mesh's device, else on the device of ``balances``:
-    on CUDA one launch of K8s's transfer kernel
-    (``csrc/sharded_step.cu``, one cluster of n CTAs, asynchronous on the
-    current stream), on the CPU the plain version.  A and the batch must
-    divide by n."""
+    coinbase_idx) -> (new_balances, new_nonces, ok), A = num_accounts,
+    ok a 0-dim bool tensor.  It runs on the mesh's device, else on the
+    device of ``balances``: on CUDA one launch of K8s's transfer kernel
+    (``csrc/sharded_step.cu``, over every SM whatever n, asynchronous on
+    the current stream), on the CPU the plain version.  A and the batch
+    must divide by n."""
     n = mesh.n_shards
     if num_accounts % n:
         raise ValueError(f"sharded_transfer_step: {num_accounts} accounts "
@@ -224,9 +277,9 @@ def sharded_transfer_step(mesh: ShardMesh, num_accounts: int):
     def step(balances, nonces, sender_idx, recip_idx, value16, fee16,
              required16, tx_nonce, nonce_offset, mask, coinbase_idx):
         global TRANSFER_STEP_LAUNCHES
-        dev = mesh.device or torch.as_tensor(balances).device
-        bal, non = _as_i32(balances, dev), _as_i32(nonces, dev)
-        cols = [_as_i32(x, dev) for x in (
+        dev, di = _step_device(mesh, balances)
+        bal, non = _table(balances, dev, di), _as_i32(nonces, dev, di)
+        cols = [_as_i32(x, dev, di) for x in (
             sender_idx, recip_idx, value16, fee16, required16, tx_nonce,
             nonce_offset, mask)]
         A, B = bal.shape[0], cols[0].shape[0]
@@ -238,28 +291,22 @@ def sharded_transfer_step(mesh: ShardMesh, num_accounts: int):
         if dev.type == "cpu":
             return sharded_transfer_step_plain(bal, non, *cols,
                                                coinbase_idx, n)
-        i32 = dict(dtype=torch.int32, device=dev)
-        slabs = torch.empty((n, A, 3 * u256.LIMBS + 1), **i32)
-        flags = torch.empty((n,), **i32)
         new_bal, new_non = torch.empty_like(bal), torch.empty_like(non)
-        ok = torch.empty((1,), **i32)
-        lib = kernels.load("sharded_step")
-        rc = lib.sharded_transfer_step_launch(
-            n, bal.data_ptr(), non.data_ptr(),
-            *(c.data_ptr() for c in cols), _coinbase_row(coinbase_idx, A),
-            A, B, slabs.data_ptr(), flags.data_ptr(), new_bal.data_ptr(),
-            new_non.data_ptr(), ok.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-        _launch("sharded_transfer_step", rc, n)
+        ok = non.new_empty((), dtype=torch.bool)
+        rc = kernels.load("sharded_step").sharded_transfer_step_launch(
+            bal.data_ptr(), non.data_ptr(), *(c.data_ptr() for c in cols),
+            _coinbase_row(coinbase_idx, A), A, B, new_bal.data_ptr(),
+            new_non.data_ptr(), ok.data_ptr(), _raw_stream(di))
+        kernels.check(rc, "sharded_transfer_step")
         TRANSFER_STEP_LAUNCHES += 1
-        return new_bal, new_non, ok[0] != 0
+        return new_bal, new_non, ok
     return step
 
 
 def sharded_slot_step(mesh: ShardMesh, num_slots: int):
     """The mesh-sharded ERC-20 slot step (reference ``sharded_slot_step``):
     returns a function (slot_vals [S,16], from_slot, to_slot, amount16,
-    mask) -> (new_vals, ok), S = num_slots; devices and launch as
+    mask) -> (new_vals, ok), S = num_slots; devices, launch and ok as
     ``sharded_transfer_step`` (K8s's slot kernel on CUDA)."""
     n = mesh.n_shards
     if num_slots % n:
@@ -268,10 +315,10 @@ def sharded_slot_step(mesh: ShardMesh, num_slots: int):
 
     def step(slot_vals, from_slot, to_slot, amount16, mask):
         global SLOT_STEP_LAUNCHES
-        dev = mesh.device or torch.as_tensor(slot_vals).device
-        vals = _as_i32(slot_vals, dev)
-        cols = [_as_i32(x, dev) for x in (from_slot, to_slot, amount16,
-                                          mask)]
+        dev, di = _step_device(mesh, slot_vals)
+        vals = _table(slot_vals, dev, di)
+        cols = [_as_i32(x, dev, di) for x in (from_slot, to_slot, amount16,
+                                              mask)]
         S, B = vals.shape[0], cols[0].shape[0]
         if S != num_slots or vals.shape[1:] != (u256.LIMBS,):
             raise ValueError(f"sharded_slot_step: a table of {S} rows, "
@@ -279,17 +326,12 @@ def sharded_slot_step(mesh: ShardMesh, num_slots: int):
         _check_step("sharded_slot_step", n, S, B, "slot")
         if dev.type == "cpu":
             return sharded_slot_step_plain(vals, *cols, n)
-        i32 = dict(dtype=torch.int32, device=dev)
-        slabs = torch.empty((n, S, 2 * u256.LIMBS), **i32)
-        flags = torch.empty((n,), **i32)
         new_vals = torch.empty_like(vals)
-        ok = torch.empty((1,), **i32)
-        lib = kernels.load("sharded_step")
-        rc = lib.sharded_slot_step_launch(
-            n, vals.data_ptr(), *(c.data_ptr() for c in cols), S, B,
-            slabs.data_ptr(), flags.data_ptr(), new_vals.data_ptr(),
-            ok.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _launch("sharded_slot_step", rc, n)
+        ok = vals.new_empty((), dtype=torch.bool)
+        rc = kernels.load("sharded_step").sharded_slot_step_launch(
+            vals.data_ptr(), *(c.data_ptr() for c in cols), S, B,
+            new_vals.data_ptr(), ok.data_ptr(), _raw_stream(di))
+        kernels.check(rc, "sharded_slot_step")
         SLOT_STEP_LAUNCHES += 1
-        return new_vals, ok[0] != 0
+        return new_vals, ok
     return step

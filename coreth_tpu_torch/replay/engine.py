@@ -68,7 +68,7 @@ from coreth_tpu_torch.evm.precompiles import (
 )
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.ops import u256
-from coreth_tpu_torch.parallel.mesh import segment_sum
+from coreth_tpu_torch.parallel.mesh import gather_index, segment_sum
 from coreth_tpu_torch.parallel.shard import (
     account_bucket, contract_bucket, remap_rows,
 )
@@ -169,12 +169,13 @@ def txd_cols(txd):
 
 # ------------------------------------------------ plain transfer window
 # The plain PyTorch version of K1, in the reference's structure.  Index
-# semantics follow jnp: a gather clamps an out-of-range index, a segment
-# sum or scatter drops it; the engine only ever produces in-range local
+# semantics follow jnp: a gather wraps a negative index once and clamps
+# the result (``gather_index``), a segment sum or scatter drops an
+# out-of-range index; the engine only ever produces in-range local
 # indices, and pads global ids with ``capacity`` (gather 0, drop).
 
 def _gather(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return arr[idx.long().clamp(0, arr.shape[0] - 1)]
+    return arr[gather_index(idx, arr.shape[0])]
 
 
 def _transfer_step_plain(balances, nonces, sender_idx, recip_idx, value16,
@@ -717,8 +718,8 @@ class ReplayEngine:
     device sender recovery on the sharded ladder (K8r).  ``capacity``,
     ``slot_capacity`` and ``batch_pad`` must divide by n.  Machine
     windows run per shard in one cluster launch (K9, the reference's
-    default ``CORETH_SHARD_OCC=1``, ``evm/device/shard.py``) with the
-    flags reduce K9x behind each; ``shard_occ=False`` keeps the
+    default ``CORETH_SHARD_OCC=1``, ``evm/device/shard.py``), each with
+    its flags reduce inside; ``shard_occ=False`` keeps the
     single-chip window runner over the sharded tables instead
     (``CORETH_SHARD_OCC=0``).  ``exchange`` ("psum" or "ppermute", the
     reference's ``CORETH_EXCHANGE``) forces the exchanges' collective;

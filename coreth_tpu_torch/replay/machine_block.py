@@ -17,7 +17,7 @@ Two execution paths, chosen by the engine's ``device_occ``:
   previous one's tries fold.  A block the kernel marks dirty (a lane
   that escaped) goes to ``execute`` and ends the run.  On a mesh engine
   the windows run per shard (``evm/device/shard.ShardedWindowRunner``,
-  K9 and its flags reduce K9x; ``shard_occ=False`` keeps the single-card
+  K9 with its flags reduce inside; ``shard_occ=False`` keeps the single-card
   runner), and a window whose flags say clean lets the next one launch
   before its packed rows are fetched.
 - ``execute`` (``device_occ=False``, the reference's
@@ -532,7 +532,7 @@ class MachineBlockExecutor:
         engine with
         ``shard_occ`` (the reference's ``CORETH_SHARD_OCC=1``) it is the
         sharded runner (``evm/device/shard.py``: per-shard arenas and OCC
-        in one cluster launch, K9, with the flags reduce K9x); without
+        in one cluster launch, K9, with the flags reduce inside); without
         it, the single-card runner over the sharded tables."""
         e = self.e
         if (self._runner is None or self._runner_fork != self._fork
@@ -614,7 +614,7 @@ class MachineBlockExecutor:
         e = self.e
         consumed = 0
         for ci, chunk in enumerate(chunks):
-            # the sharded runner: fetch the window's flags (K9x) first; if
+            # the sharded runner: fetch the window's flags (K9's) first; if
             # every shard committed clean and the next window needs no
             # table rebuild, launch it BEFORE this window's packed rows
             # are fetched (the mirror still learns this window's writes

@@ -31,7 +31,9 @@ import torch
 
 from coreth_tpu_torch import kernels
 from coreth_tpu_torch.ops import u256
-from coreth_tpu_torch.parallel.mesh import MAX_SHARDS, collective_reduce_plain
+from coreth_tpu_torch.parallel.mesh import (
+    MAX_SHARDS, collective_reduce_plain, gather_index,
+)
 from coreth_tpu_torch.replay.engine import (
     ACCW, _gather_fetch, check_window_args,
 )
@@ -113,8 +115,8 @@ def _sharded_window_plain(balances, nonces, slot_vals, acct_rows, slot_rows,
         sdeb_p = _seg_sum(amounts * mask_i, txd[..., 54], SL)
         scred_p = _seg_sum(amounts * mask_i, txd[..., 55], SL)
         # nonce sequence on each shard's own lanes, against its
-        # replicated pre-block nonces (a jnp gather clamps)
-        expected = torch.gather(ln, 1, senders.long().clamp(0, L - 1)) \
+        # replicated pre-block nonces (a jnp gather: wrap, then clamp)
+        expected = torch.gather(ln, 1, gather_index(senders, L)) \
             + txd[..., 3]
         nonce_ok = torch.all(torch.where(mask, txd[..., 2] == expected,
                                          True), dim=1)

@@ -20,7 +20,8 @@ window's blocks:
   row init);
 - ``exec``: the rounds' exec phases, up to the barrier after them;
 - ``sweep``: the rounds' validation, up to the barrier after it;
-- ``writeback``: the trailing columns and the table write-back;
+- ``writeback``: the trailing columns and the table write-back (K9:
+  with the replica sync and the shards' flags of the block);
 
 with the rounds, and the ``ptxas`` lines (registers, spills, stack
 frame) of the uninstrumented libraries.  The split runs against the
@@ -169,10 +170,13 @@ def split(lib, pk, spec, n: int = 1, sync_rows=None) -> dict:
             pre = torch.empty((n, max(X, 1), 16), **i32)
             xc = torch.empty((2, n, max(X, 1)), **i32)
             xv = torch.empty((2, n, max(X, 1), 16), **i32)
+            W = pk["occ"].blocks
+            flags = torch.empty((2 * W * (n + 1),), **i32)
             rc = lib.occ_sharded_launch(
                 n, X, rows.data_ptr(), pre.data_ptr(), xc.data_ptr(),
-                xv.data_ptr(), *M.pointers(largs), stream)
+                xv.data_ptr(), flags.data_ptr(), *M.pointers(largs), stream)
             torch.cuda.synchronize()
+            out["flags"] = flags[:2 * W].view(W, 2)
         kernels.check(rc, "occ_window (instrumented)")
         return out
     launch()
@@ -184,7 +188,7 @@ def split(lib, pk, spec, n: int = 1, sync_rows=None) -> dict:
     kernels.check(lib.occ_prof_read(prof.ctypes.data), "occ_prof_read")
     want = (M.occ_run_plain(*args, spec) if n == 1 else
             M.occ_sharded_plain(*args, spec, n, sync_rows, "psum"))
-    for k in ("table", "packed", "steps"):
+    for k in ("table", "packed", "steps") + (("flags",) if n > 1 else ()):
         if not torch.equal(got[k], want[k]):
             raise AssertionError(f"occ_split: instrumented {k} differs from "
                                  "the plain version")

@@ -1,5 +1,6 @@
 """A host build of ``coreth_tpu_torch/csrc/occ_window.cu`` (K6, K7's
-variants, K9, K9x) and ``csrc/step_machine.cu`` (K5) for the CPU tests.
+variants, K9 with its flags epilogue) and ``csrc/step_machine.cu`` (K5)
+for the CPU tests.
 
 The kernel's device code is plain C++ once the CUDA spellings are
 shimmed: each CTA of the cluster is a host thread with one thread (the
@@ -45,6 +46,7 @@ static thread_local uint8_t* shim_smem = nullptr;
 inline void __syncthreads() {}
 inline void __syncwarp() {}
 inline int __syncthreads_or(int p) { return p; }
+inline int __syncthreads_and(int p) { return p; }
 inline bool __any_sync(unsigned, bool p) { return p; }
 inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
@@ -129,27 +131,16 @@ int cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*k)(P...),
   for (auto& t : cta) t.join();
   return 0;
 }
-template <class K, class... A>
-void host_grid(unsigned g, K k, A... args) {
-  gridDim = {g, 1, 1};
-  for (unsigned b = 0; b < g; ++b) {
-    blockIdx = {b, 0, 0};
-    k(args...);
-  }
-}
 """
 
 
 def host_source(src: str) -> str:
     """A kernel source (``occ_window.cu``, ``step_machine.cu``) for the
     host: each dynamic shared-memory buffer the launch's per-CTA buffer,
-    the K9x launch a loop over its grid."""
+    a plain ``<<<...>>>`` launch a call on one host thread."""
     src = src.replace("#include <cuda_runtime.h>", "")
     src = re.sub(r"extern __shared__ __align__\(16\) (\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)shim_smem;", src)
-    src = src.replace(
-        "shard_flags_kernel<<<W, 256, 0, (cudaStream_t)stream>>>(",
-        "host_grid(W, shard_flags_kernel, ")
     return re.sub(r"<<<[^>]*>>>", "", src)
 
 

@@ -32,13 +32,13 @@ def cuda():
 
 @pytest.mark.parametrize("seed,case", [
     (0, "random"), (1, "random"), (2, "hot"), (3, "pad_rows"), (4, "wrap"),
-    (5, "untouched")])
+    (5, "untouched"), (6, "negative")])
 def test_transfer_window_kernel_matches_plain(cuda, seed, case):
     """K1 (phases blocks, rows, fetch) against its plain version on random
     windows and on the shapes of ``chip_smoke.shaped_window``: one
     recipient and slot a block, out-of-range pad rows and coinbase,
     wrapping totals with blocks on top of a failed one, fetched rows a
-    block does not touch."""
+    block does not touch, negative sender and fetch indices (wrapped)."""
     from coreth_tpu_torch.replay import engine as E
     rng = np.random.default_rng(seed)
     kw = dict(cap=512, scap=64, n_acct=200, n_slot=10, L=256, SL=16,
@@ -116,16 +116,17 @@ def _k8_params():
     out = [pytest.param(n, m, "random", id=f"{n}-{m}")
            for m in ("psum", "ppermute") for n in (2, 4, 8)]
     return out + [pytest.param(n, m, c, id=f"{c}-{m}-{n}")
-                  for c in ("hot", "pad_rows") for m in ("psum", "ppermute")
-                  for n in (2, 4, 8)]
+                  for c in ("hot", "pad_rows", "negative")
+                  for m in ("psum", "ppermute") for n in (2, 4, 8)]
 
 
 @pytest.mark.parametrize("n,mode,case", _k8_params())
 def test_sharded_window_kernel_matches_plain(cuda, n, mode, case):
     """K8 (one cluster of n CTAs) against its plain version on a window
     with an insolvent and a nonce-mismatch block ("random"), with every
-    lane of a block paying one recipient and one token slot ("hot"), and
-    with out-of-range pad rows and coinbase ("pad_rows"): tables, fetches
+    lane of a block paying one recipient and one token slot ("hot"), with
+    out-of-range pad rows and coinbase ("pad_rows"), and with a sender and
+    fetch indices below zero ("negative"): tables, fetches
     and every shard's working set equal, the n working sets equal; the
     same with the slabs in device memory (the layout of a pad too wide
     for shared memory)."""
@@ -510,34 +511,46 @@ def test_occ_sharded_kernel_matches_plain(cuda, n, mode, sync, spec):
     got = M.run_occ_sharded(w["p"], w["occ"], w["table"], w["key_tab"],
                             w["inputs"], w["spec"], n, w["sync_rows"], mode)
     assert M.OCC_SHARDED_LAUNCHES == launches + 1
-    for k in ("table", "packed", "steps"):
+    for k in ("table", "packed", "steps", "flags"):
         assert torch.equal(got[k].cpu(), want[k]), k
 
 
 @pytest.mark.parametrize("mode", ["psum", "ppermute"])
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_shard_flags_kernel_matches_plain(cuda, n, mode):
-    """K9x against its plain version on a K9 window's rows, and on random
-    flag columns (escapes and pending lanes, inactive lanes)."""
+    """K9's flags epilogue (the reference's K9x) against its plain
+    version: on a K9 window with the sync set, and on a window whose
+    block 0 has shards with escaping lanes (``host_and_miss``) and with
+    lanes still pending when its 3 rounds run out (``raw_chain``)."""
     from coreth_tpu_torch.evm.device import machine as M
     w, want = _sharded_case(cuda, n, True, False)
-    rng = np.random.default_rng(n)
-    packed = torch.from_numpy(rng.integers(
-        0, 2, (6, n * 16, 9)).astype(np.int32)).to(cuda)
-    active = torch.from_numpy(rng.integers(
-        0, 2, (6, n * 16)).astype(np.int32)).to(cuda)
-    for pk, act in ((want["packed"].to(cuda), w["inputs"]["active"]),
-                    (packed, active)):
-        launches = M.SHARD_FLAGS_LAUNCHES
-        got = M.shard_flags(pk, act, n, mode)
-        assert M.SHARD_FLAGS_LAUNCHES == launches + 1
-        assert torch.equal(got.cpu(), M.shard_flags_plain(
-            pk.cpu(), act.cpu(), n, mode))
+    dirty = C.sharded_window(n, False, names=[
+        "host_and_miss", "raw_chain", "disjoint", "chained_blocks"])
+    dirty["occ"] = M.OccParams(blocks=dirty["occ"].blocks,
+                               table_cap=dirty["occ"].table_cap, rounds=3)
+    dwant = M.occ_sharded_plain(dirty["p"], dirty["occ"], dirty["table"],
+                                dirty["key_tab"], dirty["inputs"],
+                                dirty["spec"], n, None, mode)
+    assert dwant["flags"][0].tolist() != [n, 0]
+    for case, plain in ((w, want), (dirty, dwant)):
+        launches, fills = M.OCC_SHARDED_LAUNCHES, M.FLAGS_FILL_LAUNCHES
+        got = M.run_occ_sharded(
+            case["p"], case["occ"], case["table"].to(cuda),
+            case["key_tab"].to(cuda),
+            {k: v.to(cuda) for k, v in case["inputs"].items()},
+            case["spec"], n, None if case["sync_rows"] is None
+            else case["sync_rows"].to(cuda), mode)
+        assert M.OCC_SHARDED_LAUNCHES == launches + 1
+        assert M.FLAGS_FILL_LAUNCHES == fills
+        assert torch.equal(got["packed"].cpu(), plain["packed"])
+        assert torch.equal(got["flags"].cpu(), M.shard_flags_plain(
+            plain["packed"], case["inputs"]["active"].cpu(), n, mode))
+        assert torch.equal(got["flags"].cpu(), plain["flags"])
 
 
 def test_hot_contract_replay_on_a_4_shard_engine(cuda):
     """The single-hot-contract chain on a 4-shard engine: the token goes
-    hot, every machine window runs on K9 with K9x behind it, the
+    hot, every machine window runs on K9 (its flags reduce inside), the
     single-chip K6/K7 never; the root equals the header."""
     from coreth_tpu_torch.evm.device import machine as M
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
@@ -552,8 +565,7 @@ def test_hot_contract_replay_on_a_4_shard_engine(cuda):
     eng = ReplayEngine(CFG, store, parent_header=gb.header, batch_pad=32,
                        capacity=1024, window=16, device=cuda,
                        mesh=make_mesh(4), token_fastpath=False)
-    k6, k9, k9x = M.OCC_LAUNCHES, M.OCC_SHARDED_LAUNCHES, \
-        M.SHARD_FLAGS_LAUNCHES
+    k6, k9 = M.OCC_LAUNCHES, M.OCC_SHARDED_LAUNCHES
     root = eng.replay([Block.decode(b.encode()) for b in blocks])
     eng.close()
     assert root == blocks[-1].header.root
@@ -562,16 +574,18 @@ def test_hot_contract_replay_on_a_4_shard_engine(cuda):
     assert mc["kr_lanes"] > 0 and eng.stats.load_imbalance > 0
     assert M.OCC_SHARDED_LAUNCHES - k9 == mc["window_launches"] \
         >= mc["windows"] >= 1
-    assert M.SHARD_FLAGS_LAUNCHES - k9x == mc["window_launches"]
     assert M.OCC_LAUNCHES == k6
 
 
 # ------------------------------------------------------------------ K8s
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
-@pytest.mark.parametrize("case", ["ok", "insolvent", "bad_nonce"])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "bad_nonce",
+                                  "same_sender", "all_masked", "negative"])
 def test_sharded_steps_match_plain(cuda, n, case):
-    """K8s's two kernels against their plain versions: tables and ok
-    equal; an insolvent sender and slot, or a nonce off, clear ok."""
+    """K8s's two kernels (the same launch at every n) against their plain
+    versions: tables and ok equal; an insolvent sender and slot, or a
+    nonce off, clear ok; ``chip_smoke.k8s_shaped``'s one sender paying
+    the coinbase, every tx masked, and sender -2 (wrapped) keep it."""
     from coreth_tpu_torch import parallel as P
     from coreth_tpu_torch.parallel import mesh as PM
     rng = np.random.default_rng(n)
@@ -586,6 +600,9 @@ def test_sharded_steps_match_plain(cuda, n, case):
         s_np[3][0, 0] += 1
     elif case == "bad_nonce":
         t_np[7][3] += 1
+    elif case != "ok":
+        t_np, coinbase, s_np = chip_smoke.k8s_shaped(t_np, coinbase, s_np,
+                                                     case)
     targs = [torch.from_numpy(a).to(cuda) for a in t_np] + [coinbase]
     sargs = [torch.from_numpy(a).to(cuda) for a in s_np]
     mesh = P.make_mesh(n)
@@ -598,7 +615,7 @@ def test_sharded_steps_match_plain(cuda, n, case):
     want_s = P.sharded_slot_step_plain(*sargs, n)
     for g, w in zip(got_t + got_s, want_t + want_s):
         assert torch.equal(g, w)
-    assert bool(got_t[2]) == (case == "ok")
+    assert bool(got_t[2]) == (case not in ("insolvent", "bad_nonce"))
     assert bool(got_s[1]) == (case != "insolvent")
 
 

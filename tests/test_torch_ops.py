@@ -95,13 +95,16 @@ def test_transfer_window_plain_matches_jax(seed):
     assert not np.array_equal(got[2].numpy(), win[2])
 
 
-@pytest.mark.parametrize("case", ["hot", "pad_rows", "wrap", "untouched"])
+@pytest.mark.parametrize("case", ["hot", "pad_rows", "wrap", "untouched",
+                                  "negative"])
 def test_transfer_window_plain_matches_jax_on_shaped_windows(case):
     """The windows the kernels' row-parallel walk could get wrong
     (``chip_smoke.shaped_window``): one recipient and slot a block, out
     of range pad rows and coinbase, required totals and balances that
     wrap past 2^256 with blocks on top of a failed one, fetched rows a
-    block does not touch."""
+    block does not touch, negative sender and fetch indices (a jnp
+    gather wraps -2 to the second-last row: block 0's nonce check
+    passes on it)."""
     win = chip_smoke.shaped_window(
         np.random.default_rng(40), case, 8, 32, 24, cap=512, scap=64,
         n_acct=200, n_slot=10, L=256, SL=16, t_pad=64, s_pad=16)

@@ -7,8 +7,9 @@ mesh; the port's (``coreth_tpu_torch.parallel``) run their plain
 versions on CPU tensors.  Both get the same inputs, made from a seed with
 numpy, at n = 2, 4 and 8, and their integer results must be equal
 exactly.  ``csrc/sharded_step.cu`` has no CPU mode, so a host build of
-it (g++, each CTA of the cluster a host thread, as tests/test_torch_shard.py
-builds K8) is held against the plain versions too.  The mixed
+it (g++, each CTA of the launch a host thread of one thread, as
+tests/test_torch_shard.py builds K1) is held against the plain versions
+too.  The mixed
 transfer+token chain of tests/test_parallel.py:111 replays on both
 packages' mesh engines at their defaults (the token fast path on).
 Mirrors tests/test_parallel.py.
@@ -38,6 +39,7 @@ from coreth_tpu_torch import kernels
 from coreth_tpu_torch import parallel as tpar
 from coreth_tpu_torch.ops import u256
 
+import chip_smoke
 from test_torch_shard import _SHIM
 from test_torch_shard_occ import _reference_cache  # noqa: F401 — autouse
 from test_torch_token import (
@@ -105,6 +107,28 @@ def slot_inputs(seed, S, B, case="ok"):
             mask)
 
 
+def transfer_case(seed, A, B, case):
+    """``transfer_inputs`` of ``case``, or one of
+    ``chip_smoke.K8S_SHAPES`` made from its "ok" inputs."""
+    if case not in chip_smoke.K8S_SHAPES:
+        return transfer_inputs(seed, A, B, case)
+    args = transfer_inputs(seed, A, B)
+    t, cb, _s = chip_smoke.k8s_shaped(args[:10], args[10],
+                                      slot_inputs(seed, A, B), case)
+    return tuple(t) + (cb,)
+
+
+def slot_case(seed, S, B, case):
+    """``slot_inputs`` of ``case``, or one of ``chip_smoke.K8S_SHAPES``
+    made from its "ok" inputs."""
+    if case not in chip_smoke.K8S_SHAPES:
+        return slot_inputs(seed, S, B, case)
+    args = transfer_inputs(seed, S, B)
+    _t, _cb, s = chip_smoke.k8s_shaped(args[:10], args[10],
+                                       slot_inputs(seed, S, B), case)
+    return tuple(s)
+
+
 def _ref(fn, args):
     return [np.asarray(x) for x in fn(*(
         jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in args))]
@@ -125,12 +149,16 @@ def _equal(got, want):
 
 # ----------------------------------------------- K8s's plain versions
 @pytest.mark.parametrize("n", WIDTHS)
-@pytest.mark.parametrize("case", ["ok", "insolvent", "masked"])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "masked",
+                                  "same_sender", "all_masked", "negative"])
 def test_sharded_transfer_step_matches_reference(n, case):
     """tests/test_parallel.py:18 at its shapes (A = 64, B = 32), with an
-    insolvent sender and masked rows beside it."""
+    insolvent sender and masked rows beside it, and the shapes of
+    ``chip_smoke.k8s_shaped``: every tx from one sender to the coinbase,
+    every tx masked, an unmasked sender -2 (the reference's gather wraps
+    it to row A - 2, whose nonce the tx carries)."""
     A, B = 64, 32
-    args = transfer_inputs(42, A, B, case)
+    args = transfer_case(42, A, B, case)
     want = _ref(r_transfer_step(_rmesh(n), A), args)
     got = _port(tpar.sharded_transfer_step(tpar.make_mesh(n), A), args)
     _equal(got, want)
@@ -159,11 +187,13 @@ def test_sharded_step_detects_bad_nonce(n):
 
 
 @pytest.mark.parametrize("n", WIDTHS)
-@pytest.mark.parametrize("case", ["ok", "insolvent", "masked"])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "masked",
+                                  "same_sender", "all_masked"])
 def test_sharded_slot_step_matches_reference(n, case):
-    """tests/test_parallel.py:82 at its shapes (S = 64, B = 32)."""
+    """tests/test_parallel.py:82 at its shapes (S = 64, B = 32), and
+    every tx from one slot to one slot, or every tx masked."""
     S, B = 64, 32
-    args = slot_inputs(11, S, B, case)
+    args = slot_case(11, S, B, case)
     want = _ref(r_slot_step(_rmesh(n), S), args)
     got = _port(tpar.sharded_slot_step(tpar.make_mesh(n), S), args)
     _equal(got, want)
@@ -192,8 +222,8 @@ def test_sharded_steps_refuse_bad_shapes():
 @pytest.fixture(scope="module")
 def host_k8s(tmp_path_factory):
     """``csrc/sharded_step.cu`` built for the host: one thread per CTA
-    (every stride loop runs serially), each CTA of the cluster a host
-    thread, the cluster barrier a ``std::barrier``."""
+    (every stride loop runs serially, a warp's shuffles none), each CTA
+    of the launch a host thread with its own shared memory."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -203,9 +233,9 @@ def host_k8s(tmp_path_factory):
     with open(os.path.join(kernels.CSRC, kernels.SOURCES["sharded_step"])) \
             as f:
         src = f.read()
-    for inc in ("#include <cuda_runtime.h>",
-                "#include <cooperative_groups.h>"):
-        src = src.replace(inc, "")
+    src = src.replace("#include <cuda_runtime.h>", "").replace(
+        "extern __shared__ __align__(16) unsigned ss_smem[];",
+        "unsigned* ss_smem = (unsigned*)shim_smem;")
     (tmp / "sharded_step.cpp").write_text(_SHIM + src)
     out = tmp / "libsharded_step.so"
     r = subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-I",
@@ -218,44 +248,68 @@ def host_k8s(tmp_path_factory):
     return lib
 
 
-def _z(*shape):
-    return torch.zeros(shape, dtype=torch.int32)
-
-
-@pytest.mark.parametrize("n", [1, 2, 4, 8])
-@pytest.mark.parametrize("case", ["ok", "insolvent", "bad_nonce", "masked"])
-def test_host_build_of_k8s_transfer_matches_plain(host_k8s, n, case):
-    A, B = 64, 32
-    args = [torch.from_numpy(a).to(torch.int32).contiguous()
-            if isinstance(a, np.ndarray) else a
-            for a in transfer_inputs(7 + n, A, B, case)]
-    want = tpar.sharded_transfer_step_plain(*args, n)
-    new_bal, new_non, ok = _z(A, 16), _z(A), _z(1)
-    slabs, flags = _z(n, A, 49), _z(n)
-    rc = host_k8s.sharded_transfer_step_launch(
-        n, *(t.data_ptr() for t in args[:10]), args[10], A, B,
-        slabs.data_ptr(), flags.data_ptr(), new_bal.data_ptr(),
-        new_non.data_ptr(), ok.data_ptr(), None)
+def _run_host_transfer(lib, args):
+    A, B = args[0].shape[0], args[2].shape[0]
+    new_bal, new_non = torch.zeros((A, 16), dtype=torch.int32), \
+        torch.zeros((A,), dtype=torch.int32)
+    ok = torch.zeros((), dtype=torch.bool)
+    rc = lib.sharded_transfer_step_launch(
+        *(t.data_ptr() for t in args[:10]), args[10], A, B,
+        new_bal.data_ptr(), new_non.data_ptr(), ok.data_ptr(), None)
     assert rc == 0
-    assert torch.equal(new_bal, want[0]) and torch.equal(new_non, want[1])
-    assert bool(ok[0]) == bool(want[2])
+    return new_bal, new_non, ok
+
+
+def _i32(args):
+    return [torch.from_numpy(np.asarray(a)).to(torch.int32).contiguous()
+            if isinstance(a, np.ndarray) else a for a in args]
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
-@pytest.mark.parametrize("case", ["ok", "insolvent", "masked"])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "bad_nonce", "masked",
+                                  "same_sender", "all_masked", "negative"])
+def test_host_build_of_k8s_transfer_matches_plain(host_k8s, n, case):
+    """K8s's transfer kernel (a CTA a range of 16 rows: four CTAs) equal
+    to the plain version at width n: balances, nonces and ok, on
+    ``transfer_inputs``' cases and ``chip_smoke.k8s_shaped``'s."""
+    A, B = 64, 32
+    args = _i32(transfer_case(7 + n, A, B, case))
+    want = tpar.sharded_transfer_step_plain(*args, n)
+    got = _run_host_transfer(host_k8s, args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[2]) == (case not in ("insolvent", "bad_nonce"))
+
+
+def test_host_build_of_k8s_transfer_in_chunks(host_k8s):
+    """B = 2048 txs (the kernel lists 1024 at a time) over A = 256 rows
+    (16 CTAs), one sender in eight insolvent: equal to the plain
+    version."""
+    A, B = 256, 2048
+    args = _i32(transfer_inputs(5, A, B, "insolvent"))
+    want = tpar.sharded_transfer_step_plain(*args, 4)
+    got = _run_host_transfer(host_k8s, args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[2])
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", ["ok", "insolvent", "masked",
+                                  "same_sender", "all_masked"])
 def test_host_build_of_k8s_slot_matches_plain(host_k8s, n, case):
     S, B = 64, 32
-    args = [torch.from_numpy(a).to(torch.int32).contiguous()
-            for a in slot_inputs(3 + n, S, B, case)]
+    args = _i32(slot_case(3 + n, S, B, case))
     want = tpar.sharded_slot_step_plain(*args, n)
-    new_vals, ok = _z(S, 16), _z(1)
-    slabs, flags = _z(n, S, 32), _z(n)
+    new_vals, ok = torch.zeros((S, 16), dtype=torch.int32), \
+        torch.zeros((), dtype=torch.bool)
     rc = host_k8s.sharded_slot_step_launch(
-        n, *(t.data_ptr() for t in args), S, B, slabs.data_ptr(),
-        flags.data_ptr(), new_vals.data_ptr(), ok.data_ptr(), None)
+        *(t.data_ptr() for t in args), S, B, new_vals.data_ptr(),
+        ok.data_ptr(), None)
     assert rc == 0
     assert torch.equal(new_vals, want[0])
-    assert bool(ok[0]) == bool(want[1])
+    assert torch.equal(ok, want[1])
+    assert bool(ok) == (case != "insolvent")
 
 
 # ------------------------------------------- the mesh engine, end to end

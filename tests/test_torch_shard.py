@@ -127,9 +127,12 @@ def _window(seed, K=6, pad=32, B=24, cap=512, scap=64):
 def _reference_params():
     out = [pytest.param(n, m, "random", id=f"{n}-{m}")
            for n in (2, 4) for m in ("psum", "ppermute")]
-    return out + [pytest.param(n, m, case, id=f"{case}-{n}-{m}")
-                  for case in ("hot", "pad_rows") for n in (2, 4)
-                  for m in ("psum", "ppermute")]
+    out += [pytest.param(n, m, case, id=f"{case}-{n}-{m}")
+            for case in ("hot", "pad_rows") for n in (2, 4)
+            for m in ("psum", "ppermute")]
+    return out + [pytest.param(2, "psum", "negative", id="negative-2-psum"),
+                  pytest.param(4, "ppermute", "negative",
+                               id="negative-4-ppermute")]
 
 
 def _shaped(case, seed):
@@ -148,7 +151,8 @@ def test_sharded_window_plain_matches_reference(n, mode, case):
     the fetches also equal K1's plain version on the un-sharded window.
     "hot": every lane of a block pays one recipient and one token slot;
     "pad_rows": the pad lanes' rows and one coinbase out of range (the
-    windows of K8's host-build and card cases)."""
+    windows of K8's host-build and card cases); "negative": a sender
+    and fetch indices below zero, which the reference's gathers wrap."""
     win = _shaped(case, 100 + n)
     bal, non, sv, rows, srows, txds, ti, si = win
     perm = tshard.interleave_txs(txds.shape[1], n)
@@ -201,6 +205,7 @@ static thread_local Dim3Shim threadIdx = {0, 0, 0}, blockIdx = {0, 0, 0};
 static Dim3Shim blockDim = {1, 1, 1}, gridDim = {1, 1, 1};
 inline void __syncthreads() {}
 inline void __syncwarp() {}
+inline int __syncthreads_or(int p) { return p; }
 template <class T> T atomicAdd(T* p, T v) { T o = *p; *p = o + v; return o; }
 template <class T> T atomicExch(T* p, T v) { T o = *p; *p = v; return o; }
 template <class T> T atomicCAS(T* p, T c, T v) {
@@ -274,11 +279,15 @@ inline int cudaOccupancyMaxActiveClusters(int* n, const void*,
   *n = 1;
   return 0;
 }
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
-inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 232448;  // an H100's opt-in shared memory a block
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  // an H100's SMs, and its opt-in shared memory a block
+  *v = a == cudaDevAttrMultiProcessorCount ? 132 : 232448;
   return 0;
 }
 template <class K> int cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
@@ -387,7 +396,8 @@ def _k8_params():
     for case in ("hot", "pad_rows"):
         out += [pytest.param(n, m, case, id=f"{case}-{n}-{m}")
                 for n in (2, 4, 8) for m in ("psum", "ppermute")]
-    return out
+    return out + [pytest.param(n, m, "negative", id=f"negative-{n}-{m}")
+                  for n, m in ((2, "psum"), (8, "ppermute"))]
 
 
 @pytest.mark.parametrize("n,mode,case", _k8_params())
@@ -396,7 +406,7 @@ def test_host_build_of_k8_matches_plain(host_kernels, n, mode, case):
     the shimmed DSMEM) equal to the plain version: tables, fetches and
     every shard's working set.  "hot": every lane of a block pays one
     recipient and one token slot; "pad_rows": out-of-range pad rows and
-    coinbase."""
+    coinbase; "negative": a sender and fetch indices below zero."""
     args = _k8_case(case, n)
     got, reps = _run_host_k8(host_kernels["sharded_window"], args, n, mode)
     want = tshard._sharded_window_plain(*args, n, mode,
@@ -463,7 +473,7 @@ def _run_host_k1(lib, args, layout):
 
 @pytest.mark.parametrize("layout", [1, 0])
 @pytest.mark.parametrize("case", ["random", "hot", "pad_rows", "wrap",
-                                  "untouched"])
+                                  "untouched", "negative"])
 def test_host_build_of_k1_matches_plain(host_kernels, case, layout):
     """K1's row-parallel walk (phase (a) a CTA a block, (b) a thread a
     row, (c) the fetch rows; each launch's CTAs host threads) equal to

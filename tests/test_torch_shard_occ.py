@@ -3,8 +3,9 @@
 The reference runs its shards on the virtual 8-device CPU mesh of
 ``tests/conftest.py``; the port runs the plain versions of K9 (the
 per-shard fused OCC window with the key-range replica sync,
-``machine.occ_sharded_plain``) and K9x (the flags reduce,
-``machine.shard_flags_plain``) through ``ShardedWindowRunner``
+``machine.occ_sharded_plain``) and of the flags reduce (the reference's
+K9x, K9's epilogue in the port: ``machine.shard_flags_plain``) through
+``ShardedWindowRunner``
 (``evm/device/shard.py``) with ``device="cpu"``.  Every compared value
 is an integer or a hash: tolerance 0.  Mirrors tests/test_shard_replay.py
 (:147, :189, :208, :299, :448-554) at its small sizes (capacity 256,
@@ -154,6 +155,7 @@ def test_occ_sharded_plain_matches_reference(n, sync, mode):
     want = rshard.get_shard_exchange(_rmesh(n), mode)(
         jnp.asarray(jp), jnp.asarray(w["inputs"]["active"].numpy() != 0))
     assert np.array_equal(flags.numpy(), np.asarray(want))
+    assert torch.equal(got["flags"], flags)
     if sync:
         # the copies of each key agree after the window
         rows, G = w["sync_rows"].numpy(), w["occ"].table_cap
@@ -194,16 +196,19 @@ def test_sharded_wrappers_refuse_bad_shapes():
     with pytest.raises(ValueError, match="sync_rows"):
         tM.run_occ_sharded(*args, (), 2, w["sync_rows"][:, :2], "psum")
     with pytest.raises(ValueError):
-        tM.shard_flags(torch.zeros((4, 6, 10), dtype=torch.int32),
-                       torch.zeros((4, 6), dtype=torch.int32), 4)
+        tM.shard_flags_plain(torch.zeros((4, 6, 10), dtype=torch.int32),
+                             torch.zeros((4, 6), dtype=torch.int32), 4)
+    with pytest.raises(ValueError):
+        tM.shard_flags_plain(torch.zeros((4, 8, 10), dtype=torch.int32),
+                             torch.zeros((4, 6), dtype=torch.int32), 4)
 
 
 # ------------------------------------------------------ host build of K9
 @pytest.fixture(scope="module")
 def host_k9(tmp_path_factory):
-    """K6, K9 and K9x of ``csrc/occ_window.cu`` built for the host
-    (``tests/occ_host_build.py``), each CTA of the launch's cluster a
-    host thread."""
+    """K6 and K9 (with its flags epilogue) of ``csrc/occ_window.cu``
+    built for the host (``tests/occ_host_build.py``), each CTA of the
+    launch's cluster a host thread."""
     if H.gxx() is None:
         pytest.skip("needs g++")
     tmp = tmp_path_factory.mktemp("host_k9")
@@ -223,26 +228,24 @@ def _run_host_k9(lib, w, mode):
     pre = torch.zeros((n, max(X, 1), 16), dtype=torch.int32)
     xc = torch.zeros((2, n, max(X, 1)), dtype=torch.int32)
     xv = torch.zeros((2, n, max(X, 1), 16), dtype=torch.int32)
+    W = w["occ"].blocks
+    # the window's (W, 2) flags, then the kernel's (W, n, 2) slot; -7
+    # where nothing was written
+    flags = torch.full((2 * W * (n + 1),), -7, dtype=torch.int32)
     rc = lib.occ_sharded_launch(n, X, rows.data_ptr(), pre.data_ptr(),
                                 xc.data_ptr(), xv.data_ptr(),
-                                *tM.pointers(args), None)
+                                flags.data_ptr(), *tM.pointers(args), None)
     assert rc == 0
-    flags = torch.zeros((w["occ"].blocks, 2), dtype=torch.int32)
-    packed, active = out["packed"], w["inputs"]["active"].to(torch.int32)
-    rc = lib.shard_flags_launch(packed.data_ptr(), active.data_ptr(),
-                                packed.shape[0], packed.shape[1],
-                                w["p"].batch, packed.shape[2],
-                                flags.data_ptr(), None)
-    assert rc == 0
-    return out, flags
+    return out, flags[:2 * W].view(W, 2)
 
 
 @pytest.mark.parametrize("sync,mode", [(False, "psum"), (True, "psum"),
                                        (True, "ppermute")])
 def test_host_build_of_k9_matches_plain(host_k9, sync, mode):
-    """K9 (two CTAs of one cluster, with and without the sync set) and
-    K9x from the CUDA source, built for the host, against the plain
-    versions: table, packed rows, lane-steps and flags equal."""
+    """K9 (two CTAs of one cluster, with and without the sync set) with
+    its flags epilogue from the CUDA source, built for the host, against
+    the plain versions: table, packed rows, lane-steps and the flags
+    (``shard_flags_plain`` of the packed rows) equal."""
     w = C.sharded_window(2, sync, seed=7)
     got, flags = _run_host_k9(host_k9, w, mode)
     want = _plain(w, mode)
@@ -250,6 +253,50 @@ def test_host_build_of_k9_matches_plain(host_k9, sync, mode):
         assert torch.equal(got[k], want[k]), k
     assert torch.equal(flags, tM.shard_flags_plain(
         want["packed"], w["inputs"]["active"], 2, mode))
+    assert torch.equal(flags, want["flags"])
+
+
+def test_host_build_of_k9_flags_of_a_dirty_window(host_k9):
+    """K9's flags epilogue on a window of four shards whose block 0 is
+    not clean: shard 0 has escaping lanes (``host_and_miss``), shard 1
+    lanes still pending when the rounds run out (``raw_chain`` at 3 of
+    its 6 rounds), shards 2 and 3 commit; so block 0's flags are (2, 2),
+    not (4, 0).  Equal to ``shard_flags_plain`` and to the plain
+    version's."""
+    w = C.sharded_window(4, False, names=["host_and_miss", "raw_chain",
+                                          "disjoint", "chained_blocks"])
+    w["occ"] = tM.OccParams(blocks=w["occ"].blocks,
+                            table_cap=w["occ"].table_cap, rounds=3)
+    got, flags = _run_host_k9(host_k9, w, "psum")
+    want = _plain(w, "psum")
+    for k in ("table", "packed", "steps"):
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(flags, want["flags"])
+    assert flags[0].tolist() == [2, 2]
+    assert flags[1:].tolist() == [[4, 0]] * (w["occ"].blocks - 1)
+
+
+def test_host_build_of_k9_flags_without_lanes(host_k9):
+    """A window whose blocks have no lane (dims' batch 0) launches no
+    K9, and its flags are still ``shard_flags_plain``'s: every shard
+    clean."""
+    w = C.sharded_window(2, False)
+    args, _out = tM.occ_launch_args(w["p"], w["occ"], w["table"],
+                                    w["key_tab"], w["inputs"], 2)
+    dims = next(a for a in args if isinstance(a, np.ndarray))
+    dims[0] = 0
+    W = w["occ"].blocks
+    flags = torch.full((2 * W * 3,), -7, dtype=torch.int32)
+    z = torch.zeros((1,), dtype=torch.int32)
+    rc = host_k9.occ_sharded_launch(2, 0, z.data_ptr(), z.data_ptr(),
+                                    z.data_ptr(), z.data_ptr(),
+                                    flags.data_ptr(), *tM.pointers(args),
+                                    None)
+    assert rc == 0
+    want = tM.shard_flags_plain(torch.zeros((W, 0, 8), dtype=torch.int32),
+                                torch.zeros((W, 0), dtype=torch.int32), 2)
+    assert torch.equal(flags[:2 * W].view(W, 2), want)
+    assert want.tolist() == [[2, 0]] * W
 
 
 def test_host_build_of_k9_runs_k6_unchanged(host_k9):
@@ -455,6 +502,10 @@ def test_machine_chains_match_reference(monkeypatch, kind, n):
     runner = port._machine._runner
     assert isinstance(runner, tshard.ShardedWindowRunner) == (n is not None)
     assert port._machine.blocks == ref._machine.blocks > 0
+    if n is not None:
+        last = runner.last_handle
+        assert torch.equal(last["ex"], tM.shard_flags_plain(
+            last["out"]["packed"], last["active"], n, last["xchg_mode"]))
 
 
 def test_sharded_runner_vs_single_chip_runner(monkeypatch):

@@ -12,8 +12,11 @@ a directory that ``.gitignore`` lists) as BASE:
 With ``--kernels`` each child only times the window kernels on phase
 k6's window (a) (the chain's first 8 blocks x 256 lanes), in CUDA events
 over 20 launches after one, three times: K6 generic, K6+K7 (every lane
-traced) and K9 at n = 4 with key-range placement and K7 (``kernels``
-lines), in the order BASE, this, this, BASE; nothing else runs.
+traced), K9 at n = 4 with key-range placement and K7, and K9 with its
+window's flags (``k9_flags_n4``: in a tree whose flags reduce is a
+launch of its own, ``machine.shard_flags``, K9 and that launch; else K9
+alone, which holds it) (``kernels`` lines), in the order BASE, this,
+this, BASE; nothing else runs.
 
 Each run is a child process that imports the ``chip_smoke.py`` and the
 ``coreth_tpu_torch`` of its checkout (so each runs its own kernels,
@@ -122,6 +125,13 @@ def child_kernels(tree: str) -> int:
              "k9_n4": lambda: M.run_occ_sharded(
                  k9["p"], k9["occ"], k9["table"], k9["key_tab"],
                  k9["inputs"], k9["spec"], 4, k9["sync_rows"], "psum")}
+    calls["k9_flags_n4"] = calls["k9_n4"]
+    if hasattr(M, "shard_flags"):
+        def k9_flags():
+            out = calls["k9_n4"]()
+            return M.shard_flags(out["packed"], k9["inputs"]["active"], 4,
+                                 "psum")
+        calls["k9_flags_n4"] = k9_flags
     row = {"phase": "kernels", "card": smi}
     for name, fn in calls.items():
         runs = [CS.cuda_ms(fn, reps=20, warmup=1) for _ in range(3)]
@@ -255,7 +265,7 @@ def main() -> int:
             for row in _child("kernels", trees[who], out_dir):
                 print(json.dumps({"run": who, "place": place, **row}),
                       flush=True)
-                for k in ("k6", "k6_k7", "k9_n4"):
+                for k in ("k6", "k6_k7", "k9_n4", "k9_flags_n4"):
                     summary.setdefault(f"{who}_{k}", []).append(row[k])
         print(json.dumps(summary), flush=True)
         return 0
