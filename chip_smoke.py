@@ -35,10 +35,16 @@ Phases, each printing one JSON line:
    kernels' launch counters must rise during the replay;
 6. k3     — the keccak-256 launch entry against its plain version on 4096
    messages of 0..271 bytes plus the 135/136-byte padding edges
-   (tolerance 0), and against the native C++ ``coreth_keccak256``;
+   (tolerance 0), and against the native C++ ``coreth_keccak256``; ms
+   around the wrapper and the kernel's device ms (``torch.profiler``);
 7. k4     — the 256-bit ALU launch entry, every op, against its plain
    version on 4096 random operand rows plus every pair of edge operands
-   (0, 1, 2^255, 2^256 - 1 = -1 signed, shift edges): tolerance 0;
+   (0, 1, 2^255, 2^256 - 1 = -1 signed, shift edges), the division
+   family also on ``division_operands`` (its rare paths): tolerance 0;
+   per op the wrapper's ms, the kernel's device ms, the wrapper's host
+   ms and the bound of the op's least work (``alu_ops``: word-wise
+   division's digit products, squarings' halves; ``alu_bytes``: the
+   rows the op reads and writes); the entry's bound is their sum;
 8. k5     — the step machine at main-path shapes (batch 256): ERC-20
    ``transfer()`` lanes with the storage cache seeded and unseeded (miss
    rows), lanes that REVERT (insufficient balance), run out of gas, hit
@@ -89,6 +95,8 @@ Phases, each printing one JSON line:
    whose storage cache fills (HOST) and lanes out of gas at the first
    lumped flush; per-launch ms, device ms, bound, plain ms; window (a)'s
    split, group and barriers as in phase k6 (its variant instrumented);
+   then a ``ptxas`` line: registers, stack frame and spill bytes of the
+   K4 and K3 entries, K5, generic K6 and window (a)'s variant;
 12. window, spec — the same ERC-20 chain through ``ReplayEngine(device=
    "cuda", device_occ=True)`` four times, in the order window, spec,
    spec, window: without K7 (``specialize=False``, phase window) and
@@ -552,6 +560,68 @@ def alu_operands(rng, n: int):
     return u256.pack_np(a), u256.pack_np(b), u256.pack_np(c)
 
 
+def _word(*ws) -> int:
+    """An integer from 32-bit words, least significant first."""
+    return sum(w << (32 * i) for i, w in enumerate(ws))
+
+
+U256_MAX = (1 << 256) - 1
+# (a, b, c) built to reach K4's rare division paths, for every op of the
+# division family: Knuth's add-back (Hacker's Delight divmnu64's test
+# vectors, lifted into 256 bits), estimates corrected once and twice, a
+# dividend top word equal to the divisor's, normalisation shifts of 0,
+# one-word divisors, dividends below the divisor, -2^255 / -1, MULMOD by
+# 1, ADDMOD sums past 2^256 and a zero divisor
+DIV_CASES = [
+    (_word(0, 0xFFFE, 0x80000000), _word(1, 0, 0x80000000), 7),
+    (_word(3, 0, 0x80000000), _word(1, 0, 0x20000000), 5),
+    (_word(0, 0, 0x8000, 0x7FFF), _word(1, 0, 0x8000), 3),
+    (_word(0, 0xFFFE, 0, 0x8000), _word(0xFFFF, 0, 0x8000), 9),
+    (_word(0, 0xFFFFFFFE, 0, 0x80000000), _word(0xFFFF, 0, 0x80000000), 11),
+    (_word(0, 0xFFFFFFFE, 0, 0x80000000),
+     _word(0xFFFFFFFF, 0, 0x80000000), 13),
+    (_word(0, 0, 0, 0, 0, 0, 0xFFFE, 0x80000000),
+     _word(0, 0, 0, 0, 1, 0, 0x80000000), 17),
+    (_word(0, 0, 0, 0, 0, 0, 0, 0x80000000),
+     _word(0, 0, 0, 0, 0, 1, 0x80000000), 19),
+    (_word(*[0xFFFFFFFF] * 8), _word(*[0xFFFFFFFF] * 7, 0x80000000), 23),
+    (_word(*[0xFFFFFFFF] * 8), 0x80000000, 1),
+    (_word(*[0xFFFFFFFF] * 8), 0xFFFFFFFF, U256_MAX),
+    (_word(*[0xFFFFFFFF] * 8), 10, U256_MAX - 1),
+    (12345, 1 << 200, 1),
+    (1 << 255, U256_MAX, 1),                          # -2^255 / -1
+    (U256_MAX, U256_MAX, 1),                          # MULMOD by 1
+    (U256_MAX, U256_MAX - 5, (1 << 255) + 3),         # ADDMOD past 2^256
+    ((1 << 255) + 7, (1 << 255) + 9, 1 << 255),
+    (5, 0, 0),                                        # zero divisor
+]
+
+
+def division_operands(seed: int = 31, n: int = 400):
+    """(a, b, c) integer lists: DIV_CASES, then n dividends q * v + r
+    whose top words share the divisor's (so digit estimates run close:
+    the corrections), with c = v."""
+    rng = np.random.default_rng(seed)
+    a, b, c = (list(col) for col in zip(*DIV_CASES))
+    for _ in range(n):
+        kind = int(rng.integers(3))
+        if kind == 0:
+            v = int.from_bytes(rng.bytes(32), "big") >> int(
+                rng.integers(0, 200))
+        elif kind == 1:
+            v = ((1 << int(rng.integers(33, 256)))
+                 + int(rng.integers(-2, 3))) & U256_MAX
+        else:
+            v = _word(*(int(w) for w in rng.choice(
+                [0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], size=8)))
+        v |= 1
+        q = int(rng.integers(1, 1 << 32))
+        a.append((q * v + int(rng.integers(0, 1 << 63)) % v) & U256_MAX)
+        b.append(v)
+        c.append(v)
+    return a, b, c
+
+
 # ------------------------------------------------------------ main path
 
 def build_chain(n_blocks: int, txs: int, n_keys: int):
@@ -588,33 +658,66 @@ def build_chain(n_blocks: int, txs: int, n_keys: int):
     return genesis, blocks
 
 
+def _words(x: int) -> int:
+    return (x.bit_length() + 31) // 32
+
+
+def _div_products(u: int, v: int) -> int:
+    """Word products of dividing u by v word-wise (Knuth D): one digit
+    a word of the quotient, each the divisor's words times the digit."""
+    if v == 0 or u < v:
+        return 0
+    return (_words(u) - _words(v) + 1) * _words(v)
+
+
+# 32-bit multiply-add halves (a product's low or high word) of a
+# product mod 2^256 (the 36 word products of i + j <= 7, the 8 of i + j
+# = 7 low half only: 36 low, 28 high), of a squaring mod 2^256 (16 cross
+# products, 4 of them low half only, and 4 squares: 20 low, 16 high)
+# and of the full 512-bit product (64 each)
+MUL_HALVES, SQR_HALVES, WIDE_HALVES = 36 + 28, 20 + 16, 128
+# inputs each op reads (its output row written once besides)
+ALU_ARITY = {"addmod": 3, "mulmod": 3, "not": 1, "bit_length": 1}
+
+
 def alu_ops(op: str, a: list, b: list, c: list) -> int:
-    """32-bit integer operations ``u256x_eval`` does for ``op`` on these
-    rows (csrc/u256x.cuh): 24 for add/sub (8 words x add, carry,
-    store), 32 for a compare, shift, BYTE or SIGNEXTEND, 144 for MUL
-    (36 word products x lo, hi and two adds), 256 for the wide product,
-    and 40 per dividend bit for the bit-serial divisions (a 256-bit
-    shift, compare and subtract); EXP is one squaring per exponent bit
-    plus a multiply per set bit."""
-    if op in ("add", "sub"):
-        return 24 * len(a)
+    """The least 32-bit integer operations ``op`` needs on these rows,
+    a multiply-add half counted as 2 (half the int32 rate) and a word
+    product needing both halves as 4: 8 for add, sub, a compare, NOT,
+    a shift, BYTE, SIGNEXTEND and the bit length (one a word); MUL
+    ``MUL_HALVES``, the wide product ``WIDE_HALVES``; DIV, MOD, SDIV
+    and SMOD the digit products of word-wise long division of the
+    (absolute) operands, ADDMOD of the sum, MULMOD the wide product and
+    its division; EXP ``SQR_HALVES`` a squaring (one per exponent bit
+    past the top) and ``MUL_HALVES`` a multiply (one per set bit past
+    the first)."""
+    n = len(a)
     if op == "mul":
-        return 144 * len(a)
+        return 2 * MUL_HALVES * n
     if op in ("mul_wide_lo", "mul_wide_hi"):
-        return 256 * len(a)
+        return 2 * WIDE_HALVES * n
     if op in ("div", "mod"):
-        return 40 * sum(x.bit_length() for x in a)
+        return 4 * sum(_div_products(x, y) for x, y in zip(a, b))
     if op in ("sdiv", "smod"):
-        return 40 * sum(min(x, (1 << 256) - x).bit_length() for x in a)
+        def mag(x):
+            return min(x, (1 << 256) - x)
+        return 4 * sum(_div_products(mag(x), mag(y)) for x, y in zip(a, b))
     if op == "addmod":
-        return 40 * sum((x + y).bit_length() for x, y in zip(a, b))
+        return 4 * sum(_div_products(x + y, z) for x, y, z in zip(a, b, c))
     if op == "mulmod":
-        return sum(256 + 40 * (x * y).bit_length() for x, y in zip(a, b))
+        return sum(2 * WIDE_HALVES + 4 * _div_products(x * y, z)
+                   for x, y, z in zip(a, b, c))
     if op == "exp":
-        return sum(144 * (y.bit_length() + bin(y).count("1")) for y in b)
-    if op == "bit_length":
-        return 16 * len(a)
-    return 32 * len(a)
+        return 2 * sum(SQR_HALVES * max(y.bit_length() - 1, 0)
+                       + MUL_HALVES * max(bin(y).count("1") - 1, 0)
+                       for y in b)
+    return 8 * n
+
+
+def alu_bytes(op: str, rows: int) -> int:
+    """Bytes ``op`` must move on ``rows`` rows of 16 int32 limbs: each
+    input it reads (``ALU_ARITY``, else 2) once, the output once."""
+    return (ALU_ARITY.get(op, 2) + 1) * rows * 64
 
 
 # 64-bit operations of one keccak-f[1600] round (theta 55, rho+pi 24,
@@ -795,12 +898,21 @@ def phase_k1(dev, rng):
     return wins["random"], k1, fetches
 
 
-def phase_k3(dev, rng):
+def k3_messages(rng) -> list:
+    """Phase k3's 4096 messages: random lengths 0-271, then one block's
+    edges (135, 136 bytes), the empty message and two blocks' last."""
+    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 272, 4090)]
+    return msgs + [rng.bytes(n) for n in (135, 136, 135, 136, 0, 271)]
+
+
+def phase_k3(dev):
+    """K3 against its plain version and the native keccak on
+    ``k3_messages``; ms around the wrapper and the kernel's device ms
+    (``torch.profiler``)."""
     import torch
     from coreth_tpu_torch.crypto import native
     from coreth_tpu_torch.ops import keccak as K
-    msgs = [rng.bytes(int(n)) for n in rng.integers(0, 272, 4090)]
-    msgs += [rng.bytes(n) for n in (135, 136, 135, 136, 0, 271)]
+    msgs = k3_messages(np.random.default_rng(SEED + 3))
     blocks, nblocks = K.pack_blocks(msgs)
     b = torch.from_numpy(blocks).to(dev)
     nb = torch.from_numpy(nblocks).to(dev)
@@ -814,6 +926,7 @@ def phase_k3(dev, rng):
     if K.digests(got) != [native.keccak256_native(m) for m in msgs]:
         raise AssertionError("K3 digests differ from coreth_keccak256")
     ms = cuda_ms(lambda: K.keccak256_blocks(b, nb))
+    k_ms = kernel_ms(lambda: K.keccak256_blocks(b, nb), "keccak256_blocks")
     plain_ms = once_ms(lambda: K.keccak256_blocks_plain(b, nb))
     n_bytes = blocks.nbytes + nblocks.nbytes + got.numel() * 4
     bound_ms, bound_by = bound(n_bytes,
@@ -826,56 +939,121 @@ def phase_k3(dev, rng):
           "bound_by": bound_by, "library_ms": None}
     emit({"phase": "k3", "equal": True, "messages": len(msgs),
           "blocks_absorbed": int(nblocks.sum()), "native_equal": True,
+          "kernel_ms": k_ms,
           **k3})
     return k3
 
 
-def phase_k4(dev, rng):
+def k4_operands(dev):
+    """Phase k4's operands (``alu_operands``: 4096 random rows and every
+    pair of edge values) as (a, b, c) on ``dev``, and their integers."""
+    import torch
+    from coreth_tpu_torch.ops import u256
+    rows = alu_operands(np.random.default_rng(SEED + 4), 4096)
+    return (tuple(torch.from_numpy(x).to(dev) for x in rows),
+            [u256.to_ints(x) for x in rows])
+
+
+def k4_op_times(a, b, c, reps: int = 10) -> dict:
+    """Per K4 op on (a, b, c): the wrapper's ms (CUDA events, median of
+    3 x ``reps``), the kernel's device ms a launch (``torch.profiler``)
+    and the wrapper's host ms a call (``reps`` calls on the host's
+    clock)."""
+    import torch
+    from coreth_tpu_torch.ops import u256x
+    out = {}
+    for op in u256x.OPS:
+        fn = (lambda op=op: u256x.eval_ops(op, a, b, c))
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = 1000 * (time.perf_counter() - t0) / reps
+        torch.cuda.synchronize()
+        out[op] = {"ms": float(np.median([cuda_ms(fn, reps=reps, warmup=1)
+                                          for _ in range(3)])),
+                   "kernel_ms": kernel_ms(fn, "u256x_eval", reps=reps),
+                   "host_ms": host_ms}
+    return out
+
+
+def phase_k4(dev):
+    """K4 against its plain version, every op, on ``k4_operands`` and
+    the division family also on ``division_operands`` (the rare paths):
+    tolerance 0.  Per op ``k4_op_times`` and the bound of this op's
+    least work (``alu_ops``, ``alu_bytes``); the entry's ms and bound
+    are the 24 ops' sums."""
     import torch
     from coreth_tpu_torch.ops import u256, u256x
-    rows = alu_operands(rng, 4096)
-    a, b, c = (torch.from_numpy(x).to(dev) for x in rows)
-    ints = [u256.to_ints(x) for x in rows]
-    errs, ms, plain_ms, n_ops = [], 0.0, 0.0, 0
+    (a, b, c), ints = k4_operands(dev)
+    dv = [u256.pack_np(x) for x in division_operands()]
+    da, db, dc = (torch.from_numpy(x).to(dev) for x in dv)
+    errs, plain_ms, n_ops = [], 0.0, 0
     for op in u256x.OPS:
-        got = u256x.eval_ops(op, a, b, c)
-        want = u256x.eval_plain(op, a, b, c)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = (got != want).any(dim=1).nonzero()[:5].flatten().tolist()
-            raise AssertionError(f"K4 {op} differs from the plain version "
-                                 f"at rows {bad}")
-        errs.append(max_abs_err([got], [want]))
-        ms += cuda_ms(lambda: u256x.eval_ops(op, a, b, c), reps=5)
+        checks = [(a, b, c)] + ([(da, db, dc)] if op in (
+            "div", "mod", "sdiv", "smod", "addmod", "mulmod") else [])
+        for x, y, z in checks:
+            got = u256x.eval_ops(op, x, y, z)
+            want = u256x.eval_plain(op, x, y, z)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).any(dim=1).nonzero()[:5].flatten()
+                raise AssertionError(f"K4 {op} differs from the plain "
+                                     f"version at rows {bad.tolist()}")
+            errs.append(max_abs_err([got], [want]))
         plain_ms += once_ms(lambda: u256x.eval_plain(op, a, b, c))
-        n_ops += alu_ops(op, *ints)
-    n_bytes = len(u256x.OPS) * 4 * rows[0].nbytes
-    bound_ms, bound_by = bound(n_bytes, n_ops)
+    per_op = k4_op_times(a, b, c)
+    by_sum = {"bytes": 0.0, "operations": 0.0}
+    for op, r in per_op.items():
+        ops = alu_ops(op, *ints)
+        r["bound_ms"], r["bound_by"] = bound(alu_bytes(op, a.shape[0]), ops)
+        by_sum[r["bound_by"]] += r["bound_ms"]
+        n_ops += ops
+    ms = sum(r["ms"] for r in per_op.values())
+    kernel_sum = (None if any(r["kernel_ms"] is None
+                              for r in per_op.values())
+                  else round(sum(r["kernel_ms"] for r in per_op.values()),
+                             4))
+    for r in per_op.values():
+        r.update((k, round(r[k], 6)) for k in ("ms", "kernel_ms",
+                                               "host_ms", "bound_ms")
+                 if r[k] is not None)
     k4 = {"name": "u256x_eval", "route": "cuda",
           "source": "coreth_tpu_torch/csrc/u256x_eval.cu",
           "replaces": "coreth_tpu/ops/u256x.py:30",
           "max_abs_err": max(errs), "ms": round(ms, 4),
-          "plain_ms": round(plain_ms, 1), "bound_ms": round(bound_ms, 5),
-          "bound_by": bound_by, "library_ms": None}
+          "plain_ms": round(plain_ms, 1),
+          "bound_ms": round(sum(by_sum.values()), 5),
+          "bound_by": max(by_sum, key=by_sum.get), "library_ms": None}
     emit({"phase": "k4", "equal": True, "rows": int(a.shape[0]),
-          "ops": len(u256x.OPS), "int32_ops": n_ops,
-          "ms_is": "one launch of every op, summed", **k4})
+          "division_rows": int(da.shape[0]), "ops": len(u256x.OPS),
+          "int32_ops": n_ops, "per_op": per_op, "kernel_ms_sum": kernel_sum,
+          "bound_ms_by": {k: round(v, 6) for k, v in by_sum.items()},
+          "ms_is": "one launch of every op, summed; bound_ms the ops' "
+          "bounds summed", **k4})
     return k4
 
 
-def phase_k5(dev, rng):
-    import torch
-    from coreth_tpu_torch.evm.device import machine as M
-    from coreth_tpu_torch.evm.device.adapter import (
-        BlockEnv, MachineRunner, PackedOut)
+def k5_batch(dev):
+    """Phase k5's batch: 256 ``machine_lanes`` packed for K5 on
+    ``dev``, as (params, inputs) of ``machine.run_machine``."""
+    from coreth_tpu_torch.evm.device.adapter import BlockEnv, MachineRunner
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
-    txs, resolve = machine_lanes(rng, 256)
+    txs, resolve = machine_lanes(np.random.default_rng(SEED + 5), 256)
     env = BlockEnv(coinbase=b"\x01" + b"\x00" * 19, timestamp=3000,
                    number=5, gas_limit=15_000_000, chain_id=CFG.chain_id,
                    base_fee=25 * GWEI)
     runner = MachineRunner("durango", env, resolve, device=dev)
     p = runner._params(txs)
-    inputs = runner.pack(txs, p)
+    return p, runner.pack(txs, p)
+
+
+def phase_k5(dev):
+    import torch
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device.adapter import PackedOut
+    p, inputs = k5_batch(dev)
     packed, steps = M.run_machine(p, inputs)
     plain = M.run_plain(p, inputs)
     torch.cuda.synchronize()
@@ -1500,6 +1678,15 @@ def phase_k6(dev, genesis, blocks, split_lib):
               kernels.log_path("occ_window")),
           "ms_is": "window (a), CUDA events around the wrapper", **k6})
     return k6
+
+
+def phase_ptxas(spec) -> None:
+    """``ptxas``'s registers, stack frame and spill bytes of the K4 and
+    K3 entries, K5, generic K6 and window (a)'s K7 variant (``spec``),
+    from their build logs (``occ_split.ptxas_report``)."""
+    from coreth_tpu_torch.evm.device import specialize as SP
+    emit({"phase": "ptxas",
+          "kernels": occ_split.ptxas_report(SP.variant(spec)[0])})
 
 
 def phase_window(dev, smi, genesis, blocks, txs: int, specialize: bool,
@@ -2707,9 +2894,9 @@ def main() -> int:
     shard_launches = phase_shard(dev, smi, genesis, wire, txs, capacity)
 
     # ---- 6.-8. K3, K4, K5 against their plain versions
-    k3 = phase_k3(dev, rng)
-    k4 = phase_k4(dev, rng)
-    k5 = phase_k5(dev, rng)
+    k3 = phase_k3(dev)
+    k4 = phase_k4(dev)
+    k5 = phase_k5(dev)
 
     # ---- 9. the machine path (per-block OCC, K5), on the ERC-20 chain
     m_txs, m_keys = 256, 1024
@@ -2725,6 +2912,7 @@ def main() -> int:
     k6 = phase_k6(dev, m_genesis, m_blocks, split_libs["generic"])
     k7, split_libs["variant"], split_libs["spec"] = phase_k7(
         dev, m_genesis, m_blocks)
+    phase_ptxas(split_libs["spec"])
 
     # ---- 12. the window path without K7 (window) and with it (spec,
     # the reference's default), in the order window, spec, spec, window

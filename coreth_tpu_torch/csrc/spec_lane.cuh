@@ -75,17 +75,13 @@ __device__ __forceinline__ u256 u256_xor(const u256& a, const u256& b) {
   return r;
 }
 
-// DIV / MOD out of line: the bit-serial division is the largest ALU body
+// DIV / MOD out of line: the division is the largest ALU body
 __device__ __noinline__ u256 spec_div(u256 a, u256 b) {
-  u256 q, r;
-  u256_divmod(a, b, &q, &r);
-  return q;
+  return u256_divmod_op(0x04, a, b);
 }
 
 __device__ __noinline__ u256 spec_mod(u256 a, u256 b) {
-  u256 q, r;
-  u256_divmod(a, b, &q, &r);
-  return r;
+  return u256_divmod_op(0x06, a, b);
 }
 
 __device__ __forceinline__ bool spec_live(const SpecLane& L) {
@@ -175,19 +171,20 @@ __device__ __forceinline__ u256 spec_calldataload(const MachineIn& in,
   return u256_from_be(be);
 }
 
-// big-endian byte `pos` of the memory-model words mw[0..]
+// big-endian byte `pos` of the memory-model words mw[0..] (in memory, so
+// indexed directly)
 __device__ __forceinline__ uint32_t spec_mem_byte(const u256* mw, int pos) {
-  return u256_be_byte(mw[pos >> 5], pos & 31);
+  const int p = 31 - (pos & 31);  // little-endian byte position
+  return (mw[pos >> 5].w[p >> 2] >> ((p & 3) * 8)) & 0xFFu;
 }
 
 // SHA3 on the device (neither constant nor a kdig request): `size`
-// (<= 271) bytes from byte `s` of the memory-model words
+// (<= 271) bytes from byte `s` of the memory-model words, absorbed as
+// 32-bit words straight from them
 __device__ __noinline__ u256 spec_keccak(const u256* mw, int s, int size) {
-  uint8_t buf[272];
-  for (int j = 0; j < size; ++j) buf[j] = (uint8_t)spec_mem_byte(mw, s + j);
-  uint8_t dg[32];
-  keccak256_bytes(buf, size, dg);
-  return u256_from_be(dg);
+  uint32_t dg[8];
+  keccak256_be_words(mw, s, size, dg);
+  return sm_digest_word(dg);
 }
 
 // One SLOAD (returns the value read) or SSTORE against the lane's cache

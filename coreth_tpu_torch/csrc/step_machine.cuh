@@ -26,7 +26,9 @@
 // the lane's packed output row, in the reference's 16-bit limb layout
 // (storage ops are a handful per tx, so converting at each access is
 // cheap).  Arithmetic goes through u256x.cuh (K4), SHA3 through
-// keccak.cuh (K3).
+// keccak.cuh (K3), read as 32-bit words from the lane's memory.  The
+// `// @split` lines mark the lane's start and end and the ALU switch:
+// occ_split.py --lanes inserts its cycle counters there, in a copy.
 
 #pragma once
 
@@ -92,6 +94,15 @@ __device__ __forceinline__ int sm_mem_cost(int words) {
 
 __device__ __forceinline__ u256 sm_scalar(int v) {
   return u256_small((uint32_t)v);
+}
+
+// a keccak digest (8 little-endian words: bytes 0..31) as the EVM word
+// whose big-endian bytes they are
+__device__ __forceinline__ u256 sm_digest_word(const uint32_t dg[8]) {
+  u256 r;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) r.w[7 - k] = keccak_bswap32(dg[k]);
+  return r;
 }
 
 // The packed row's column offsets (pack_result): status, gas, refund,
@@ -181,6 +192,7 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
   int pc = 0, gas = in.start_gas[i], sp = 0, msize = 0, refund = 0;
   int status = in.active[i] ? SM_RUN : SM_SKIP, hreason = R_NONE;
   int scnt = in.scnt[i], tcnt = 0, log_cnt = 0, steps = 0;
+  // @split lane-start
 
   while (status == SM_RUN && steps < d.max_steps) {
     ++steps;
@@ -296,26 +308,18 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
       } else if (op >= 0x80 && op <= 0x8F) {
         val = stack[sp - 1 - (op - 0x80)];
       } else {
+        // @split alu-start
         switch (op) {
           case 0x01: val = u256_add(a, b); break;
           case 0x02: val = u256_mul(a, b); break;
           case 0x03: val = u256_sub(a, b); break;
-          case 0x04: {
-            u256 q, r;
-            u256_divmod(a, b, &q, &r);
-            val = q;
-            break;
-          }
-          case 0x05: val = u256_sdiv(a, b); break;
-          case 0x06: {
-            u256 q, r;
-            u256_divmod(a, b, &q, &r);
-            val = r;
-            break;
-          }
-          case 0x07: val = u256_smod(a, b); break;
-          case 0x08: val = u256_addmod(a, b, c); break;
-          case 0x09: val = u256_mulmod(a, b, c); break;
+          // one division body for the four, one for the two modular ops
+          case 0x04:
+          case 0x05:
+          case 0x06:
+          case 0x07: val = u256_divmod_op(op, a, b); break;
+          case 0x08:
+          case 0x09: val = u256_modop(op == 0x09, a, b, c); break;
           case 0x0A: val = u256_exp(a, b); break;
           case 0x0B: val = u256_signextend(a, b); break;
           case 0x10: val = sm_scalar(u256_lt(a, b)); break;
@@ -339,9 +343,9 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
           case 0x1C: val = u256_shr(b, a); break;
           case 0x1D: val = u256_sar(b, a); break;
           case 0x20: {
-            uint8_t dg[32];
-            keccak256_bytes(mem + sm_clamp(a_v, 0, d.mem_cap), b_v, dg);
-            val = u256_from_be(dg);
+            uint32_t dg[8];
+            keccak256_mem(mem, sm_clamp(a_v, 0, d.mem_cap), b_v, dg);
+            val = sm_digest_word(dg);
             break;
           }
           case 0x30: val = u256_from_limbs(in.address + i * 16); break;
@@ -382,6 +386,7 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
           case 0x5A: val = sm_scalar(gas - cg > 0 ? gas - cg : 0); break;
           default: break;
         }
+        // @split alu-end
       }
 
       if (op == 0x54 || op == 0x55) {
@@ -557,5 +562,6 @@ __device__ int sm_run_lane(const MachineIn& in, const MachineDims& d, int i,
   row[3] = hreason;
   row[4] = scnt;
   row[O_LOGCNT] = log_cnt;
+  // @split lane-end
   return steps;
 }

@@ -3,11 +3,14 @@
 //
 // Replaces, for checking on its own, the reference's
 //   coreth_tpu/ops/u256x.py (the ALU the step machine calls; the device
-//   functions themselves run inside step_machine.cu).
+//   functions themselves run inside step_machine.cuh and spec_lane.cuh).
 // Operands and results are (n, 16) int32 rows of 16-bit limbs, the
 // reference's layout; op codes follow OPS in coreth_tpu_torch/ops/
-// u256x.py.  Bound: integer operations for DIV/MOD/ADDMOD/MULMOD/EXP
-// (bit-serial loops), bytes for the rest.
+// u256x.py.  A row's words stay in registers (no stack frame).  Each
+// op reads only its operands: c for ADDMOD and MULMOD alone, a alone
+// for NOT and the bit length.  Bound: bytes (the operand rows read,
+// one written) for every op but EXP, whose squarings and multiplies
+// on a random exponent weigh more.
 
 #include <cuda_runtime.h>
 
@@ -20,20 +23,22 @@ __global__ void u256x_eval_kernel(int op, const int32_t* a, const int32_t* b,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const u256 x = u256_from_limbs(a + 16 * i);
-  const u256 y = u256_from_limbs(b + 16 * i);
-  const u256 z = u256_from_limbs(c + 16 * i);
-  u256 r = u256_zero(), q;
+  const u256 y = op == 20 || op == 21 ? u256_zero()
+                                      : u256_from_limbs(b + 16 * i);
+  const u256 z = op == 7 || op == 8 ? u256_from_limbs(c + 16 * i)
+                                    : u256_zero();
+  u256 r = u256_zero();
   uint32_t wide[16];
   switch (op) {
     case 0: r = u256_add(x, y); break;
     case 1: r = u256_sub(x, y); break;
     case 2: r = u256_mul(x, y); break;
-    case 3: u256_divmod(x, y, &r, &q); break;
-    case 4: u256_divmod(x, y, &q, &r); break;
-    case 5: r = u256_sdiv(x, y); break;
-    case 6: r = u256_smod(x, y); break;
-    case 7: r = u256_addmod(x, y, z); break;
-    case 8: r = u256_mulmod(x, y, z); break;
+    case 3: r = u256_divmod_op(0x04, x, y); break;
+    case 4: r = u256_divmod_op(0x06, x, y); break;
+    case 5: r = u256_divmod_op(0x05, x, y); break;
+    case 6: r = u256_divmod_op(0x07, x, y); break;
+    case 7: r = u256_modop(false, x, y, z); break;
+    case 8: r = u256_modop(true, x, y, z); break;
     case 9: r = u256_exp(x, y); break;
     case 10: r = u256_shl(y, x); break;
     case 11: r = u256_shr(y, x); break;
@@ -50,7 +55,8 @@ __global__ void u256x_eval_kernel(int op, const int32_t* a, const int32_t* b,
     case 22:
     case 23:
       u256_mul_wide(x, y, wide);
-      for (int k = 0; k < 8; ++k) r.w[k] = wide[k + (op == 23 ? 8 : 0)];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) r.w[k] = op == 23 ? wide[k + 8] : wide[k];
       break;
     default: break;
   }
@@ -63,7 +69,7 @@ extern "C" int u256x_eval_launch(int op, const void* a, const void* b,
                                  const void* c, void* out, int n,
                                  void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
+  const int threads = 64;
   const int blocks = (n + threads - 1) / threads;
   u256x_eval_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       op, (const int32_t*)a, (const int32_t*)b, (const int32_t*)c,

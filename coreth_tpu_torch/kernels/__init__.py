@@ -224,3 +224,18 @@ def check(rc: int, what: str) -> None:
     """Raise on a nonzero cudaGetLastError() from a launch."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError {rc})")
+
+
+def raw_stream(di: int) -> int:
+    """Device ``di``'s current CUDA stream as a raw handle, for a
+    launch's ``stream`` argument: what
+    ``torch.cuda.current_stream(di).cuda_stream`` gives, without building
+    a Stream object (~10 us a call, most of a small launch's host work),
+    as PyTorch's own generated launch code takes it.  That binding is
+    private: where a PyTorch build lacks it, the public call gives the
+    same handle."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(di).cuda_stream
+    return raw(di)

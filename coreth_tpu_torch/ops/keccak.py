@@ -115,9 +115,9 @@ LAUNCHES = 0
 def keccak256_blocks(blocks: torch.Tensor,
                      nblocks: torch.Tensor) -> torch.Tensor:
     """keccak-256 of host-padded multi-block messages: the CUDA launch
-    entry (``csrc/keccak256_blocks.cu``, one thread per message, the
-    ``csrc/keccak.cuh`` permutation) for CUDA tensors, the plain version
-    for CPU tensors."""
+    entry (``csrc/keccak256_blocks.cu``, two threads a message, each
+    holding one 32-bit half of the state) for CUDA tensors, the plain
+    version for CPU tensors."""
     dev = blocks.device
     if (blocks.dtype != torch.int32 or nblocks.dtype != torch.int32
             or nblocks.device != dev or blocks.dim() != 3
@@ -137,7 +137,7 @@ def keccak256_blocks(blocks: torch.Tensor,
     rc = lib.keccak256_blocks_launch(
         blocks.data_ptr(), nblocks.data_ptr(), out.data_ptr(),
         blocks.shape[0], blocks.shape[1],
-        torch.cuda.current_stream(dev).cuda_stream)
+        kernels.raw_stream(blocks.get_device()))
     kernels.check(rc, "keccak256_blocks")
     LAUNCHES += 1
     return out

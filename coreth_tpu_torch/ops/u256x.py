@@ -9,10 +9,11 @@ semantics: core/vm/instructions.go opMul/opDiv/opSdiv/opAddmod/...).
 
 Everything stays in int32: 16x16-bit limb products are kept inside
 int32 by splitting one operand into 8-bit halves.  The CUDA twin is
-``csrc/u256x.cuh`` (device functions on 8 x 32-bit words, called by
-the step-machine kernel); ``eval_ops`` below is the wrapper of its
-standalone launch entry ``u256x_eval``, which holds the two against
-each other one op at a time.
+``csrc/u256x.cuh`` (device functions on 8 x 32-bit words in registers,
+carry chains, word-wise long division; called by the lane interpreters);
+``eval_ops`` below is the wrapper of its standalone launch entry
+``u256x_eval``, which holds the two against each other one op at a
+time.
 """
 
 from __future__ import annotations
@@ -385,8 +386,7 @@ def eval_ops(op: str, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     rc = lib.u256x_eval_launch(
         OP_INDEX[op], a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        out.data_ptr(), a.shape[0],
-        torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), a.shape[0], kernels.raw_stream(a.get_device()))
     kernels.check(rc, "u256x_eval")
     LAUNCHES += 1
     return out

@@ -218,19 +218,6 @@ def _step_device(mesh: ShardMesh, table) -> tuple:
                  else dev.index)
 
 
-def _raw_stream(di: int) -> int:
-    """Device ``di``'s current CUDA stream as a raw handle: what
-    ``torch.cuda.current_stream(di).cuda_stream`` gives, without building
-    a Stream object (~10 us a call, most of a step's host work), as
-    PyTorch's own generated launch code takes it.  That binding is
-    private: where a PyTorch build lacks it, the public call gives the
-    same handle."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is None:
-        return torch.cuda.current_stream(di).cuda_stream
-    return raw(di)
-
-
 def _as_i32(x, dev: torch.device, di: int) -> torch.Tensor:
     """``x`` as a contiguous int32 tensor on ``dev`` (index ``di``):
     itself when it is one already (the cheap checks first: a call's
@@ -296,7 +283,7 @@ def sharded_transfer_step(mesh: ShardMesh, num_accounts: int):
         rc = kernels.load("sharded_step").sharded_transfer_step_launch(
             bal.data_ptr(), non.data_ptr(), *(c.data_ptr() for c in cols),
             _coinbase_row(coinbase_idx, A), A, B, new_bal.data_ptr(),
-            new_non.data_ptr(), ok.data_ptr(), _raw_stream(di))
+            new_non.data_ptr(), ok.data_ptr(), kernels.raw_stream(di))
         kernels.check(rc, "sharded_transfer_step")
         TRANSFER_STEP_LAUNCHES += 1
         return new_bal, new_non, ok
@@ -330,7 +317,7 @@ def sharded_slot_step(mesh: ShardMesh, num_slots: int):
         ok = vals.new_empty((), dtype=torch.bool)
         rc = kernels.load("sharded_step").sharded_slot_step_launch(
             vals.data_ptr(), *(c.data_ptr() for c in cols), S, B,
-            new_vals.data_ptr(), ok.data_ptr(), _raw_stream(di))
+            new_vals.data_ptr(), ok.data_ptr(), kernels.raw_stream(di))
         kernels.check(rc, "sharded_slot_step")
         SLOT_STEP_LAUNCHES += 1
         return new_vals, ok

@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with a card:
 
     python3 occ_split.py
+    python3 occ_split.py --lanes
 
 The kernel carries no counters.  This script copies the checkout's CUDA
 sources into a build directory of its own
@@ -27,6 +28,20 @@ with the rounds, and the ``ptxas`` lines (registers, spills, stack
 frame) of the uninstrumented libraries.  The split runs against the
 checkout's own ``occ_run_plain`` (results equal, tolerance 0), so a
 patch that changed what the kernel computes fails here.
+
+With ``--lanes`` it instead times the lane interpreter from inside
+(``step_machine.cuh``'s ``// @split`` lane markers): each lane's cycles
+from its start to its end, and of them the cycles of the ALU switch on
+the division family (DIV, SDIV, MOD, SMOD, ADDMOD, MULMOD), the shift
+family (SHL, SHR, SAR) and SHA3, with the ops of each family run, on
+K5's 256-lane batch (``chip_smoke.machine_lanes``) and on generic K6's
+windows (a) and (b) (``chip_smoke.window_from_chain``, ``swap_window``).
+Each instrumented launch's results must equal the uninstrumented
+kernel's.  The same line gives the ``ptxas`` stack frame, spills and
+registers of the K4 and K3 entries, K5, generic K6 and the K7 variant
+of window (a), and from ``cuobjdump -sass`` instructions by opcode of
+the K3 entry (its round loop: four rounds on half the words) and of K5
+(its SHA3's round loop: one round).
 """
 
 from __future__ import annotations
@@ -84,6 +99,34 @@ _MARKS = [
 ]
 
 
+# the lane counters (--lanes): slots 8.. of occ_prof, summed over lanes
+P_LANE, P_DIV, P_SHIFT, P_SHA3, P_LANES, P_NDIV, P_NSHIFT, P_NSHA3 = \
+    range(8, 16)
+_LANE_MARKS = [
+    ("  // @split lane-start\n",
+     "  long long _l0 = clock64(), _c0 = 0, _c1 = 0, _c2 = 0;\n"
+     "  unsigned long long _n0 = 0, _n1 = 0, _n2 = 0;\n"),
+    ("        // @split alu-start\n",
+     "        const long long _la = clock64();\n"),
+    ("        // @split alu-end\n",
+     "        {\n"
+     "          const long long _ld = clock64() - _la;\n"
+     "          if (op >= 0x04 && op <= 0x09) { _c0 += _ld; ++_n0; }\n"
+     "          else if (op >= 0x1B && op <= 0x1D) { _c1 += _ld; ++_n1; }\n"
+     "          else if (op == 0x20) { _c2 += _ld; ++_n2; }\n"
+     "        }\n"),
+    ("  // @split lane-end\n",
+     "  atomicAdd(&occ_prof[8], (unsigned long long)(clock64() - _l0));\n"
+     "  atomicAdd(&occ_prof[9], (unsigned long long)_c0);\n"
+     "  atomicAdd(&occ_prof[10], (unsigned long long)_c1);\n"
+     "  atomicAdd(&occ_prof[11], (unsigned long long)_c2);\n"
+     "  atomicAdd(&occ_prof[12], 1ull);\n"
+     "  atomicAdd(&occ_prof[13], _n0);\n"
+     "  atomicAdd(&occ_prof[14], _n1);\n"
+     "  atomicAdd(&occ_prof[15], _n2);\n"),
+]
+
+
 def _patch(src: str, rules) -> str:
     for old, new in rules:
         n = src.count(old)
@@ -94,8 +137,9 @@ def _patch(src: str, rules) -> str:
     return src
 
 
-def instrument(csrc: str, dst: str) -> None:
-    """Copy ``csrc`` to ``dst`` with the counters inserted."""
+def instrument(csrc: str, dst: str, lanes: bool = False) -> None:
+    """Copy ``csrc`` to ``dst`` with the counters inserted (with
+    ``lanes`` the lane counters too, and the readers in step_machine.cu)."""
     os.makedirs(dst, exist_ok=True)
     for fn in os.listdir(csrc):
         if fn.endswith((".cu", ".cuh")):
@@ -104,6 +148,10 @@ def instrument(csrc: str, dst: str) -> None:
         sm = f.read()
     sm = sm.replace('#include "u256x.cuh"\n',
                     '#include "u256x.cuh"\n' + PROF_DECL + _TIC, 1)
+    if lanes:
+        sm = _patch(sm, _LANE_MARKS)
+        with open(os.path.join(dst, "step_machine.cu"), "a") as f:
+            f.write(_READ)
     with open(os.path.join(dst, "step_machine.cuh"), "w") as f:
         f.write(sm)
     with open(os.path.join(dst, "occ_window.cu")) as f:
@@ -139,7 +187,8 @@ def finish(procs: dict) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc {name}:\n{out[-4000:]}")
         lib = ctypes.CDLL(path)
-        kernels._declare("occ_window", lib)
+        kernels._declare("step_machine" if name == "step_machine"
+                         else "occ_window", lib)
         lib.occ_prof_read.argtypes = [ctypes.c_void_p]
         lib.occ_prof_zero.argtypes = []
         libs[name] = lib
@@ -249,6 +298,179 @@ def ptxas_lines(log: str, entry: str = "occ_window_kernel"):
     return out
 
 
+def ptxas_stats(log: str, entry: str) -> dict:
+    """Registers, stack frame and spill bytes of the function whose
+    (mangled) name holds ``entry`` in a ``-Xptxas -v`` build log, and the
+    stack frames of the other functions that have one."""
+    import re
+    out, others, fn = {}, {}, None
+    with open(log) as f:
+        for ln in f:
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m and fn:
+                vals = [int(v) for v in m.groups()]
+                if entry in fn:
+                    out.update(zip(("stack", "spill_stores",
+                                    "spill_loads"), vals))
+                elif vals[0]:
+                    others[fn] = vals[0]
+                continue
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn and entry in fn:
+                out["registers"] = int(m.group(1))
+    out["other_stack_frames"] = others
+    return out
+
+
+SASS_OPS = ("LOP3", "SHF", "PRMT", "IMAD", "IADD3", "SHFL", "STL", "LDL")
+
+
+def sass_stats(lib: str, entry: str, min_lop3: int = 1) -> dict:
+    """From ``cuobjdump -sass`` of a built library: the instructions of
+    the function whose (mangled) name holds ``entry`` (with the device
+    functions it calls), by opcode (those of SASS_OPS), in the whole
+    listing and in its innermost loop with at least ``min_lop3`` LOP3s
+    (the shortest such range a backward branch closes: a keccak round
+    loop)."""
+    import re
+    from collections import Counter
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, timeout=600).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", out)[1:]
+                 if entry in f.split("\n", 1)[0]), "")
+    ins = [(int(m.group(1), 16), m.group(2), m.group(3))
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P(?:T|\d+)"
+                                r"\s+)?([A-Z][A-Z0-9_]*)([^;]*);", body)]
+
+    def ops(lo, hi):
+        c = Counter(op for a, op, _ in ins if lo <= a <= hi)
+        return {"instructions": sum(c.values()),
+                **{k: c[k] for k in SASS_OPS if c[k]}}
+    loops = []
+    for addr, op, rest in ins:
+        t = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if t and int(t.group(1), 16) < addr:
+            loops.append((addr - int(t.group(1), 16), int(t.group(1), 16),
+                          addr))
+    loops = [lp for lp in loops
+             if ops(lp[1], lp[2]).get("LOP3", 0) >= min_lop3]
+    res = {"function": ops(0, 1 << 40)}
+    if loops:
+        _n, lo, hi = min(loops)
+        res["innermost_loop"] = ops(lo, hi)
+    return res
+
+
+def ptxas_report(variant: str) -> dict:
+    """``ptxas_stats`` of the K4 and K3 entries, K5, generic K6 and the
+    K7 variant library ``variant``, from their build logs."""
+    from coreth_tpu_torch import kernels
+    out = {entry: ptxas_stats(kernels.log_path(name), entry)
+           for entry, name in (("u256x_eval_kernel", "u256x_eval"),
+                               ("keccak256_blocks_kernel",
+                                "keccak256_blocks"),
+                               ("step_machine_kernel", "step_machine"),
+                               ("occ_window_kernel", "occ_window"))}
+    out["occ_window_kernel (K7 variant)"] = ptxas_stats(
+        kernels.log_path(variant), "occ_window_kernel")
+    return out
+
+
+def _counted(name: str, lib, fn) -> tuple:
+    """``fn``'s result and the lane counters of one call with the
+    instrumented ``lib`` in the place of kernel library ``name``."""
+    import numpy as np
+    import torch
+    from coreth_tpu_torch import kernels
+    saved = kernels._libs.get(name)
+    kernels._libs[name] = lib
+    try:
+        fn()
+        torch.cuda.synchronize()
+        kernels.check(lib.occ_prof_zero(), "occ_prof_zero")
+        got = fn()
+        torch.cuda.synchronize()
+        prof = np.zeros(16, dtype=np.uint64)
+        kernels.check(lib.occ_prof_read(prof.ctypes.data), "occ_prof_read")
+    finally:
+        if saved is None:
+            kernels._libs.pop(name, None)
+        else:
+            kernels._libs[name] = saved
+    lane = float(prof[P_LANE])
+    row = {"lanes": int(prof[P_LANES]), "lane_cycles": int(lane)}
+    for fam, (c, n) in (("div", (P_DIV, P_NDIV)),
+                        ("shift", (P_SHIFT, P_NSHIFT)),
+                        ("sha3", (P_SHA3, P_NSHA3))):
+        row[f"{fam}_share"] = round(float(prof[c]) / lane, 5) if lane else 0
+        row[f"{fam}_ops"] = int(prof[n])
+        row[f"{fam}_cycles_per_op"] = (round(float(prof[c]) / float(prof[n]),
+                                             1) if prof[n] else None)
+    return got, row
+
+
+def _equal(got, want, what: str) -> None:
+    import torch
+    pairs = (zip(got, want) if isinstance(got, tuple) else
+             ((got[k], want[k]) for k in ("table", "packed", "steps")))
+    for g, w in pairs:
+        if not torch.equal(g, w):
+            raise AssertionError(f"occ_split: instrumented {what} differs "
+                                 "from the kernel's result")
+
+
+def lanes_main(root: str, smi: str) -> int:
+    """``--lanes``: the in-lane shares of K5's batch and generic K6's
+    windows (a) and (b), and the ``ptxas`` lines of five kernels."""
+    import torch
+    import chip_smoke as CS
+    from coreth_tpu_torch import kernels
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.evm.device import specialize as SP
+    dev = torch.device("cuda")
+    kernels.build()
+    dst = os.path.join(root, "coreth_tpu_torch", "csrc", "build", "lanes")
+    instrument(kernels.CSRC, dst, lanes=True)
+    procs = start(dst, {n: os.path.join(dst, f"{n}.cu")
+                        for n in ("step_machine", "occ_window")})
+    genesis, blocks = CS.build_erc20_chain(8, 256, 1024)
+    p, inputs = CS.k5_batch(dev)
+    wins = {"k6_a": CS.window_from_chain(dev, genesis, blocks),
+            "k6_b": CS.swap_window(dev)}
+    spec = CS.window_from_chain(dev, genesis, blocks, specialize=True)
+    vname, vsrc = SP.variant(spec["spec"])
+    kernels.build_generated({vname: vsrc})
+    libs = finish(procs)
+    out = {"card": smi}
+    want = M.run_machine(p, inputs)
+    got, out["k5_batch"] = _counted(
+        "step_machine", libs["step_machine"],
+        lambda: M.run_machine(p, inputs))
+    _equal(got, want, "K5 batch")
+    for name, pk in wins.items():
+        args = (pk["p"], pk["occ"], pk["table"], pk["key_tab"],
+                pk["inputs"])
+        want = M.run_occ_window(*args)
+        got, out[name] = _counted("occ_window", libs["occ_window"],
+                                  lambda: M.run_occ_window(*args))
+        _equal(got, want, f"K6 {name}")
+    out["ptxas"] = ptxas_report(vname)
+    out["sass"] = {
+        "keccak256_blocks_kernel": sass_stats(
+            kernels.lib_path("keccak256_blocks"), "keccak256_blocks_kernel"),
+        # the lane interpreter's SHA3 round: its loop of ~130 LOP3s
+        "step_machine_kernel": sass_stats(kernels.lib_path("step_machine"),
+                                          "step_machine_kernel", 100)}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
@@ -263,6 +485,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
+    if sys.argv[1:] == ["--lanes"]:
+        return lanes_main(root, smi)
     t0 = time.monotonic()
     genesis, blocks = CS.build_erc20_chain(8, 256, 1024)
     windows = {"k6_a": CS.window_from_chain(dev, genesis, blocks),

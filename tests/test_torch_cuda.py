@@ -223,6 +223,45 @@ def test_u256x_kernel_matches_plain(cuda, op):
     assert int(got.max()) <= u256.LIMB_MASK
 
 
+@pytest.mark.parametrize("op", ["div", "mod", "sdiv", "smod", "addmod",
+                                "mulmod"])
+def test_u256x_kernel_division_rare_operands(cuda, op):
+    """The division family on ``chip_smoke.division_operands`` (built to
+    reach the word-wise division's rare paths: estimate corrections,
+    add-back, normalisation shift 0, one-word divisors, dividends below
+    the divisor, -2^255 / -1, MULMOD by 1, ADDMOD's 257-bit sum) equals
+    the plain version: the PTX carry chains on the card."""
+    from coreth_tpu_torch.ops import u256, u256x
+    a, b, c = (torch.from_numpy(u256.pack_np(x)).to(cuda)
+               for x in chip_smoke.division_operands())
+    assert torch.equal(u256x.eval_ops(op, a, b, c),
+                       u256x.eval_plain(op, a, b, c))
+
+
+def test_step_machine_sha3_offsets_and_lengths(cuda):
+    """K5's in-lane SHA3 (32-bit word absorb from the lane's memory) on
+    ``torch_machine_cases.sha3_lanes``: start offsets 0-3, lengths
+    around the 136-byte block, messages ending at the memory's last
+    byte; packed rows (the stored digests) and step counts equal the
+    plain step machine's, every lane STOP."""
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.evm.device import machine as M
+    lanes = C.sha3_lanes()
+    runner = A.MachineRunner("durango", C.env(A.BlockEnv),
+                             C.resolver_for(lanes), device=cuda)
+    txs = C.specs(lanes, A.TxSpec)
+    p = runner._params(txs)
+    assert p.mem_cap == 4096
+    inputs = runner.pack(txs, p)
+    launches = M.LAUNCHES
+    packed, steps = M.run_machine(p, inputs)
+    assert M.LAUNCHES == launches + 1
+    plain = M.run_plain(p, inputs)
+    assert torch.equal(packed, plain["packed"])
+    assert torch.equal(steps, plain["steps"])
+    assert (packed[:len(txs), 0] == M.STOP).all()
+
+
 _SHAPE = dict(batch=8, code_cap=512, data_cap=128, scache_cap=16)
 
 
@@ -446,6 +485,16 @@ def test_occ_spec_kernel_on_k7_windows(cuda):
                chip_smoke.escape_lanes_window(cuda, rng)):
         assert pk["spec"]
         _occ_both(pk)
+
+
+def test_occ_spec_kernel_keccak_fan_window(cuda):
+    """chip_smoke.py's K7 window (d) at its full 16 lanes: ten
+    host-evaluable keccaks (two past the kdig slots, so on the device)
+    and a device keccak of an arithmetic result, through K7's
+    ``spec_keccak`` (32-bit words from the memory-model words)."""
+    pk = chip_smoke.keccak_fan_window(cuda, np.random.default_rng(17))
+    assert pk["spec"]
+    _occ_both(pk)
 
 
 def test_spec_replay_on_the_card(cuda):

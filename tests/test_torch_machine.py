@@ -179,3 +179,23 @@ def test_host_build_of_k5_matches_plain(host_k5, fork, B, mem_cap, layout):
     assert torch.equal(steps, plain["steps"])
     wrong, _, _ = tM.machine_launch_args(p, inputs, 1 - layout)
     assert host_k5.step_machine_launch(*tM.pointers(wrong), None) == -3
+
+
+def test_host_build_of_k5_sha3_offsets_and_lengths(host_k5):
+    """K5's in-lane SHA3 (32-bit words from the lane's shared-memory
+    slot), built for the host, on ``torch_machine_cases.sha3_lanes``
+    (offsets 0-3, lengths around 136, the memory's last bytes): packed
+    rows and step counts equal to the plain version's."""
+    lanes = C.sha3_lanes()
+    txs = C.specs(lanes, tadapter.TxSpec)
+    runner = _PortRunner("durango", C.env(tadapter.BlockEnv),
+                         C.resolver_for(lanes), device="cpu")
+    p = tM.MachineParams(fork="durango", batch=128, code_cap=256,
+                         data_cap=512, scache_cap=16)
+    inputs = runner.pack(txs, p)
+    args, packed, steps = tM.machine_launch_args(p, inputs, 1)
+    assert host_k5.step_machine_launch(*tM.pointers(args), None) == 0
+    plain = tM.run_plain(p, inputs)
+    assert torch.equal(packed, plain["packed"])
+    assert torch.equal(steps, plain["steps"])
+    assert (packed[:len(txs), 0] == tM.STOP).all()

@@ -509,6 +509,24 @@ def batch_lanes(fork: str, B: int, TxSpec) -> list:
     return txs
 
 
+def sha3_lanes() -> list:
+    """Lanes that copy 300 calldata bytes into memory and hash ``n`` of
+    them (SHA3) from start offsets 0-3 (byte 8 + offset), at lengths
+    around the 136-byte block (and 0, 1, 271), then store the digest at
+    slot 0; and four that hash the memory's last bytes (mem_cap 4096)."""
+    data = bytes((7 * i + 3) & 0xFF for i in range(300))
+
+    def sha3(dest, off, n):
+        return lane(push(len(data)) + push(0) + push(dest) + "37"
+                    + push(n) + push(off) + "20" + push(0) + "55" + "00",
+                    calldata=data, gas=200_000)
+    lanes = [sha3(0, 8 + off, n)
+             for n in (0, 1, 4, 31, 64, 132, 133, 134, 135, 136, 137, 138,
+                       139, 140, 200, 271) for off in range(4)]
+    return lanes + [sha3(4096 - 300, off, n) for n, off in (
+        (271, 4096 - 271), (136, 4096 - 137), (3, 4093), (0, 4096))]
+
+
 def env(BlockEnv):
     return BlockEnv(coinbase=COINBASE, timestamp=TIME, number=NUMBER,
                     gas_limit=GAS_LIMIT, chain_id=CHAIN_ID,

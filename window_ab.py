@@ -9,14 +9,19 @@ a directory that ``.gitignore`` lists) as BASE:
     python3 window_ab.py BASE
     python3 window_ab.py BASE --kernels
 
-With ``--kernels`` each child only times the window kernels on phase
-k6's window (a) (the chain's first 8 blocks x 256 lanes), in CUDA events
-over 20 launches after one, three times: K6 generic, K6+K7 (every lane
-traced), K9 at n = 4 with key-range placement and K7, and K9 with its
-window's flags (``k9_flags_n4``: in a tree whose flags reduce is a
-launch of its own, ``machine.shard_flags``, K9 and that launch; else K9
-alone, which holds it) (``kernels`` lines), in the order BASE, this,
-this, BASE; nothing else runs.
+With ``--kernels`` each child only times kernels, in CUDA events over 20
+launches after one, three times: on phase k6's window (a) (the chain's
+first 8 blocks x 256 lanes) K6 generic, K6+K7 (every lane traced), K9
+at n = 4 with key-range placement and K7, and K9 with its window's
+flags (``k9_flags_n4``: in a tree whose flags reduce is a launch of its
+own, ``machine.shard_flags``, K9 and that launch; else K9 alone, which
+holds it); generic K6 on phase k6's window (b) (swaps: MUL and DIV in
+every lane); K5 on phase k5's 256-lane batch (ERC-20 lanes: SHR and two
+SHA3 each); and the K3 and K4 launch entries on phases k3's and k4's
+inputs: for K3 the wrapper, for K4 every op's wrapper, each also as
+the kernel's device time a launch (``torch.profiler``) and K4's as the
+wrapper's host time a call (``kernels`` lines), in the order BASE,
+this, this, BASE; nothing else runs.
 
 Each run is a child process that imports the ``chip_smoke.py`` and the
 ``coreth_tpu_torch`` of its checkout (so each runs its own kernels,
@@ -125,6 +130,9 @@ def child_kernels(tree: str) -> int:
              "k9_n4": lambda: M.run_occ_sharded(
                  k9["p"], k9["occ"], k9["table"], k9["key_tab"],
                  k9["inputs"], k9["spec"], 4, k9["sync_rows"], "psum")}
+    calls["k6_b"] = occ(CS.swap_window(dev), ())
+    calls["k5"] = _k5_batch(CS, dev)
+    calls["k3"] = _k3_entry(CS, dev)
     calls["k9_flags_n4"] = calls["k9_n4"]
     if hasattr(M, "shard_flags"):
         def k9_flags():
@@ -137,8 +145,40 @@ def child_kernels(tree: str) -> int:
         runs = [CS.cuda_ms(fn, reps=20, warmup=1) for _ in range(3)]
         row[name] = float(np.median(runs))
         row[name + "_runs"] = runs
+    for name, kern in (("k5", "step_machine"), ("k6", "occ_window"),
+                       ("k6_b", "occ_window"), ("k3", "keccak256_blocks")):
+        row[name + "_kernel"] = CS.kernel_ms(calls[name], kern, reps=20)
+    row["k4"] = _k4_ops(CS, dev)
     CS.emit(row)
     return 0
+
+
+def _k5_batch(CS, dev):
+    """Phase k5's batch (``chip_smoke.k5_batch``) as one call of K5's
+    wrapper."""
+    from coreth_tpu_torch.evm.device import machine as M
+    p, inputs = CS.k5_batch(dev)
+    return lambda: M.run_machine(p, inputs)
+
+
+def _k3_entry(CS, dev):
+    """Phase k3's messages (``chip_smoke.k3_messages``) as one call of
+    K3's wrapper."""
+    import numpy as np
+    import torch
+    from coreth_tpu_torch.ops import keccak as K
+    blocks, nblocks = K.pack_blocks(
+        CS.k3_messages(np.random.default_rng(CS.SEED + 3)))
+    b = torch.from_numpy(blocks).to(dev)
+    nb = torch.from_numpy(nblocks).to(dev)
+    return lambda: K.keccak256_blocks(b, nb)
+
+
+def _k4_ops(CS, dev) -> dict:
+    """Per K4 op on phase k4's operands (``chip_smoke.k4_operands``):
+    ``chip_smoke.k4_op_times`` at 20 calls."""
+    (a, b, c), _ints = CS.k4_operands(dev)
+    return CS.k4_op_times(a, b, c, reps=20)
 
 
 def child_runs(tree: str) -> int:
@@ -265,8 +305,13 @@ def main() -> int:
             for row in _child("kernels", trees[who], out_dir):
                 print(json.dumps({"run": who, "place": place, **row}),
                       flush=True)
-                for k in ("k6", "k6_k7", "k9_n4", "k9_flags_n4"):
+                for k in ("k6", "k6_k7", "k9_n4", "k9_flags_n4", "k6_b",
+                          "k5", "k3", "k5_kernel", "k6_kernel",
+                          "k6_b_kernel", "k3_kernel"):
                     summary.setdefault(f"{who}_{k}", []).append(row[k])
+                for op, r in row["k4"].items():
+                    summary.setdefault(f"{who}_k4_kernel_ms", {}).setdefault(
+                        op, []).append(r["kernel_ms"])
         print(json.dumps(summary), flush=True)
         return 0
     for place, who in enumerate(summary["order"], 1):
