@@ -180,7 +180,22 @@ the one card):
    one shard and at n = 2 and 4: root equal, every block on the machine
    path with no dirty block, on the mesh K9's last window's flags equal
    to the plain version's; txs/s, ``load_imbalance``, ``kr_lanes``,
-   ``cross_shard`` and the exchange counts.
+   ``cross_shard`` and the exchange counts;
+15. host   — the exact host path under the device paths, on three chains
+   of the port's own builder from one genesis (``build_host_chains``),
+   replayed one after another on one store: transfers (64 blocks x 128
+   txs, 1024 keys, ``window=128``) with two blocks that spend credits
+   received earlier in the same block (the device rejects them: each
+   rewinds its window, K1 re-applies the valid prefix, timed with the
+   card synchronised around it, and the block runs on the Processor;
+   ``blocks_fallback`` 2, K1 launched 5 times); the ERC-20 shape (24
+   blocks x 256, K7 on, token calls on the machine) with a call into a
+   contract that stores past the lanes' 4096 bytes of memory (its
+   block goes dirty, K5 meets the same escape, the Processor takes it;
+   K7 windows launch before and after); swap blocks (8 x 256) on the
+   serial short-circuit (no K5, K6 or K7 launch).  Each run: root equal
+   to the last header's and to the store's, counters, launches (also
+   at each host-path block), seconds per host-path block, the card.
 
 Phases machine, window, spec, shard_erc20 and hot measure the machine
 path, so their engines take ``token_fastpath=False`` (``bench.py``'s
@@ -2720,6 +2735,237 @@ def phase_hot(dev, smi):
     return out
 
 
+# ------------------------------------------------------ the host path
+# phase host: the transfer chain with two rewinds, the ERC-20 chain with
+# a dirty block, the swap chain on the serial short-circuit
+HOST_XFER_BLOCKS, HOST_XFER_TXS, HOST_XFER_KEYS = 64, 128, 1024
+HOST_REWIND_BLOCKS = (20, 40)
+HOST_ERC20_BLOCKS, HOST_ERC20_TXS, HOST_DIRTY_BLOCK = 24, 256, 10
+HOST_SWAP_BLOCKS, HOST_SWAP_TXS = 8, 256
+ESCAPER = bytes([0x76]) * 20
+# MSTORE at 5000: past the window lanes' 4096 bytes of memory, so the
+# lane escapes (HOST) on the device; the native session runs it
+ESCAPER_CODE = bytes.fromhex("600061138852" + "00")
+POOL = bytes([0x74]) * 20
+
+
+def build_host_chains(xfer=(HOST_XFER_BLOCKS, HOST_XFER_TXS, HOST_XFER_KEYS),
+                      erc20=(HOST_ERC20_BLOCKS, HOST_ERC20_TXS),
+                      swap=(HOST_SWAP_BLOCKS, HOST_SWAP_TXS),
+                      rewinds=HOST_REWIND_BLOCKS,
+                      dirty=HOST_DIRTY_BLOCK):
+    """The three chains of phase host, all built by the port's chain
+    builder (sequential semantics on Python ints and the native session,
+    never the Processor the replay falls back to), from one genesis:
+    ``xfer[2]`` funded keys, two poorly funded ones, the token, the pool
+    and the escaper.  Returns (genesis, {name: blocks}).
+
+    - transfers: each key pays fresh recipients; in each block of
+      ``rewinds`` a rich key pays a poor one 3e23 and the poor one pays
+      out 1.5e23 in the same block (valid in order, past its
+      pre-block balance, so the device rejects the block);
+    - erc20: the benchmark's ERC-20 shape, with one call into the
+      escaper replacing the last tx of block ``dirty``;
+    - swap: every tx a swap into the one pool (constant storage keys)."""
+    from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
+    from coreth_tpu_torch.crypto.secp256k1 import priv_to_address
+    from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import DynamicFeeTx, sign_tx
+    from coreth_tpu_torch.workloads.erc20 import (
+        token_genesis_account, transfer_calldata)
+    from coreth_tpu_torch.workloads.swap import (
+        pool_genesis_account, swap_calldata)
+    n_keys = xfer[2]
+    keys = [0xB0B000 + i for i in range(n_keys)]
+    poor_keys = [0xB0A000 + i for i in range(len(rewinds))]
+    addrs = [priv_to_address(k) for k in keys]
+    poor = [priv_to_address(k) for k in poor_keys]
+    alloc = {a: GenesisAccount(balance=10**27) for a in addrs}
+    for a in poor:
+        alloc[a] = GenesisAccount(balance=10**17)
+    alloc[TOKEN] = token_genesis_account({a: 10**24 for a in addrs})
+    alloc[POOL] = pool_genesis_account(10**30, 10**30)
+    alloc[ESCAPER] = GenesisAccount(balance=0, nonce=1, code=ESCAPER_CODE)
+    genesis = Genesis(config=CFG, gas_limit=8_000_000, alloc=alloc)
+    store = StateStore()
+    parent = genesis.to_block(store)
+    nonces = {k: 0 for k in keys + poor_keys}
+    big = 3 * 10**23
+
+    def add(bg, key, to, value=0, data=b"", gas=21_000):
+        bg.add_tx(sign_tx(DynamicFeeTx(
+            chain_id_=CFG.chain_id, nonce=nonces[key], gas_tip_cap_=GWEI,
+            gas_fee_cap_=2000 * GWEI, gas=gas, to=to, value=value,
+            data=data), key, CFG.chain_id))
+        nonces[key] += 1
+
+    def gen_xfer(i, bg):
+        txs = xfer[1]
+        if i in rewinds:
+            p = rewinds.index(i)
+            add(bg, keys[p], poor[p], big)
+            add(bg, poor_keys[p], addrs[(p + 7) % n_keys], big // 2)
+            txs -= 2
+        for j in range(txs):
+            n = i * xfer[1] + j
+            add(bg, keys[n % n_keys],
+                b"\xe0" + n.to_bytes(4, "big") * 4 + b"\xe0" * 3,
+                10**12 + j)
+
+    def gen_erc20(i, bg):
+        txs = erc20[1]
+        for j in range(txs):
+            k = keys[(i * txs + j) % n_keys]
+            if i == dirty and j == txs - 1:
+                add(bg, k, ESCAPER, gas=100_000)
+                continue
+            to = addrs[(keys.index(k) + 1) % n_keys] if j % 3 == 0 \
+                else (0x5000 + (i * 7 + j) % 1999).to_bytes(2, "big") * 10
+            add(bg, k, TOKEN, data=transfer_calldata(to, 10 + j),
+                gas=100_000)
+
+    def gen_swap(i, bg):
+        for j in range(swap[1]):
+            add(bg, keys[(i * swap[1] + j) % n_keys], POOL,
+                data=swap_calldata(10**6 + 31 * i + j), gas=200_000)
+
+    chains = {}
+    for name, n, gen in (("transfers", xfer[0], gen_xfer),
+                         ("erc20", erc20[0], gen_erc20),
+                         ("swap", swap[0], gen_swap)):
+        blocks, _ = generate_chain(CFG, parent, store, n, gen, gap=10)
+        chains[name] = blocks
+        parent = blocks[-1]
+    return genesis, chains
+
+
+def _host_engine(dev, genesis, parent, store, txs: int, **kw):
+    from coreth_tpu_torch.replay import engine as E
+    return E.ReplayEngine(genesis.config, store, parent_header=parent,
+                          batch_pad=txs, capacity=1 << 14, device=dev, **kw)
+
+
+def phase_host(dev, smi, sizes=None):
+    """The exact host path under the device paths, on chains of the
+    port's own builder (``build_host_chains``), each replayed from fresh
+    decodes with the launch counters zeroed just before and read just
+    after, the root held to the last header's:
+
+    - transfers (128 txs a block, 1,024 keys, ``window=128``): the two
+      rewind blocks fail the device's solvency check; each rewinds its
+      window, re-applies the valid prefix on K1 (a launch with no
+      fetch, timed with the card synchronised around it) and runs on
+      the Processor: ``blocks_fallback`` = 2, K1 launched for the
+      windows and for each re-apply;
+    - erc20 (256 txs a block, ``specialize=True``, the token on the
+      machine): the escaper's lane dirties its block, the per-block path
+      (K5) meets the same escape, and the block runs on the Processor;
+      K7 windows launch before the host path takes it and after;
+    - swap (256 txs a block, the engine's defaults): every block on the
+      serial short-circuit, no step-machine or window launch.
+
+    Each run prints its counters, launches, seconds and the card.
+    ``sizes`` (keyword arguments of ``build_host_chains``) shrinks the
+    chains for a check of the phase off the card."""
+    import torch
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    sizes = sizes or {}
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.monotonic()
+    genesis, chains = build_host_chains(**sizes)
+    t_build = round(time.monotonic() - t0, 2)
+    store = StateStore()
+    parent = genesis.to_block(store).header
+    out = {}
+    for name in ("transfers", "erc20", "swap"):
+        blocks = chains[name]
+        fresh = [Block.decode(b.encode()) for b in blocks]
+        txs = len(blocks[0].transactions)
+        if name == "transfers":
+            eng = _host_engine(dev, genesis, parent, store, txs, window=128)
+        elif name == "erc20":
+            eng = _host_engine(dev, genesis, parent, store, txs, window=16,
+                               specialize=True, token_fastpath=False)
+        else:
+            eng = _host_engine(dev, genesis, parent, store, txs, window=16)
+        reapply_ms, at_fallback = [], []
+        issue, fallback = eng._issue_window_run, eng._fallback
+
+        def spy_issue(items, fetch=True):
+            if fetch:
+                return issue(items, fetch)
+            sync()
+            t1 = time.monotonic()
+            r = issue(items, fetch)
+            sync()
+            reapply_ms.append(round(1000 * (time.monotonic() - t1), 4))
+            return r
+
+        def spy_fallback(block):
+            at_fallback.append(dict(_read_launches()))
+            return fallback(block)
+
+        eng._issue_window_run, eng._fallback = spy_issue, spy_fallback
+        A.RECIPES.clear()
+        _zero_launches()
+        t1 = time.monotonic()
+        root = eng.replay(fresh)
+        sync()
+        dt = time.monotonic() - t1
+        launches = _read_launches()
+        eng.close()
+        st = eng.stats
+        mc = eng.machine_counters() if eng._machine is not None else {}
+        if root != blocks[-1].header.root or store.trie.hash() != root:
+            raise AssertionError(f"host {name}: final root differs from the "
+                                 "header")
+        if name == "transfers":
+            ok = (st.blocks_fallback == len(HOST_REWIND_BLOCKS)
+                  == len(reapply_ms)
+                  and launches["transfer_window"] == 1 + 2 * len(reapply_ms)
+                  and st.blocks_device == len(blocks) - st.blocks_fallback)
+        elif name == "erc20":
+            before = at_fallback[0]["occ_window_spec"] if at_fallback else 0
+            ok = (st.blocks_fallback == 1 and mc["dirty_blocks"] == 1
+                  and mc["blocks"] == len(blocks) - 1
+                  and before >= 1
+                  and launches["occ_window_spec"] > before
+                  and launches["step_machine"] >= 1)
+        else:
+            ok = (mc["serial_blocks"] == len(blocks) == mc["blocks"]
+                  and st.blocks_fallback == 0
+                  and launches["occ_window"] == 0
+                  and launches["occ_window_spec"] == 0
+                  and launches["step_machine"] == 0)
+        row = {"phase": "host", "chain": name, "blocks": len(blocks),
+               "txs_per_block": txs, "chain_build_s": t_build,
+               "replay_s": round(dt, 4),
+               "txs_per_s": round(len(blocks) * txs / dt, 1),
+               "blocks_fallback": st.blocks_fallback,
+               "t_fallback": round(st.t_fallback, 4),
+               "fallback_s_per_block": round(
+                   st.t_fallback / st.blocks_fallback, 4)
+               if st.blocks_fallback else None,
+               "reapply_ms": reapply_ms,
+               "launches_at_fallback": at_fallback,
+               "root_matches_header": True, "launches": launches,
+               "machine": {k: mc[k] for k in (
+                   "blocks", "dirty_blocks", "host_txs", "native_txs",
+                   "serial_blocks", "windows", "rounds")} if mc else None,
+               "stats": st.row(), "card": smi}
+        emit(row)
+        if not ok:
+            raise AssertionError(f"host {name}: {row}")
+        out[name] = row
+        parent = blocks[-1].header
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2960,6 +3206,9 @@ def main() -> int:
 
     # ---- 14. the hot-contract chain on one shard and on 2 and 4
     phase_hot(dev, smi)
+
+    # ---- 15. the exact host path: rewinds, a dirty block, serial blocks
+    phase_host(dev, smi)
 
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]

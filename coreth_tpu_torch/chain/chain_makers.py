@@ -208,7 +208,7 @@ class BlockGen:
             raise InvalidTransfer("insufficient funds for gas*price+value")
         if self.gas_pool < tx.gas:
             raise InvalidTransfer("block gas limit reached")
-        intrinsic = intrinsic_gas(tx.data, rules)
+        intrinsic = intrinsic_gas(tx.data, [], False, rules)
         if tx.gas < intrinsic:
             raise InvalidTransfer("intrinsic gas too low")
         dst = st.get(tx.to)
@@ -260,7 +260,8 @@ class BlockGen:
         if res.needs_host:
             raise InvalidTransfer(
                 f"call needs the host interpreter (reason "
-                f"{res.host_reason}), which is not ported")
+                f"{res.host_reason}); the builder runs calls on the "
+                "native session only")
         touched.add(tx.to)
         if res.status != M.STOP:
             return res.gas_left, 0, []

@@ -1,8 +1,11 @@
-"""The dummy consensus engine, cut to what transfer blocks need.
+"""The dummy consensus engine, cut to what replay needs.
 
 Twin of reference consensus/dummy/consensus.go: block-fee verification
-(:289) and the header fields FinalizeAndAssemble (:414) fills.  Atomic
-ExtData callbacks are not part of this slice: blocks carry no extdata.
+(:289), Finalize (:358, the host execution path's end of block) and the
+header fields FinalizeAndAssemble (:414) fills.  Atomic ExtData
+callbacks are not part of the port yet: blocks carry no extdata, so
+Finalize holds ``ext_data_gas_used`` to 0, as the reference does when no
+callback is wired in.
 """
 
 from __future__ import annotations
@@ -23,6 +26,33 @@ class ConsensusError(Exception):
 
 
 class DummyEngine:
+    @staticmethod
+    def _block_gas_cost(config: ChainConfig, parent: Header,
+                        timestamp: int) -> int:
+        return block_gas_cost(config, parent, timestamp)
+
+    def finalize(self, block: Block, parent: Header, statedb, receipts,
+                 config: Optional[ChainConfig] = None) -> None:
+        """Finalize (consensus.go:358) without the atomic-tx callback:
+        from Apricot Phase 4 on the header's ext_data_gas_used must be
+        0, its block_gas_cost the required one, and the block fee must
+        cover it."""
+        if config is None:
+            raise ValueError("finalize needs the chain config")
+        if config.is_apricot_phase4(block.time):
+            if (block.header.ext_data_gas_used is None
+                    or block.header.ext_data_gas_used != 0):
+                raise ConsensusError(
+                    f"invalid extDataGasUsed: have "
+                    f"{block.header.ext_data_gas_used}, want 0")
+            expected_cost = self._block_gas_cost(config, parent, block.time)
+            if (block.header.block_gas_cost is None
+                    or block.header.block_gas_cost != expected_cost):
+                raise ConsensusError("invalid blockGasCost")
+            self.verify_block_fee(block.base_fee,
+                                  block.header.block_gas_cost,
+                                  block.transactions, receipts)
+
     def verify_block_fee(self, base_fee: Optional[int],
                          required_block_gas_cost: Optional[int],
                          txs, receipts,

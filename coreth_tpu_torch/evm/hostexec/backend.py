@@ -4,11 +4,12 @@ Port of reference ``evm/hostexec/backend.py``, loaded through the port's
 own native loader (``crypto/native.py``).  One ``HostExecBackend`` wraps
 one C++ session: registered contract codes, a committed-storage cache
 fed by a Python resolver callback, and per-call outputs (status / gas /
-refund / logs / writes).  The caller decides when a call's writes
-become the next call's committed base (``commit``): the chain builder
-carries state call by call, the OCC conflict suffix
-(``replay/machine_block``) carries the device-valid prefix's writes
-(``seed_slot``) and then each suffix tx's.
+refund / logs / writes / return data).  The caller decides when cached
+storage is stale (``clear_storage``, ``reset_contracts``) and when a
+call's writes become the next call's committed base (``commit``): the
+chain builder and the serial short-circuit (``replay/machine_block``)
+carry state call by call, the StateDB bridge (``evm/hostexec/bridge``)
+takes a fresh view per tx unless nothing outside it moved the state.
 """
 
 from __future__ import annotations
@@ -48,8 +49,12 @@ def _lib():
         "coreth_hostexec_free": ([P], None),
         "coreth_hostexec_env": ([P, C, u64, u64, u64, u64, C], None),
         "coreth_hostexec_set_code": ([P, C, C, ctypes.c_uint32], None),
+        "coreth_hostexec_clear_storage": ([P], None),
+        "coreth_hostexec_reset": ([P], None),
+        "coreth_hostexec_reset_kinds": ([P], None),
         "coreth_hostexec_seed_slot": ([P, C, C, C], None),
         "coreth_hostexec_warm_addr": ([P, C], None),
+        "coreth_hostexec_warm_slot": ([P, C, C], None),
         "coreth_hostexec_call": ([P, C, C, C, C, C, ctypes.c_uint32,
                                   ctypes.c_int64,
                                   ctypes.POINTER(ctypes.c_int64)],
@@ -58,6 +63,7 @@ def _lib():
         "coreth_hostexec_out_logs": ([P, C, ctypes.POINTER(ctypes.c_int32),
                                       C, ctypes.POINTER(ctypes.c_int32), C],
                                      None),
+        "coreth_hostexec_out_ret": ([P, C], None),
         "coreth_hostexec_commit": ([P], None),
     }
     for name, (args, res) in sig.items():
@@ -72,17 +78,18 @@ class NativeCallResult:
     """One native tx execution: machine-coded status + writeback set."""
 
     __slots__ = ("status", "gas_left", "refund", "writes", "logs",
-                 "host_reason")
+                 "ret", "host_reason")
 
     def __init__(self, status: int, gas_left: int, refund: int,
                  writes: Dict[Tuple[bytes, bytes], bytes],
                  logs: List[Tuple[bytes, List[bytes], bytes]],
-                 host_reason: int):
+                 ret: bytes, host_reason: int):
         self.status = status          # M.STOP / M.REVERT / M.ERR / M.HOST
         self.gas_left = gas_left
         self.refund = refund
         self.writes = writes          # (contract, masked key) -> value32
         self.logs = logs              # (address, topics, data), in order
+        self.ret = ret
         self.host_reason = host_reason
 
     @property
@@ -163,6 +170,24 @@ class HostExecBackend:
         self._lib.coreth_hostexec_set_code(self._h, addr, code, len(code))
         self._registered[addr] = code
 
+    def clear_storage(self) -> None:
+        """Drop the committed-slot cache (underlying state moved)."""
+        self._lib.coreth_hostexec_clear_storage(self._h)
+
+    def reset_contracts(self) -> None:
+        """Drop codes, EOA/contract kinds AND storage: per-tx hygiene
+        for the StateDB bridge, where a mid-block deploy can change
+        what an address resolves to between txs."""
+        self._lib.coreth_hostexec_reset(self._h)
+        self._registered.clear()
+
+    def reset_eoa_kinds(self) -> None:
+        """Drop ONLY cached EOA verdicts: existence/emptiness
+        transitions happen through pure balance moves the bridge's
+        storage generation cannot see, so EOA callees re-resolve while
+        contract code/storage caches survive."""
+        self._lib.coreth_hostexec_reset_kinds(self._h)
+
     def seed_slot(self, contract: bytes, key: bytes, value: bytes) -> None:
         """Install a committed value (OCC prefix overlay)."""
         self._lib.coreth_hostexec_seed_slot(self._h, contract, key, value)
@@ -172,10 +197,13 @@ class HostExecBackend:
         self._lib.coreth_hostexec_commit(self._h)
 
     def call(self, caller: bytes, to: bytes, value: int, gas_price: int,
-             data: bytes, gas: int, warm_addrs=()) -> NativeCallResult:
+             data: bytes, gas: int, warm_addrs=(),
+             warm_slots=()) -> NativeCallResult:
         lib = self._lib
         for a in warm_addrs:
             lib.coreth_hostexec_warm_addr(self._h, a)
+        for a, k in warm_slots:
+            lib.coreth_hostexec_warm_slot(self._h, a, k)
         out = (ctypes.c_int64 * 7)()
         status = lib.coreth_hostexec_call(
             self._h, caller, to, value.to_bytes(32, "big"),
@@ -184,7 +212,7 @@ class HostExecBackend:
             exc, self._cb_error = self._cb_error, None
             raise exc
         n_writes, n_logs = int(out[2]), int(out[3])
-        log_data_total = int(out[4])
+        log_data_total, ret_len = int(out[4]), int(out[5])
         writes: Dict[Tuple[bytes, bytes], bytes] = {}
         if n_writes:
             wa = ctypes.create_string_buffer(20 * n_writes)
@@ -211,6 +239,11 @@ class HostExecBackend:
                 logs.append((la.raw[20 * i:20 * i + 20], topics,
                              blob.raw[off:off + dn]))
                 off += dn
+        ret = b""
+        if ret_len:
+            rb = ctypes.create_string_buffer(ret_len)
+            lib.coreth_hostexec_out_ret(self._h, rb)
+            ret = rb.raw
         return NativeCallResult(
             status=status, gas_left=int(out[0]), refund=int(out[1]),
-            writes=writes, logs=logs, host_reason=int(out[6]))
+            writes=writes, logs=logs, ret=ret, host_reason=int(out[6]))

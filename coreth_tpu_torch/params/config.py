@@ -1,7 +1,6 @@
 """Chain configuration + fork schedule.
 
-Semantic twin of reference params/config.go:474-1100, without the
-stateful-precompile registry (the port's slice registers none).  Ethereum forks
+Semantic twin of reference params/config.go:474-1100.  Ethereum forks
 activate by block number; Avalanche upgrades (ApricotPhase1..Durango)
 activate by block timestamp.  ``Rules`` is the flattened per-block view the
 EVM / processor consult (reference params/config.go:1027).
@@ -9,7 +8,7 @@ EVM / processor consult (reference params/config.go:1027).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -26,6 +25,9 @@ class ChainConfig:
     petersburg_block: Optional[int] = 0
     istanbul_block: Optional[int] = 0
     muir_glacier_block: Optional[int] = 0
+    # per-config stateful-precompile activation overrides, keyed by
+    # Module.config_key (None entry = disabled for this config)
+    precompile_upgrades: Optional[dict] = None
     # Avalanche timestamp upgrades (None = never active)
     apricot_phase1_time: Optional[int] = None
     apricot_phase2_time: Optional[int] = None
@@ -102,9 +104,36 @@ class ChainConfig:
     def is_cancun(self, num: int, time: int) -> bool:
         return _active_time(self.cancun_time, time)
 
+    def precompile_activation_time(self, module):
+        """Per-config activation override by config_key (the reference
+        resolves activation from the chain config's upgrade schedule,
+        config.go getActivePrecompileConfig) — falls back to the
+        module's registry default."""
+        overrides = self.precompile_upgrades or {}
+        return overrides.get(module.config_key, module.timestamp)
+
+    def precompile_active(self, module, timestamp: int) -> bool:
+        at = self.precompile_activation_time(module)
+        return at is not None and timestamp >= at
+
     def rules(self, num: int, timestamp: int) -> "Rules":
-        """Flattened rule set for a block (reference config.go:1027-1100)."""
+        """Flattened rule set for a block (reference config.go:1027-1100).
+
+        Registered stateful-precompile modules active at `timestamp`
+        populate active_precompiles/predicaters (config.go Rules
+        ActivePrecompiles — here fed by the module registry)."""
+        from coreth_tpu_torch.precompile.modules import registered_modules
+        active = {}
+        predicaters = {}
+        for m in registered_modules():
+            if not self.precompile_active(m, timestamp):
+                continue
+            active[m.address] = m.contract
+            if m.predicater is not None:
+                predicaters[m.address] = m.predicater
         return Rules(
+            active_precompiles=active,
+            predicaters=predicaters,
             chain_id=self.chain_id,
             is_homestead=self.is_homestead(num),
             is_eip150=self.is_eip150(num),
@@ -152,6 +181,24 @@ class Rules:
     is_cortina: bool = False
     is_durango: bool = False
     is_cancun: bool = False
+    # address -> stateful precompile module (filled by precompile registry)
+    active_precompiles: dict = field(default_factory=dict)
+    predicaters: dict = field(default_factory=dict)
+
+    # EIP-1559-style semantics arrive with ApricotPhase3 on Avalanche
+    @property
+    def is_london(self) -> bool:
+        return self.is_apricot_phase3
+
+    # EIP-2929/2930 semantics arrive with ApricotPhase2
+    @property
+    def is_berlin(self) -> bool:
+        return self.is_apricot_phase2
+
+    # EIP-3529 refund reduction + EIP-3541 arrive with ApricotPhase3
+    @property
+    def is_eip3529(self) -> bool:
+        return self.is_apricot_phase3
 
 
 def _active_block(fork: Optional[int], num: int) -> bool:
@@ -174,6 +221,15 @@ def _phases(n: int, chain_id: int = 43111, **extra) -> ChainConfig:
     return ChainConfig(chain_id=chain_id, **kw)
 
 
-# The "everything on" config used by the tests and the benchmark shape
-# (reference params/config.go TestChainConfig)
+# Test configurations mirroring reference params/config.go:74-240
+TEST_LAUNCH_CONFIG = _phases(0)
+TEST_APRICOT_PHASE1_CONFIG = _phases(1)
+TEST_APRICOT_PHASE2_CONFIG = _phases(2)
+TEST_APRICOT_PHASE3_CONFIG = _phases(3)
+TEST_APRICOT_PHASE4_CONFIG = _phases(4)
+TEST_APRICOT_PHASE5_CONFIG = _phases(5)
+TEST_BANFF_CONFIG = _phases(9)
+TEST_CORTINA_CONFIG = _phases(10)
+TEST_DURANGO_CONFIG = _phases(11)
+# The "everything on" config used by most tests (reference TestChainConfig)
 TEST_CHAIN_CONFIG = _phases(11, chain_id=43111)

@@ -36,14 +36,21 @@ them in windows of the fused OCC kernel (K6, with K5's lane interpreter,
 the K4 ALU and K3 keccak inside, and with ``specialize`` the traced
 programs of the contracts the tracer accepts, K7); without it, each
 block runs on the step machine (K5) with miss-and-rerun storage rounds,
-OCC validation on the host, and the conflict suffix on the native host
-session.  A block
-neither path takes — contract creation, host-only opcodes, a lane that
-escapes the machine — or whose device ``ok`` flag is 0, or that fails a
-consensus check, raises
-``ReplayError`` with ``.block`` set: the host execution path (the
-reference's ``Processor`` fallback) is not ported yet, and the engine
-refuses loudly instead.
+OCC validation on the host, and the conflict suffix on the host
+interpreter (``EVM.call``, served by the native session where it can).
+With ``serial_shortcircuit`` provably serial blocks (one contract,
+constant storage keys: the swap shape) skip the device and run on the
+native session.
+
+A block neither path takes — contract creation, host-only opcodes,
+precompile calls, a lane that escapes the machine — runs on the exact
+host path (``_fallback``: the ``Processor`` over a journaled
+``StateDB`` on the engine's store), and so does a transfer-window block
+whose device ``ok`` flag is 0 or that fails a consensus check: the
+window rewinds to its start, re-applies its valid prefix on the device
+(``_recover_window``), and the block runs on the host path.  A block
+that fails there too raises ``ReplayError`` with ``.block`` set, the
+engine's root and the store's tries at the valid prefix.
 """
 
 from __future__ import annotations
@@ -62,11 +69,10 @@ from coreth_tpu_torch.consensus.engine import ConsensusError, DummyEngine
 from coreth_tpu_torch.crypto import keccak256, native
 from coreth_tpu_torch.crypto import secp_device
 from coreth_tpu_torch.crypto.secp256k1 import N as SECP_N
-from coreth_tpu_torch.evm.device.tables import fork_key
 from coreth_tpu_torch.evm.precompiles import (
     is_prohibited, special_call_targets,
 )
-from coreth_tpu_torch.mpt import NativeSecureTrie
+from coreth_tpu_torch.mpt import NativeSecureTrie, derive_hasher
 from coreth_tpu_torch.ops import u256
 from coreth_tpu_torch.parallel.mesh import gather_index, segment_sum
 from coreth_tpu_torch.parallel.shard import (
@@ -74,9 +80,10 @@ from coreth_tpu_torch.parallel.shard import (
 )
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
-from coreth_tpu_torch.state import StateStore, normalize_state_key
+from coreth_tpu_torch.processor import Processor
+from coreth_tpu_torch.state import StateDB, StateStore, normalize_state_key
 from coreth_tpu_torch.types import (
-    Block, LatestSigner, Log, Receipt, StateAccount,
+    Block, LatestSigner, Log, Receipt, StateAccount, derive_sha,
 )
 from coreth_tpu_torch.types.account import EMPTY_CODE_HASH, EMPTY_ROOT_HASH
 from coreth_tpu_torch.workloads.erc20 import (
@@ -98,18 +105,17 @@ def _block_error(msg: str, block: Block) -> ReplayError:
     return err
 
 
-_NOT_PORTED = ("the host execution path (Processor fallback) is not "
-               "ported yet")
-
-
 @dataclass
 class ReplayStats:
     blocks_device: int = 0
+    # blocks the exact host path (``_fallback``) replayed, and its seconds
+    blocks_fallback: int = 0
     txs: int = 0
     t_classify: float = 0.0
     t_sender: float = 0.0
     t_device: float = 0.0
     t_trie: float = 0.0
+    t_fallback: float = 0.0
     # windows whose fetch download was started at issue time
     reads_prefetched: int = 0
     # where batched sender recovery ran: the device ladder vs the
@@ -415,6 +421,7 @@ class DeviceState:
         self.slot_capacity = slot_capacity
         self.slot_index: Dict[Tuple[bytes, bytes], int] = {}
         self.slot_keys: List[Tuple[bytes, bytes]] = [(b"", b"")]
+        self.slots_by_contract: Dict[bytes, List[int]] = {}
         self.slot_row_of: List[int] = [0]
         self._srow = [1 if s == 0 else 0 for s in range(n_shards)]
         self._cbucket: Dict[bytes, int] = {}  # contract -> owning shard
@@ -574,6 +581,7 @@ class DeviceState:
         sid = len(self.slot_keys)
         self.slot_index[(contract, key)] = sid
         self.slot_keys.append((contract, key))
+        self.slots_by_contract.setdefault(contract, []).append(sid)
         row = self._alloc_slot_row(contract)  # may replace slot_row_of
         self.slot_row_of.append(row)
         self.slot_host.append(value)
@@ -581,9 +589,12 @@ class DeviceState:
             self._staged_slots.append((sid, value))
         return sid
 
-    def flush_staged(self) -> None:
+    def flush_staged(self):
         """Write the staged values of accounts and slots (the last staged
-        value of a slot wins)."""
+        value of a slot wins).  Returns the (accounts, slots) lists it
+        wrote, so a speculative window can re-stage them if its tables
+        are discarded after a rewind."""
+        flushed = (self._staged, self._staged_slots)
         if self._staged:
             idx = np.asarray([self.row_of[s[0]] for s in self._staged],
                              dtype=np.int64)
@@ -601,6 +612,7 @@ class DeviceState:
             _scatter_drop(self.slot_vals, _upload(idx, self.device),
                           _upload(vals, self.device))
             self._staged_slots = []
+        return flushed
 
     def read_accounts(self, indices: List[int]) -> List[Tuple[int, int]]:
         """(balance, nonce) of the given gids, read back to the host."""
@@ -710,7 +722,11 @@ class ReplayEngine:
     as in the reference.  ``token_fastpath`` (default on; off is the
     reference's ``CORETH_NO_TOKEN_FASTPATH=1``) classifies ERC-20
     ``transfer()`` calls onto the transfer windows instead of the
-    machine.
+    machine.  ``serial_shortcircuit`` (default on, the reference's
+    ``CORETH_SERIAL_SHORTCIRCUIT=1``) sends provably serial machine
+    blocks (``MachineBlockExecutor._serial_eligible``) straight to the
+    native host session.  A block no device path takes runs on the
+    exact host path (``Processor``).
 
     ``mesh`` (``parallel.make_mesh(n)``, n > 1) shards the state tables
     over n shards of the one card: transfer windows run on the sharded
@@ -745,9 +761,11 @@ class ReplayEngine:
                  shard_recover: bool = False, shard_occ: bool = True,
                  keyrange: bool = True, keyrange_threshold: int = 16,
                  exchange_density: float = 0.25,
-                 token_fastpath: bool = True):
+                 token_fastpath: bool = True,
+                 serial_shortcircuit: bool = True):
         self.device = default_device(device)
         self.token_fastpath = token_fastpath
+        self.serial_shortcircuit = serial_shortcircuit
         self.device_occ = device_occ
         self.specialize = specialize
         self.shard_occ = shard_occ
@@ -792,6 +810,7 @@ class ReplayEngine:
                                  self.n_shards)
         self.signer = LatestSigner(config.chain_id)
         self.engine = DummyEngine()
+        self.processor = Processor(config, engine=self.engine)
         self.stats = ReplayStats(n_shards=self.n_shards)
         self.batch_pad = batch_pad
         self.window = window
@@ -809,7 +828,7 @@ class ReplayEngine:
         self._slot_overlay: Dict[int, int] = {}
         # token gas variants per fork schedule, and (contract, address)
         # -> slot index shortcuts: the classifier runs per tx
-        self._vg_cache: Dict[tuple, Optional[dict]] = {}
+        self._vg_cache: Dict[tuple, dict] = {}
         self._addr_slot: Dict[Tuple[bytes, bytes], int] = {}
         # bumped whenever the token path writes contract storage: the
         # machine executor's window runner rebuilds when it sees a bump
@@ -933,8 +952,8 @@ class ReplayEngine:
 
         Two tx shapes replay on the window kernels, mixed freely within a
         block: pure value transfers, and (with ``token_fastpath``, from
-        Apricot Phase 2 on, where the native session measures the exec
-        gas) ERC-20 ``transfer()`` calls on contracts whose runtime is
+        Apricot Phase 1 on) ERC-20 ``transfer()`` calls on contracts whose
+        runtime is
         the known token (``workloads/erc20``).  For token calls
         the classifier derives each tx's exact gas by simulating the
         mapping-slot values on the host and builds the Transfer log; the
@@ -1040,23 +1059,18 @@ class ReplayEngine:
             return v
         return self.state.slot_host[sid]
 
-    def _token_block_ctx(self, rules, block: Block) -> Optional[dict]:
+    def _token_block_ctx(self, rules, block: Block) -> dict:
         """Per-block constants of the token fast path: the three exec-gas
-        variants (measured once per fork schedule on the native session,
-        ``measure_transfer_exec_gas``) and the calldata gas constants.
-        None where the native session runs no fork of these rules
-        (before Apricot Phase 2): token calls then go to the machine
-        path, which takes no such block either."""
+        variants (measured once per fork schedule,
+        ``measure_transfer_exec_gas``) and the calldata gas constants."""
         key = tuple(v for f, v in sorted(vars(rules).items())
                     if f.startswith("is_"))
-        if key not in self._vg_cache:
-            self._vg_cache[key] = None if fork_key(rules) is None else {
+        vg = self._vg_cache.get(key)
+        if vg is None:
+            vg = self._vg_cache[key] = {
                 v: measure_transfer_exec_gas(self.config, block.number,
                                              block.time, v)
                 for v in ("noop", "set", "reset")}
-        vg = self._vg_cache[key]
-        if vg is None:
-            return None
         nz_gas = (P.TX_DATA_NON_ZERO_GAS_EIP2028 if rules.is_istanbul
                   else P.TX_DATA_NON_ZERO_GAS_FRONTIER)
         return dict(vg=vg, nz_gas=nz_gas, z_gas=P.TX_DATA_ZERO_GAS)
@@ -1116,7 +1130,7 @@ class ReplayEngine:
         the window's touched set, not the table capacity).  The window
         pads to the next power of two of its length with all-masked
         batches."""
-        self.state.flush_staged()
+        flushed = self.state.flush_staged()
         K = 1
         while K < len(items):
             K *= 2
@@ -1189,26 +1203,36 @@ class ReplayEngine:
             s_idxs[k, :len(slot_lists[k])] = \
                 [slot_local[g] for g in slot_lists[k]]
         return (txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists,
-                slot_lists)
+                slot_lists, flushed)
 
-    def _issue_window_run(self, items: List[Tuple[Block, dict]]) -> dict:
+    def _issue_window_run(self, items: List[Tuple[Block, dict]],
+                          fetch: bool = True) -> Optional[dict]:
         """One kernel launch for a whole run of transfer blocks: upload
         the stacked batches, launch, and start the fetch tensor's copy
-        back into pinned memory (an event marks its arrival)."""
+        back into pinned memory (an event marks its arrival).  The
+        window handle keeps the tables the launch started from (the
+        kernel writes into clones), for a rewind.  ``fetch=False``
+        launches for the tables alone (a rewind's prefix re-apply) and
+        returns None."""
         if self.mesh is not None:
-            return self._issue_window_mesh(items)
+            return self._issue_window_mesh(items, fetch)
         t0 = time.monotonic()
         (txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists,
-         slot_lists) = self._prepare_window(items)
+         slot_lists, flushed) = self._prepare_window(items)
         st = self.state
+        prev = (st.balances, st.nonces, st.slot_vals)
         ups = [_upload(a, self.device)
                for a in (acct_gids, slot_gids, txds, t_idxs, s_idxs)]
         st.balances, st.nonces, st.slot_vals, fetches = _transfer_window(
             st.balances, st.nonces, st.slot_vals, *ups)
+        if not fetch:
+            self.stats.t_device += time.monotonic() - t0
+            return None
         return self._fetch_window(items, fetches, touched_lists, slot_lists,
-                                  ups, t0)
+                                  ups, t0, prev, flushed)
 
-    def _issue_window_mesh(self, items: List[Tuple[Block, dict]]) -> dict:
+    def _issue_window_mesh(self, items: List[Tuple[Block, dict]],
+                           fetch: bool = True) -> Optional[dict]:
         """The window on the sharded kernel (K8, one cluster launch): the
         window locals' rows are already shard-major device rows
         (``row_of``), the tx axis is interleaved over the shards, and the
@@ -1220,8 +1244,9 @@ class ReplayEngine:
             interleave_txs, sharded_transfer_window)
         t0 = time.monotonic()
         (txds, t_idxs, s_idxs, acct_rows, slot_rows, touched_lists,
-         slot_lists) = self._prepare_window(items)
+         slot_lists, flushed) = self._prepare_window(items)
         st = self.state
+        prev = (st.balances, st.nonces, st.slot_vals)
         n = self.n_shards
         mode = exchange_mode(acct_rows.shape[0] + slot_rows.shape[0],
                              st.capacity + st.slot_capacity, n,
@@ -1237,11 +1262,14 @@ class ReplayEngine:
             self.stats.exchange_psum += 1
         else:
             self.stats.exchange_ppermute += 1
+        if not fetch:
+            self.stats.t_device += time.monotonic() - t0
+            return None
         return self._fetch_window(items, fetches, touched_lists, slot_lists,
-                                  ups, t0)
+                                  ups, t0, prev, flushed)
 
     def _fetch_window(self, items, fetches, touched_lists, slot_lists, ups,
-                      t0: float) -> dict:
+                      t0: float, prev, flushed) -> dict:
         """Start the fetch tensor's copy into pinned memory with an
         event marking its arrival; the window handle for
         ``_complete_window_run``."""
@@ -1258,17 +1286,39 @@ class ReplayEngine:
         self.stats.t_device += time.monotonic() - t0
         return dict(items=items, fetches=host, event=event,
                     touched_lists=touched_lists, slot_lists=slot_lists,
-                    t_pad=ups[3].shape[1], keep=(ups, fetches))
+                    t_pad=ups[3].shape[1], keep=(ups, fetches), prev=prev,
+                    flushed=flushed)
 
-    def _complete_window_run(self, win: dict) -> None:
+    def _discard_window(self, win: dict) -> None:
+        """Drop a speculatively issued window whose base state a rewind
+        invalidated.  The tables are already back at the failed window's
+        start plus its re-applied prefix and the host path's refresh;
+        what would be lost are the rows FIRST written by the discarded
+        window's issue (its flushed staged rows).  Re-stage them from
+        the current host state (the trie and ``slot_host``, which the
+        host path already refreshed), not from the values captured
+        then: the host-path block may have touched those rows."""
+        fa, fs = win["flushed"]
+        st = self.state
+        for idx, _bal, _non in fa:
+            raw = self.trie.get(st.addrs[idx])
+            acct = StateAccount.from_rlp(raw) if raw else StateAccount()
+            st._staged.append((idx, acct.balance, acct.nonce))
+        for sid, _v in fs:
+            st._staged_slots.append((sid, st.slot_host[sid]))
+
+    def _complete_window_run(self, win: dict, blocks: List[Block],
+                             start_idx: int) -> Optional[int]:
         """Validate a window from its fetched rows, stage every block,
-        and fold the window once.  A block whose ok flag is 0, or that
-        fails validation, raises ReplayError after the valid prefix
-        before it is folded (so ``root`` is that prefix's), with the
-        classifier's slot overlay dropped.  A clean window leaves the
-        overlay: the next window, already classified, may hold sims on
-        it, and a validated value equals its sim (a difference would
-        have failed the root check)."""
+        and fold the window once.  Returns None on full success, else
+        the index (into ``blocks``, where the window's first block is
+        ``start_idx``) to resume from after the rewind and the host
+        path (``_recover_window``): a block whose ok flag is 0, or that
+        fails validation, is taken by the host path after the valid
+        prefix before it is folded.  A clean window leaves the
+        classifier's slot overlay: the next window, already classified,
+        may hold sims on it, and a validated value equals its sim (a
+        difference would have failed the root check)."""
         t0 = time.monotonic()
         if win["event"] is not None:
             win["event"].synchronize()   # the rows are in pinned memory
@@ -1276,21 +1326,72 @@ class ReplayEngine:
         self.stats.t_device += time.monotonic() - t0
         for k, (block, batch) in enumerate(win["items"]):
             if arr[k, -1, 0] != 1:
-                self._slot_overlay.clear()
+                # fold the staged valid prefix [0, k) before the rewind:
+                # the host path opens its StateDB on the folded store
                 self.commit_pipe.flush()
-                raise _block_error(
-                    "device execution rejected the block (nonce or "
-                    f"solvency check failed); {_NOT_PORTED}", block)
+                return self._recover_window(win, k, blocks, start_idx)
             try:
                 self._validate_and_advance(
                     block, batch, arr[k], win["touched_lists"][k],
                     win["slot_lists"][k], win["t_pad"])
             except ReplayError:
-                self._slot_overlay.clear()
+                # validation (gas, receipts, bloom, block fee) failed:
+                # the host path retries the block.  _validate_and_advance
+                # raises before staging, so the staged set is exactly
+                # the valid prefix [0, k)
                 self.commit_pipe.flush()
-                raise
+                return self._recover_window(win, k, blocks, start_idx)
         # ONE deduped fold + root check for the whole window
         self.commit_pipe.flush()
+        return None
+
+    def _rebuild_device_rows(self) -> None:
+        """Rebuild every table row from the host state (the engine trie
+        and ``slot_host``): the rewind's route when a table grew while a
+        window was in flight (the failed window's tables then have a
+        stale shape, and on a mesh stale arena rows, which move on
+        growth)."""
+        st = self.state
+        st._staged = []
+        st._staged_slots = []
+        bal = np.zeros((st.capacity, u256.LIMBS), dtype=np.int32)
+        non = np.zeros((st.capacity,), dtype=np.int32)
+        for idx, addr in enumerate(st.addrs):
+            raw = self.trie.get(addr)
+            if raw is None:
+                continue
+            a = StateAccount.from_rlp(raw)
+            if a.balance or a.nonce:
+                bal[st.row_of[idx]] = u256.pack_np([a.balance])[0]
+                non[st.row_of[idx]] = a.nonce
+        st.balances = _upload(bal, st.device)
+        st.nonces = _upload(non, st.device)
+        sv = np.zeros((st.slot_capacity, u256.LIMBS), dtype=np.int32)
+        for sid in range(1, len(st.slot_keys)):
+            v = st.slot_host[sid]
+            if v:
+                sv[st.slot_row_of[sid]] = u256.pack_np([v])[0]
+        st.slot_vals = _upload(sv, st.device)
+
+    def _recover_window(self, win: dict, k: int, blocks: List[Block],
+                        start_idx: int) -> int:
+        """Block k of the window failed on the device: its valid prefix
+        [0, k) is already folded.  Put the tables back at the window's
+        start, re-apply the prefix on the device (K1, or K8 on a mesh),
+        then run block k on the exact host path.  Returns the index to
+        resume issuing from."""
+        self._slot_overlay.clear()  # the pending window's sims are void
+        st = self.state
+        prev = win["prev"]
+        if (prev[0].shape[0] != st.capacity
+                or prev[2].shape[0] != st.slot_capacity):
+            self._rebuild_device_rows()
+        else:
+            st.balances, st.nonces, st.slot_vals = prev
+            if k > 0:
+                self._issue_window_run(win["items"][:k], fetch=False)
+        self._fallback(blocks[start_idx + k])
+        return start_idx + k + 1
 
     def _validate_and_advance(self, block: Block, batch: dict,
                               fetched: np.ndarray, touched: List[int],
@@ -1306,7 +1407,7 @@ class ReplayEngine:
             cum += g
             cums.append(cum)
         if cum != block.header.gas_used:
-            raise _block_error(f"gas used mismatch; {_NOT_PORTED}", block)
+            raise _block_error("gas used mismatch", block)
         # every log is the uniform Transfer shape (address, three 32-byte
         # topics, 32 data bytes): one C++ call derives root and bloom
         rec_root, bloom = native.receipt_root(
@@ -1315,10 +1416,9 @@ class ReplayEngine:
             b"".join(lg.address + b"".join(lg.topics) + lg.data
                      for lg in logs if lg is not None))
         if rec_root != block.header.receipt_hash:
-            raise _block_error(f"receipt root mismatch; {_NOT_PORTED}",
-                               block)
+            raise _block_error("receipt root mismatch", block)
         if bloom != block.header.bloom:
-            raise _block_error(f"bloom mismatch; {_NOT_PORTED}", block)
+            raise _block_error("bloom mismatch", block)
         if self.config.is_apricot_phase4(block.time):
             try:
                 self.engine.verify_block_fee(
@@ -1348,11 +1448,6 @@ class ReplayEngine:
         self.stats.blocks_device += 1
         self.stats.txs += len(block.transactions)
 
-    def _refuse(self, block: Block) -> ReplayError:
-        return _block_error(
-            "neither a value-transfer block nor a device-machine block; "
-            f"{_NOT_PORTED}", block)
-
     # ------------------------------------------------------------- machine
     def _machine_executor(self):
         """Lazy general-bytecode block executor (machine_block.py)."""
@@ -1374,8 +1469,9 @@ class ReplayEngine:
         ``LOOKAHEAD`` with ``device_occ``, else one) into one run for
         ``MachineBlockExecutor.execute_run``.  A run stops at the first
         later block the transfer classifier takes, and at a fork change.
-        Returns how many blocks were replayed (>= 1); raises ReplayError
-        when the machine cannot take block ``i``."""
+        Returns how many blocks were replayed (>= 1); block ``i`` runs on
+        the exact host path when no machine run forms, or when
+        ``execute_run`` hands it back (returns 0)."""
         mx = self._machine_executor()
         lookahead = mx.LOOKAHEAD if self.device_occ else 1
         items = []
@@ -1399,9 +1495,14 @@ class ReplayEngine:
             items.append((blocks[j], plans))
             j += 1
         if not items:
-            raise self._refuse(blocks[i])
+            self._fallback(blocks[i])
+            return 1
         mx._fork = fork
-        return mx.execute_run(items)
+        consumed = mx.execute_run(items)
+        if consumed == 0:
+            self._fallback(blocks[i])
+            consumed = 1
+        return consumed
 
     def replay_block(self, block: Block) -> bytes:
         """Process one block synchronously."""
@@ -1412,7 +1513,8 @@ class ReplayEngine:
         if batch is None:
             self._machine_run([block], 0)
             return self.root
-        self._complete_window_run(self._issue_window_run([(block, batch)]))
+        self._complete_window_run(self._issue_window_run([(block, batch)]),
+                                  [block], 0)
         return self.root
 
     def replay(self, blocks: List[Block],
@@ -1420,37 +1522,142 @@ class ReplayEngine:
         """Windowed, pipelined replay: window k+1 is classified (host)
         and launched (device) before window k is validated and folded,
         so the card runs while the host folds; sender recovery runs in
-        look-ahead segments alongside."""
+        look-ahead segments alongside.  When window k rewinds (a block
+        taken by the host path), the speculative window k+1, launched
+        on a now-stale base, is discarded and its blocks classified
+        again from the resume point."""
         window = window or self.window
         n = len(blocks)
         pipe = _SenderPipeline(self, blocks)
         i = 0
-        pending: Optional[dict] = None
+        pending: Optional[Tuple[dict, int]] = None
         while i < n or pending is not None:
             run: List[Tuple[Block, dict]] = []
-            refused = None
+            run_start = i
+            refused = False
             while i < n and len(run) < window:
                 pipe.ensure(i)
                 t0 = time.monotonic()
                 batch = self._classify(blocks[i])
                 self.stats.t_classify += time.monotonic() - t0
                 if batch is None:
-                    refused = blocks[i]
+                    refused = True
                     break
                 run.append((blocks[i], batch))
                 i += 1
             win = self._issue_window_run(run) if run else None
             if pending is not None:
-                self._complete_window_run(pending)
-            pending = win
-            if refused is not None:
-                if pending is not None:
-                    self._complete_window_run(pending)
-                    pending = None
+                p_win, p_start = pending
+                pending = None
+                resume = self._complete_window_run(p_win, blocks, p_start)
+                if resume is not None:
+                    if win is not None:
+                        self._discard_window(win)
+                    i = resume
+                    continue
+            if win is not None and refused:
+                # nothing may stay in flight past a machine or host block
+                resume = self._complete_window_run(win, blocks, run_start)
+                if resume is not None:
+                    i = resume
+                    continue
+            elif win is not None:
+                pending = (win, run_start)
+            if refused:
                 i += self._machine_run(blocks, i, ensure=pipe.ensure)
         return self.root
+
+    # ------------------------------------------------------------ host path
+    def _fallback(self, block: Block) -> bytes:
+        """The exact host path: the block runs on the ``Processor`` over
+        a ``StateDB`` on the engine's store, its gas, receipts and root
+        are checked against the header, and the device tables and the
+        slot mirror are refreshed from what it wrote.  A check that
+        fails (or an invalid tx) raises with the store restored, so the
+        engine's root and tries stay at the previous block."""
+        self.commit_pipe.flush()  # staged windows precede this block
+        t0 = time.monotonic()
+        if (self.parent_header is None
+                and self.config.is_apricot_phase4(block.time)):
+            # the shim cannot supply parent block_gas_cost/time, which
+            # AP4+ fee validation needs — refuse rather than mis-validate
+            raise ReplayError(
+                "ReplayEngine needs parent_header for AP4+ blocks; "
+                "construct it with parent_header=...")
+        parent = self.parent_header or _HeaderShim(block)
+        statedb = StateDB(self.store)
+        try:
+            receipts, _logs, used_gas = self.processor.process(
+                block, parent, statedb)
+            if used_gas != block.header.gas_used:
+                raise _block_error("gas used mismatch (fallback)", block)
+            if derive_sha(receipts, derive_hasher()) \
+                    != block.header.receipt_hash:
+                raise _block_error("receipt root mismatch (fallback)",
+                                   block)
+            root = statedb.intermediate_root(True)
+            if root != block.header.root:
+                raise _block_error("state root mismatch (fallback)", block)
+        except BaseException:
+            statedb.restore()
+            raise
+        statedb.commit(delete_empty_objects=True)
+        self._refresh_from_host(statedb)
+        self.root = root
+        self.parent_header = block.header
+        self.stats.blocks_fallback += 1
+        self.stats.txs += len(block.transactions)
+        self.stats.t_fallback += time.monotonic() - t0
+        return root
+
+    def _refresh_from_host(self, statedb: StateDB) -> None:
+        """Bring the device tables, the account metadata and the slot
+        mirror up to what a host-path block wrote: every indexed account
+        it touched is staged from the trie, and every tracked slot of a
+        contract whose storage root moved is reloaded from its trie."""
+        self._slot_overlay.clear()
+        self.storage_epoch += 1
+        st = self.state
+        st.flush_staged()
+        for addr in statedb._objects:
+            idx = st.index.get(addr)
+            if idx is None:
+                continue
+            raw = self.trie.get(addr)
+            account = StateAccount.from_rlp(raw) if raw else StateAccount()
+            st._staged.append((idx, account.balance, account.nonce))
+            st.has_code[idx] = account.code_hash != EMPTY_CODE_HASH
+            st.multicoin[idx] = account.is_multi_coin
+            st.code_hashes[idx] = account.code_hash
+            old_root = st.roots[idx]
+            st.roots[idx] = account.root
+            if account.root == old_root:
+                continue
+            trie = self.store.storage.get(addr)
+            for sid in st.slots_by_contract.get(addr, []):
+                raw_v = trie.get(st.slot_keys[sid][1]) \
+                    if trie is not None else None
+                v = int.from_bytes(rlp.decode(raw_v), "big") if raw_v else 0
+                if v != st.slot_host[sid]:
+                    st.slot_host[sid] = v
+                    st._staged_slots.append((sid, v))
+        st.flush_staged()
 
     def commit(self) -> bytes:
         """Fold anything staged; returns the state root."""
         self.commit_pipe.flush()
         return self.trie.hash()
+
+
+class _HeaderShim:
+    """Minimal parent-header stand-in when the true parent header was
+    not supplied to the engine — correct only before Apricot Phase 4
+    (the AP4 block-gas-cost check needs the real parent's
+    block_gas_cost and time)."""
+
+    def __init__(self, block: Block):
+        self.time = block.header.time
+        self.number = block.header.number - 1
+        self.block_gas_cost = None
+        self.base_fee = None
+        self.ext_data_gas_used = None

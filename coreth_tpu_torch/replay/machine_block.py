@@ -15,7 +15,8 @@ Two execution paths, chosen by the engine's ``device_occ``:
   the cross-block state fold stay on the device, against a slot table
   that lives there.  The next window is launched before the
   previous one's tries fold.  A block the kernel marks dirty (a lane
-  that escaped) goes to ``execute`` and ends the run.  On a mesh engine
+  that escaped) goes to ``execute`` and ends the run; if ``execute``
+  cannot finish it either, the engine's host path takes it.  On a mesh engine
   the windows run per shard (``evm/device/shard.ShardedWindowRunner``,
   K9 with its flags reduce inside; ``shard_occ=False`` keeps the single-card
   runner), and a window whose flags say clean lets the next one launch
@@ -29,18 +30,24 @@ Two execution paths, chosen by the engine's ``device_occ``:
      against the in-block state the valid prefix produced; txs whose
      reads diverge re-execute with the best-known pre-state snapshot;
   3. after ``DEVICE_ROUNDS`` device rounds, the conflict suffix (every
-     call from the first still-pending one on) runs sequentially on the
-     native host session (``evm/hostexec``, native/evm.cc), seeded with
-     the device-valid prefix's writes — the reference reaches the same
-     compiled executor through its interpreter's hostexec bridge.
+     call from the first still-pending one on) runs sequentially through
+     ``EVM.call`` on a scratch ``StateDB`` carrying the device-valid
+     prefix's writes (the native session serves each call it can, the
+     host interpreter the rest).
+
+With the engine's ``serial_shortcircuit`` (the reference's
+``CORETH_SERIAL_SHORTCIRCUIT=1``) a run of provably serial blocks — two
+or more calls into one contract whose storage keys are PUSH constants,
+the swap shape, where every tx conflicts with every other — goes
+straight to the native session, one tx after another, with no device
+launch (``_execute_serial_run``); a serial block in the middle of a
+run ends the window batch before it.
 
 Account effects (nonces, buyGas solvency, value moves, fees) are a host
 sweep over Python ints, O(txs).  A block this executor cannot finish —
-a lane that escapes the machine (``HOST``), a suffix tx the native
-session hands back as needing the host interpreter — raises
-``ReplayError`` naming the block: the reference's Python interpreter
-fallback is not ported.  Reference semantics: core/state_processor.go:95,
-core/state_transition.go TransitionDb.
+a lane that escapes the machine (``HOST``) — goes back to the engine's
+exact host path (``ReplayEngine._fallback``).  Reference semantics:
+core/state_processor.go:95, core/state_transition.go TransitionDb.
 """
 
 from __future__ import annotations
@@ -49,13 +56,17 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
+from coreth_tpu_torch import vmerrs
 from coreth_tpu_torch.consensus.engine import ConsensusError
 from coreth_tpu_torch.crypto import native
+from coreth_tpu_torch.evm import EVM, BlockContext, Config, TxContext
+from coreth_tpu_torch.evm.census import static_storage_keys
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import tables as DT
 from coreth_tpu_torch.evm.device.adapter import (
     BlockEnv, MachineRunner, MachineWindowRunner, TxResult, TxSpec,
 )
+from coreth_tpu_torch.evm.hostexec import bridge
 from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
 from coreth_tpu_torch.evm.hostexec.eligibility import (
     COINBASE_WARM_FORKS, native_eligible,
@@ -65,6 +76,7 @@ from coreth_tpu_torch.evm.precompiles import (
 )
 from coreth_tpu_torch.mpt import derive_hasher
 from coreth_tpu_torch.processor.state_transition import intrinsic_gas
+from coreth_tpu_torch.state import StateDB
 from coreth_tpu_torch.types import (
     Block, Log, Receipt, StateAccount, create_bloom, derive_sha,
 )
@@ -116,8 +128,9 @@ class MachineBlockExecutor:
         self.e = engine
         self.rounds = 0            # OCC re-execution rounds
         self.blocks = 0
-        self.host_txs = 0          # conflict-suffix txs resolved off device
-        self.native_txs = 0        # ... of them served by the native session
+        self.host_txs = 0          # conflict-suffix txs resolved on the host
+        self.native_txs = 0        # host-side txs the native session served
+        self.serial_blocks = 0     # blocks the serial short-circuit took
         self.launches = 0          # step-machine runs (miss rounds included)
         self.steps = 0             # lane-steps those runs executed
         # host-clock seconds of the runners (adapter.MachineRunner and
@@ -143,6 +156,7 @@ class MachineBlockExecutor:
                 w[k] += getattr(self._runner, k)
         return dict(blocks=self.blocks, rounds=self.rounds,
                     host_txs=self.host_txs, native_txs=self.native_txs,
+                    serial_blocks=self.serial_blocks,
                     launches=self.launches, steps=self.steps,
                     window_launches=w["launches"],
                     window_steps=w["steps"],
@@ -192,7 +206,7 @@ class MachineBlockExecutor:
             r_idx = e._account(tx.to)
             if state.multicoin[r_idx]:
                 return None
-            intrinsic = intrinsic_gas(tx.data, rules)
+            intrinsic = intrinsic_gas(tx.data, [], False, rules)
             if tx.gas < intrinsic:
                 return None
             if not state.has_code[r_idx]:
@@ -216,82 +230,79 @@ class MachineBlockExecutor:
         return plans
 
     # ------------------------------------------------- conflict suffix
-    def _code_resolver(self, rules):
-        """Callee code for the native session: the engine's code store
-        for eligible contracts, b"" for EOAs, None (HOST) otherwise."""
-        e = self.e
-        avoid = special_call_targets(rules)
-
-        def resolve(addr: bytes) -> Optional[bytes]:
-            if addr in avoid or is_prohibited(addr):
-                return None
-            idx = e._account(addr)
-            if e.state.has_code[idx]:
-                code = e.store.code(e.state.code_hashes[idx])
-                return code if native_eligible(code, self._fork)[0] \
-                    else None
-            raw = e.trie.get(addr)
-            if raw is not None:
-                a = StateAccount.from_rlp(raw)
-                if a.nonce == 0 and a.balance == 0:
-                    return None   # existing-but-empty: EIP-158 touch
-            return b""
-        return resolve
-
     def _host_resolve(self, block: Block, plans, call_idx, results,
                       first: int) -> None:
-        """Sequentially re-execute every call tx at index >= ``first`` on
-        the native host session, seeded with the device-valid prefix's
-        storage writes.  One pass resolves an arbitrarily deep conflict
-        chain; results slot into the same validation sweep (reads empty:
-        exact by construction)."""
-        from coreth_tpu_torch.replay.engine import _block_error
+        """Sequentially re-execute every call tx at index >= ``first``
+        through ``EVM.call`` against a scratch StateDB on the engine's
+        folded store, carrying the device-valid prefix's storage writes
+        (the hostexec bridge serves each call the native session can
+        take, the host interpreter the rest).  One pass resolves an
+        arbitrarily deep conflict chain; results slot into the same
+        validation sweep (reads empty: exact by construction).  The
+        scratch StateDB is never hashed, so the store is not written."""
         e = self.e
+        hx0 = bridge.counters().get("native_calls", 0)
         rules = e.config.rules(block.number, block.time)
-
-        def slot(contract: bytes, key: bytes) -> bytes:
-            return self._base_value(contract, key).to_bytes(32, "big")
-
-        be = HostExecBackend(self._fork, e.config.chain_id, slot,
-                             self._code_resolver(rules))
-        try:
-            be.set_env(block.header.coinbase, block.time, block.number,
-                       block.header.gas_limit, block.base_fee or 0)
-            for i in call_idx:
-                pl = plans[i]
-                if i < first:
-                    res = results[i]
-                    if res is not None and res.status == M.STOP:
-                        for key, v in res.writes.items():
-                            be.seed_slot(pl.to, key, v.to_bytes(32, "big"))
-                    continue
-                warm = [pl.sender, pl.to]
-                if self._fork in COINBASE_WARM_FORKS:
-                    warm.append(block.header.coinbase)   # EIP-3651
-                r = be.call(pl.sender, pl.to, pl.value, pl.price, pl.data,
-                            pl.gas_limit - pl.intrinsic, warm_addrs=warm)
-                if r.needs_host:
-                    raise _block_error(
-                        f"machine block: tx {i} needs the host "
-                        f"interpreter (reason {r.host_reason}), which is "
-                        "not ported", block)
-                logs, writes = [], {}
-                if r.status == M.STOP:
-                    be.commit()   # the next suffix tx reads these
-                    for (contract, key), v in r.writes.items():
-                        if contract != pl.to:
-                            raise _block_error(
-                                f"machine block: tx {i} wrote another "
-                                "contract's storage", block)
-                        writes[key] = int.from_bytes(v, "big")
-                    logs = [(topics, data) for _a, topics, data in r.logs]
-                results[i] = TxResult(
-                    status=r.status, gas_left=r.gas_left, refund=0,
-                    logs=logs, reads={}, writes=writes)
-                self.host_txs += 1
-                self.native_txs += 1
-        finally:
-            be.close()
+        e.commit_pipe.flush()   # the scratch StateDB reads the folded store
+        scratch = StateDB(e.store)
+        block_ctx = BlockContext(
+            coinbase=block.header.coinbase, number=block.number,
+            time=block.time, gas_limit=block.header.gas_limit,
+            base_fee=block.base_fee)
+        # ONE EVM for the whole suffix (reset per tx): the bridge caches
+        # its native session on the EVM object
+        evm = EVM(block_ctx, TxContext(), scratch, e.config, Config())
+        boosted = set()
+        for i in call_idx:
+            pl = plans[i]
+            if i < first:
+                res = results[i]
+                if res is not None and res.status == M.STOP:
+                    for key, v in res.writes.items():
+                        scratch.set_state(pl.to, key, v.to_bytes(32, "big"))
+                    scratch.finalise(True)
+                continue
+            # solvency is validated later by the account sweep over exact
+            # sequential balances; the scratch StateDB carries block-START
+            # balances, so boost the sender to keep the interpreter's
+            # CanTransfer from mis-failing mid-block
+            if pl.sender not in boosted:
+                scratch.add_balance(pl.sender, 1 << 200)
+                boosted.add(pl.sender)
+            scratch.prepare(rules, pl.sender, block.header.coinbase, pl.to,
+                            list(rules.active_precompiles), [])
+            evm.reset(TxContext(origin=pl.sender, gas_price=pl.price),
+                      scratch)
+            n_logs = len(scratch.logs)
+            _ret, gas_left, err = evm.call(
+                pl.sender, pl.to, pl.data, pl.gas_limit - pl.intrinsic,
+                pl.value)
+            if err is None:
+                status = M.STOP
+            elif isinstance(err, vmerrs.ErrExecutionReverted):
+                status = M.REVERT
+            else:
+                status = M.ERR
+            logs = []
+            writes = {}
+            if status == M.STOP:
+                logs = [([bytes(t) for t in lg.topics], bytes(lg.data))
+                        for lg in scratch.logs[n_logs:]]
+                obj = scratch._objects.get(pl.to)
+                if obj is not None:
+                    for key in list(obj.dirty_storage):
+                        cur = scratch.get_state(pl.to, key, _normalize=False)
+                        writes[key] = int.from_bytes(cur, "big")
+            else:
+                del scratch.logs[n_logs:]
+            scratch.finalise(True)
+            results[i] = TxResult(
+                status=status, gas_left=gas_left, refund=0, logs=logs,
+                reads={}, writes=writes)
+            self.host_txs += 1
+        # which executor served the suffix: EVM.call routes eligible txs
+        # through the native session (evm/hostexec/bridge)
+        self.native_txs += bridge.counters().get("native_calls", 0) - hx0
 
     # ------------------------------------------------------------- storage
     def _base_value(self, contract: bytes, key: bytes) -> int:
@@ -333,7 +344,8 @@ class MachineBlockExecutor:
         for rnd in range(DEVICE_ROUNDS + 1):
             if pending and rnd == DEVICE_ROUNDS:
                 # the conflict suffix re-executes sequentially at its
-                # exact position; the device keeps the valid prefix
+                # exact position on the host; the device keeps the valid
+                # prefix
                 t_s = time.monotonic()
                 self._host_resolve(block, plans, call_idx, results,
                                    pending[0][0])
@@ -523,6 +535,103 @@ class MachineBlockExecutor:
             return None
         return e.commit_pipe.flush()
 
+    # -------------------------------------------- serial short-circuit
+    def _serial_eligible(self, plans: List[TxPlan]) -> bool:
+        """A provably serial machine block: >= 2 call txs, ONE shared
+        contract, and a statically known (PUSH-constant) storage
+        footprint with writes — any two txs then conflict through the
+        same keys (the swap shape), so device OCC would degrade to one
+        lane per round anyway.  Such blocks go straight to the native
+        session; blocks with computed keys (the token's keccak mapping
+        slots) keep their real independence and stay on device OCC."""
+        if not self.e.serial_shortcircuit:
+            return False
+        calls = [pl for pl in plans if pl.kind == "call"]
+        if len(calls) < 2:
+            return False
+        target = calls[0].to
+        if any(pl.to != target for pl in calls[1:]):
+            return False
+        keys = static_storage_keys(calls[0].code)
+        if keys is None or not keys[1]:
+            return False  # computed or write-free footprint
+        return native_eligible(calls[0].code, self._fork)[0]
+
+    def _execute_serial_run(self, items) -> int:
+        """Execute a run of provably serial blocks one tx after another
+        on the native session (no device launch); returns the blocks
+        consumed.  A native escape (a call into other code, say) sends
+        THAT block to the per-block OCC path and the run goes on (or
+        hands the block back to the engine's host path, when the
+        per-block path cannot finish it either); consensus failures
+        raise like every other path."""
+        e = self.e
+
+        def resolver(contract: bytes, key: bytes) -> bytes:
+            return self._base_value(contract, key).to_bytes(32, "big")
+
+        def code_resolver(_addr: bytes):
+            # any dynamic callee routes the tx (and block) off the serial
+            # path — the detector only proved the ROOT contract
+            return None
+
+        be = HostExecBackend(self._fork, e.config.chain_id, resolver,
+                             code_resolver)
+        warm_coinbase = self._fork in COINBASE_WARM_FORKS  # EIP-3651
+        consumed = 0
+        try:
+            for block, plans in items:
+                t0 = time.monotonic()
+                be.set_env(block.header.coinbase, block.time, block.number,
+                           block.header.gas_limit, block.base_fee or 0)
+                results: Dict[int, TxResult] = {}
+                escaped = False
+                for i, pl in enumerate(plans):
+                    if pl.kind != "call":
+                        continue
+                    be.set_code(pl.to, pl.code)
+                    warm = [pl.sender, pl.to]
+                    if warm_coinbase:
+                        warm.append(block.header.coinbase)
+                    res = be.call(pl.sender, pl.to, pl.value, pl.price,
+                                  pl.data, pl.gas_limit - pl.intrinsic,
+                                  warm_addrs=warm)
+                    if res.needs_host or any(
+                            c != pl.to for c, _k in res.writes):
+                        escaped = True
+                        break
+                    if res.status == M.STOP:
+                        be.commit()  # sequential carry within the block
+                    results[i] = TxResult(
+                        status=res.status, gas_left=res.gas_left,
+                        refund=res.refund,
+                        logs=[(topics, data)
+                              for _a, topics, data in res.logs],
+                        reads={},  # exact by construction
+                        writes={k: int.from_bytes(v, "big")
+                                for (_c, k), v in res.writes.items()})
+                e.stats.t_device += time.monotonic() - t0
+                if escaped:
+                    if self.execute(block, plans) is None:
+                        return consumed
+                    be.clear_storage()  # execute() moved the tries
+                else:
+                    # deferred: one deduped fold per serial run (the
+                    # session's committed cache carries cross-block
+                    # reads; _base_value consults the staged writes)
+                    self._finish_block(block, plans, results, defer=True)
+                    self.serial_blocks += 1
+                    self.native_txs += len(results)
+                consumed += 1
+            e.commit_pipe.flush()
+        finally:
+            be.close()
+            if self._runner is not None:
+                # the window runner's mirror and table never saw these
+                # writes; the epoch bump rebuilds it at its next use
+                e.storage_epoch += 1
+        return consumed
+
     # ------------------------------------------------- fused OCC windows
     def _window_runner(self) -> MachineWindowRunner:
         """The persistent fused-OCC runner, rebuilt (its counters carry
@@ -577,22 +686,35 @@ class MachineBlockExecutor:
 
     def execute_run(self, items) -> int:
         """Execute a run of consecutive machine blocks ``items`` =
-        [(block, plans), ...]; returns how many blocks it finished (>= 1).
+        [(block, plans), ...]; returns how many blocks it finished
+        (on the machine or, for a dirty block past the first, on the
+        engine's host path).  0 means the FIRST block could not be
+        handled here and the caller must send it to the host path.
 
-        With the engine's ``device_occ`` the blocks chunk into windows
-        of ``WINDOW``, one fused launch each.  The next chunk is launched
-        BEFORE the previous chunk's tries fold (the device table carries
-        the committed state across launches), so the host folds window N
+        A run that starts with provably serial blocks goes to the serial
+        short-circuit (``_execute_serial_run``), and a serial block later
+        in the run ends the run before it.  Otherwise, with the engine's
+        ``device_occ`` the blocks chunk into windows of ``WINDOW``, one
+        fused launch each.  The next chunk is launched BEFORE the
+        previous chunk's tries fold (the device table carries the
+        committed state across launches), so the host folds window N
         while the card runs window N+1.  A dirty block (an escaped lane)
         re-runs through ``execute``, and the run stops after it so the
         engine re-classifies against the repaired state.  Without
-        ``device_occ`` the first block runs through ``execute`` alone.
-        Raises ReplayError for a block neither path can finish."""
+        ``device_occ`` the first block runs through ``execute`` alone."""
         e = self.e
+        if self._serial_eligible(items[0][1]):
+            k = 1
+            while k < len(items) and self._serial_eligible(items[k][1]):
+                k += 1
+            return self._execute_serial_run(items[:k])
+        for n in range(1, len(items)):
+            if self._serial_eligible(items[n][1]):
+                items = items[:n]
+                break
         if not e.device_occ:
             block, plans = items[0]
-            self._execute_or_raise(block, plans)
-            return 1
+            return 1 if self.execute(block, plans) is not None else 0
         runner = self._window_runner()
         chunks = [items[k:k + self.WINDOW]
                   for k in range(0, len(items), self.WINDOW)]
@@ -600,14 +722,6 @@ class MachineBlockExecutor:
         inflight = runner.issue(self._window_items(chunks[0]))
         e.stats.t_device += time.monotonic() - t0
         return self._chunk_loop(runner, chunks, inflight)
-
-    def _execute_or_raise(self, block: Block, plans) -> None:
-        if self.execute(block, plans) is None:
-            from coreth_tpu_torch.replay.engine import _NOT_PORTED, \
-                _block_error
-            raise _block_error(
-                "a call escaped the device step machine (HOST); "
-                f"{_NOT_PORTED}", block)
 
     def _chunk_loop(self, runner: MachineWindowRunner, chunks,
                     inflight) -> int:
@@ -684,12 +798,17 @@ class MachineBlockExecutor:
                     continue
                 # dirty: partial commits may sit in the device table and
                 # every later block of the window ran on a speculative
-                # base — this block goes to the per-block path, the rest
-                # back to the engine (execute() folds the clean prefix)
+                # base — this block goes to the per-block path (or, if a
+                # lane escapes there too, the host path), the rest back
+                # to the engine (execute() folds the clean prefix)
                 self.dirty_blocks += 1
                 runner.invalidate()
-                self._execute_or_raise(block, plans)
-                runner.commit_block(self.last_writes)
+                if self.execute(block, plans) is None:
+                    if consumed == 0:
+                        return 0  # the caller owns the first block's fate
+                    e._fallback(block)
+                else:
+                    runner.commit_block(self.last_writes)
                 return consumed + 1
             # ONE deduped fold + root check per fused window
             e.commit_pipe.flush()

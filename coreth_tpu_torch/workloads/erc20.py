@@ -5,8 +5,7 @@ token contract (transfer + balanceOf over a balances mapping at storage
 slot 0, Transfer event, unchecked classic semantics).  Hand assembly
 keeps the execution path — and thus the gas schedule — small and
 auditable.  Its per-transfer execution gas is measured, not
-hand-derived: the reference runs its Python interpreter once per
-variant, the port its native host-execution session
+hand-derived: one ``EVM.call`` per variant
 (``measure_transfer_exec_gas``).
 
 Storage layout: balances[addr] at keccak256(pad32(addr) ++ pad32(0)) —
@@ -166,8 +165,9 @@ _EXEC_GAS_CACHE: Dict[tuple, int] = {}
 def measure_transfer_exec_gas(config, number: int, time: int,
                               variant: str = "reset") -> int:
     """Execution gas of one transfer() call under the rules of block
-    (number, time), measured by running the token once on the native
-    host-execution session (``evm/hostexec``) over a scratch state.
+    (number, time), measured by one ``EVM.call`` on a scratch state (the
+    native session serves it from Apricot Phase 2 on, the host
+    interpreter before).
 
     Variants (the only gas classes a successful non-self transfer can
     hit from Apricot Phase 1 on, where refunds are off, so zeroing the
@@ -180,13 +180,9 @@ def measure_transfer_exec_gas(config, number: int, time: int,
 
     The slots are seeded and committed first, so SSTORE sees committed
     original values (EIP-2200 prices the reset paths by them).  Cached
-    per (chain id, variant, fork flags).  The native session runs
-    Apricot Phase 2 onward; earlier rules raise ``ValueError``."""
-    from coreth_tpu_torch.evm.device import machine as M
-    from coreth_tpu_torch.evm.device.tables import fork_key
-    from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
-    from coreth_tpu_torch.evm.hostexec.eligibility import (
-        COINBASE_WARM_FORKS)
+    per (chain id, variant, fork flags)."""
+    # key on fork-schedule identity, not id(config): gas depends only on
+    # the rules
     rules = config.rules(number, time)
     key = (config.chain_id, variant) + tuple(
         getattr(rules, f) for f in sorted(vars(rules))
@@ -194,37 +190,34 @@ def measure_transfer_exec_gas(config, number: int, time: int,
     cached = _EXEC_GAS_CACHE.get(key)
     if cached is not None:
         return cached
-    fork = fork_key(rules)
-    if fork is None:
-        raise ValueError("measure_transfer_exec_gas: the native session "
-                         "runs Apricot Phase 2 onward")
+    from coreth_tpu_torch.evm.evm import EVM, BlockContext, Config, TxContext
+    from coreth_tpu_torch.state import StateDB, StateStore
+
     sender, recip, token = b"\x11" * 20, b"\x22" * 20, b"\x33" * 20
-    coinbase = b"\x00" * 20
-    code = {token: TOKEN_RUNTIME, sender: b"", recip: b""}
-
-    def slot(_contract: bytes, _key: bytes) -> bytes:
-        return b"\x00" * 32
-
-    be = HostExecBackend(fork, config.chain_id, slot, code.get)
-    try:
-        be.set_env(coinbase, time, number, 8_000_000, 0)
-        be.set_code(token, TOKEN_RUNTIME)
-        be.seed_slot(token, balance_slot(sender),
-                     (10**20).to_bytes(32, "big"))
-        if variant != "set":
-            be.seed_slot(token, balance_slot(recip),
-                         (1).to_bytes(32, "big"))
-        be.commit()
-        warm = [sender, token]
-        if fork in COINBASE_WARM_FORKS:
-            warm.append(coinbase)
-        gas = 200_000
-        amount = 0 if variant == "noop" else 1000
-        r = be.call(sender, token, 0, 0, transfer_calldata(recip, amount),
-                    gas, warm_addrs=warm)
-    finally:
-        be.close()
-    if r.status != M.STOP:
-        raise RuntimeError(f"token gas probe failed: status {r.status}")
-    _EXEC_GAS_CACHE[key] = gas - r.gas_left
+    store = StateStore()
+    statedb = StateDB(store)
+    statedb.set_code(token, TOKEN_RUNTIME)
+    statedb.set_state(token, balance_slot(sender),
+                      (10**20).to_bytes(32, "big"))
+    if variant != "set":
+        statedb.set_state(token, balance_slot(recip),
+                          (1).to_bytes(32, "big"))
+    statedb.add_balance(sender, 10**18)
+    # commit + reopen so SSTORE sees real committed "original" values
+    statedb.commit(False)
+    statedb = StateDB(store)
+    block_ctx = BlockContext(coinbase=b"\x00" * 20, number=number,
+                             time=time, gas_limit=8_000_000)
+    evm = EVM(block_ctx, TxContext(origin=sender, gas_price=0), statedb,
+              config, Config())
+    statedb.prepare(rules, sender, block_ctx.coinbase, token,
+                    list(rules.active_precompiles), [])
+    gas_limit = 200_000
+    amount = 0 if variant == "noop" else 1000
+    _ret, gas_left, err = evm.call(sender, token,
+                                   transfer_calldata(recip, amount),
+                                   gas_limit, 0)
+    if err is not None:
+        raise RuntimeError(f"token gas probe failed: {err}")
+    _EXEC_GAS_CACHE[key] = gas_limit - gas_left
     return _EXEC_GAS_CACHE[key]

@@ -41,7 +41,7 @@ from coreth_tpu.workloads import swap as rswap
 from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
 from coreth_tpu_torch.evm.device import adapter as tadapter
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
-from coreth_tpu_torch.replay import ReplayEngine, ReplayError
+from coreth_tpu_torch.replay import ReplayEngine
 from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.types import Block, DynamicFeeTx, sign_tx
 from coreth_tpu_torch.workloads import erc20 as terc20
@@ -143,7 +143,8 @@ def _replay_both(n_blocks, txs_of, extra=None, device_occ=False):
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu", device_occ=device_occ,
-                        specialize=False, token_fastpath=False)
+                        specialize=False, token_fastpath=False,
+                        serial_shortcircuit=False)
     for rb in rblocks:
         ref.replay_block(rb)
         port.replay_block(Block.decode(rb.encode()))
@@ -240,7 +241,10 @@ def test_machine_then_transfer_interleave(reference_env, monkeypatch,
 def test_ineligible_block_raises_where_reference_falls_back(
         reference_env, monkeypatch, device_occ):
     """A call into host-only bytecode (SELFBALANCE) runs on the
-    reference's host path; the port refuses at exactly that block."""
+    reference's host path and on the port's, with the same roots and
+    host-path block count.  (Before the host path was ported the port
+    refused at exactly that block.)  The port's builder still refuses
+    the call: it runs contract calls on the native session only."""
     _occ_env(monkeypatch, device_occ)
     holder = b"\x72" * 20
     extra = {holder: (5, 1, bytes.fromhex("47600055" + "00"))}
@@ -261,12 +265,11 @@ def test_ineligible_block_raises_where_reference_falls_back(
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu", device_occ=device_occ,
-                        token_fastpath=False)
+                        token_fastpath=False, serial_shortcircuit=False)
     blocks = [Block.decode(b.encode()) for b in rblocks]
-    with pytest.raises(ReplayError, match="not ported") as exc:
-        port.replay(blocks)
-    assert exc.value.block is blocks[1]
-    assert port.root == rblocks[0].header.root
+    assert port.replay(blocks) == rblocks[-1].header.root
+    assert port.stats.blocks_fallback == ref.stats.blocks_fallback == 1
+    assert port.stats.blocks_device == ref.stats.blocks_device
     port.close()
     # the port's builder refuses the same call rather than guess
     from coreth_tpu_torch.chain.chain_makers import InvalidTransfer

@@ -31,7 +31,7 @@ from coreth_tpu.types import sign_tx as r_sign_tx
 from coreth_tpu_torch.chain import Genesis, GenesisAccount, generate_chain
 from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
-from coreth_tpu_torch.replay import DeviceState, ReplayEngine, ReplayError
+from coreth_tpu_torch.replay import DeviceState, ReplayEngine
 from coreth_tpu_torch.state import StateStore
 from coreth_tpu_torch.replay import engine as tengine
 from coreth_tpu_torch.types import Block, DynamicFeeTx, LatestSigner, sign_tx
@@ -311,7 +311,10 @@ def test_device_state_from_arrays_carries_reference_tables():
 
 def test_contract_block_raises_where_reference_falls_back():
     """The reference runs a contract-creation block on its host path;
-    the port refuses at exactly that block, with the prefix folded."""
+    so does the port (its Processor over a StateDB on the engine's
+    store), and both land on the header roots with the same device and
+    host-path block counts.  (Before the host path was ported the port
+    refused at exactly that block.)"""
     from coreth_tpu.chain import Genesis as RG, GenesisAccount as RA
     genesis = RG(config=RCFG, gas_limit=8_000_000,
                  alloc={ADDRS[0]: RA(balance=10**24)})
@@ -343,18 +346,19 @@ def test_contract_block_raises_where_reference_falls_back():
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, device="cpu")
     pblocks = to_port(blocks)
-    with pytest.raises(ReplayError, match="not ported") as exc:
-        port.replay(pblocks)
-    assert exc.value.block is pblocks[1]
-    assert port.root == blocks[0].header.root
-    assert port.stats.blocks_device == 1
+    assert port.replay(pblocks) == blocks[-1].header.root
+    assert port.store.trie.hash() == blocks[-1].header.root
+    assert (port.stats.blocks_device, port.stats.blocks_fallback) == \
+        (ref.stats.blocks_device, ref.stats.blocks_fallback) == (2, 1)
     port.close()
 
 
 def test_device_rejected_block_raises_with_block():
     """A block whose device ok flag is 0 (here: the device table holds
-    a nonce the block's sender sequence does not follow) raises with
-    .block set."""
+    a nonce the block's sender sequence does not follow) rewinds and
+    runs on the host path, which reads the true state: the replay lands
+    on the header root, and the host path's refresh repairs the row.
+    (Before the host path was ported this raised with .block set.)"""
     _gb, blocks = port_chain(3, 4)
     pblocks = to_port(blocks)
     _g, pgb, store = port_genesis()
@@ -363,8 +367,11 @@ def test_device_rejected_block_raises_with_block():
     port.replay(pblocks[:2])
     row = port.state.row_of[port.state.index[ADDRS[0]]]
     port.state.nonces[row] += 7
-    with pytest.raises(ReplayError) as exc:
-        port.replay(pblocks[2:])
-    assert exc.value.block is pblocks[2]
-    assert port.root == blocks[1].header.root
+    assert port.replay(pblocks[2:]) == blocks[2].header.root
+    assert port.stats.blocks_fallback == 1
+    assert port.stats.blocks_device == 2
+    from coreth_tpu_torch.types import StateAccount
+    want = StateAccount.from_rlp(port.trie.get(ADDRS[0]))
+    got = port.state.read_accounts([port.state.index[ADDRS[0]]])[0]
+    assert got == (want.balance, want.nonce)
     port.close()

@@ -12,7 +12,7 @@ is an integer or a hash: tolerance 0.  Mirrors tests/test_shard_replay.py
 batch_pad 64, windows of 2 machine blocks), with the reference's
 ``CORETH_NO_TOKEN_FASTPATH=1`` and ``CORETH_SERIAL_SHORTCIRCUIT=0`` so
 token calls and swaps take the machine, as the port's do (its
-``token_fastpath=False``; the serial short-circuit is not ported); without K7
+``token_fastpath=False, serial_shortcircuit=False``); without K7
 (``CORETH_SPECIALIZE=0``, ``specialize=False``) but in the key-range
 case with K7 (:554), so that the cases share the reference's compiled
 programs (tests/test_torch_specialize.py covers K7 itself).
@@ -444,7 +444,7 @@ def _replay_both(mp, genesis_pair, rblocks, n, window=2, env=None,
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, window=4, device="cpu", mesh=_tmesh(n),
                         specialize=specialize, token_fastpath=False,
-                        **port_kw)
+                        serial_shortcircuit=False, **port_kw)
     port._machine_executor().WINDOW = window
     port_roots = _record_flushes(port.commit_pipe)
     assert port.replay([Block.decode(b.encode()) for b in rblocks]) == want

@@ -511,7 +511,8 @@ def _port_replay(pgen, rblocks, window, specialize):
     pgb = pgen.to_block(store)
     port = ReplayEngine(CFG, store, parent_header=pgb.header, capacity=256,
                         batch_pad=64, window=4, device="cpu",
-                        specialize=specialize, token_fastpath=False)
+                        specialize=specialize, token_fastpath=False,
+                        serial_shortcircuit=False)
     if window is not None:
         port._machine_executor().WINDOW = window
     roots = _record_flushes(port.commit_pipe)
