@@ -195,7 +195,25 @@ the one card):
    K7 windows launch before and after); swap blocks (8 x 256) on the
    serial short-circuit (no K5, K6 or K7 launch).  Each run: root equal
    to the last header's and to the store's, counters, launches (also
-   at each host-path block), seconds per host-path block, the card.
+   at each host-path block), seconds per host-path block, the card;
+16. mixed  — the Avalanche-semantics segment (BASELINE config 4, the
+   reference bench's ``mixed``: ``TEST_APRICOT_PHASE5_CONFIG``, 64 keys,
+   128 blocks x 32 txs, an atomic ExtData import every 8th block, a
+   nativeAssetCall block at i % 8 == 1, i > 1), built by the port's
+   builder with the atomic callbacks and replayed with
+   ``ReplayEngine(engine=...)`` over a reseeded hub (``window=128``):
+   root equal to the last header's, 31 host-path and 97 device blocks,
+   K1 and K2 launched, the asset recipient's multicoin balance and the
+   16 pending import blocks; txs/s, ``t_fallback``, seconds a host-path
+   block of each kind;
+17. rehash — ``mpt/rehash.py device_rehash`` on K3's entry: two
+   SecureTries of 65,536 keys, rehash against ``trie.hash()``, again
+   after 8,192 keys change (K3 launches, device and host ms, dirty
+   nodes a level); K3 against its plain version on every encoding
+   hashed (tolerance 0); the host-against-device crossover at 256,
+   1,024, 4,096, 16,384 and 65,536 keys.  K3's ``launches`` in the
+   kernels line are this phase's (its device functions also run inside
+   K5, K6 and K7).
 
 Phases machine, window, spec, shard_erc20 and hot measure the machine
 path, so their engines take ``token_fastpath=False`` (``bench.py``'s
@@ -2966,6 +2984,230 @@ def phase_host(dev, smi, sizes=None):
     return out
 
 
+MIXED_BLOCKS, MIXED_TXS, MIXED_KEYS = 128, 32, 64
+
+
+def phase_mixed(dev, smi, n_blocks=MIXED_BLOCKS, txs=MIXED_TXS,
+                n_keys=MIXED_KEYS):
+    """The Avalanche-semantics segment (BASELINE config 4, the bench's
+    ``mixed`` shape: ``TEST_APRICOT_PHASE5_CONFIG``, 64 keys, 128 blocks
+    x 32 txs, an atomic ExtData import every 8th block, a
+    ``nativeAssetCall`` block at i % 8 == 1, i > 1), built by the port's
+    builder with the atomic callbacks (``workloads/mixed.py``) and
+    replayed from fresh decodes by a ``ReplayEngine(engine=...)`` over
+    a freshly seeded hub (``window=128``), the launch counters zeroed
+    just before and read just after.  The root must equal the last
+    header's, the import and nativeAssetCall blocks (16 + 15) take the
+    host path and the other 97 the device, K1 and K2 launch, the asset
+    recipient holds the nativeAssetCall amounts and the backend holds
+    each import block pending.  Prints txs/s, ``t_fallback``, seconds a
+    host-path block of each kind and the launches.  The sizes shrink
+    for a check off the card."""
+    import torch
+    from coreth_tpu_torch.params import TEST_APRICOT_PHASE5_CONFIG as CFG
+    from coreth_tpu_torch.state import StateDB
+    from coreth_tpu_torch.types import Block
+    from coreth_tpu_torch.workloads import mixed as MX
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    keys = [0xB0B + i for i in range(n_keys)]
+    t0 = time.monotonic()
+    genesis, blocks = MX.build_mixed_chain(CFG, n_blocks, txs, keys)
+    t_build = time.monotonic() - t0
+    fresh = [Block.decode(b.encode()) for b in blocks]
+    imports = [i for i in range(n_blocks) if i % MX.IMPORT_EVERY == 0]
+    nacs = [i for i in range(n_blocks) if i % MX.NAC_EVERY == 1 and i > 1]
+    eng, _gb, backend = MX.replay_engine(genesis, n_blocks, keys[0],
+                                         device=dev, window=128,
+                                         batch_pad=txs)
+    host_s = {"import": [], "nativeAssetCall": []}
+    fallback = eng._fallback
+
+    def timed_fallback(block):
+        t1 = time.monotonic()
+        root = fallback(block)
+        host_s["import" if block.ext_data() else
+               "nativeAssetCall"].append(time.monotonic() - t1)
+        return root
+
+    eng._fallback = timed_fallback
+    _zero_launches()
+    t1 = time.monotonic()
+    root = eng.replay(fresh)
+    sync()
+    dt = time.monotonic() - t1
+    launches = _read_launches()
+    eng.close()
+    st = eng.stats
+    asset = StateDB(eng.store).get_balance_multi_coin(MX.ASSET_RECIPIENT,
+                                                      MX.ASSET)
+    n_txs = sum(len(b.transactions) for b in blocks)
+    row = {"phase": "mixed", "blocks": n_blocks, "txs_per_block": txs,
+           "keys": n_keys, "txs": n_txs, "chain_build_s": round(t_build, 2),
+           "replay_s": round(dt, 4), "txs_per_s": round(n_txs / dt, 1),
+           "blocks_fallback": st.blocks_fallback,
+           "blocks_device": st.blocks_device,
+           "t_fallback": round(st.t_fallback, 4),
+           "host_s_per_block": {k: round(sum(v) / len(v), 4) if v else None
+                                for k, v in host_s.items()},
+           "host_blocks": {k: len(v) for k, v in host_s.items()},
+           "launches": {k: launches[k] for k in ("transfer_window",
+                                                 "secp_recover")},
+           "asset_recipient_balance": asset,
+           "pending_blocks": len(backend._pending),
+           "stats": st.row(), "card": smi}
+    emit(row)
+    ok = (root == blocks[-1].header.root == eng.store.trie.hash()
+          and st.blocks_fallback == len(imports) + len(nacs)
+          and st.blocks_device == n_blocks - st.blocks_fallback
+          and len(host_s["import"]) == len(imports)
+          and len(host_s["nativeAssetCall"]) == len(nacs)
+          and launches["transfer_window"] >= 1
+          and launches["secp_recover"] >= 1
+          and asset == sum(100 + i for i in nacs)
+          and len(backend._pending) == len(imports))
+    if not ok:
+        raise AssertionError(f"mixed: {row}")
+    return row
+
+
+REHASH_KEYS, REHASH_UPDATES = 65_536, 8_192
+REHASH_CROSSOVER = (256, 1_024, 4_096, 16_384, 65_536)
+
+
+def _rehash_trie(n: int, seed: int = 0):
+    """A SecureTrie of ``n`` keys filled as tests/test_replay.py:201
+    fills its 3,000 (``seed`` shifts the keys)."""
+    from coreth_tpu_torch.mpt import SecureTrie
+    t = SecureTrie()
+    for i in range(seed, seed + n):
+        t.update(i.to_bytes(20, "big"), (b"\x01" + i.to_bytes(8, "big")) * 4)
+    return t
+
+
+def _hashed_encodings(trie) -> dict:
+    """{depth: the memoized encodings of 32 bytes or more of ``trie``'s
+    resident nodes at that depth}: every message its last rehash
+    hashed, a level a list."""
+    out, stack = {}, [(trie.root, 0)]
+    while stack:
+        node, depth = stack.pop()
+        if node is None or node[0] == "H" or node[3] is None:
+            continue
+        if len(node[3][0]) >= 32:
+            out.setdefault(depth, []).append(node[3][0])
+        if node[0] == "E":
+            stack.append((node[2], depth + 1))
+        elif node[0] == "B":
+            stack.extend((c, depth + 1) for c in node[1])
+    return out
+
+
+def phase_rehash(dev, smi, n_keys=REHASH_KEYS, n_update=REHASH_UPDATES,
+                 crossover=REHASH_CROSSOVER):
+    """The batched trie rehash (``mpt/rehash.py device_rehash``) on K3's
+    entry: two SecureTries of ``n_keys`` keys; ``device_rehash(t1,
+    min_batch=64)`` must equal ``t2.hash()``, then again after
+    ``n_update`` keys change in both, the counters zeroed and read
+    around each.  Then K3 against its plain version on every encoding
+    the rehash hashed, a level a call (tolerance 0); on the largest
+    level its ms, kernel ms, plain ms and bound.
+    Prints the entry's launches, device and host milliseconds and the
+    dirty nodes a level; then the host-against-device crossover: tries of
+    ``crossover`` keys, ``trie.hash()`` (the host's C++ keccak) against
+    ``device_rehash(min_batch=0)`` (every level on the card), the best
+    of two fresh tries each."""
+    import torch
+    from coreth_tpu_torch.mpt.rehash import collect_dirty, device_rehash
+    from coreth_tpu_torch.ops import keccak as K
+    dev = torch.device(dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t1, t2 = _rehash_trie(n_keys), _rehash_trie(n_keys)
+    per_level = {}
+    for _n, d in collect_dirty(t1):
+        per_level[d] = per_level.get(d, 0) + 1
+    rounds = []
+    for label in ("full", "update"):
+        if label == "update":
+            for i in range(n_update):
+                for t in (t1, t2):
+                    t.update(i.to_bytes(20, "big"), b"\x99" * 40)
+        n_dirty = len(collect_dirty(t1))
+        _zero_launches()
+        sync()
+        t0 = time.perf_counter()
+        root = device_rehash(t1, min_batch=64, device=dev)
+        sync()
+        device_ms = 1000 * (time.perf_counter() - t0)
+        launches = _read_launches()["keccak256_blocks"]
+        t0 = time.perf_counter()
+        want_root = t2.hash()
+        host_ms = 1000 * (time.perf_counter() - t0)
+        if root != want_root or launches < 1:
+            raise AssertionError(f"rehash {label}: root equal "
+                                 f"{root == want_root}, {launches} launches")
+        rounds.append({"round": label, "dirty": n_dirty,
+                       "k3_launches": launches,
+                       "device_ms": round(device_ms, 3),
+                       "host_ms": round(host_ms, 3)})
+    # K3 against its plain version on every level the rehash hashed;
+    # timed on the largest, the path's largest launch
+    levels = _hashed_encodings(t1)
+    k3_level = {}
+    for depth in sorted(levels, key=lambda d: len(levels[d])):
+        blocks, nblocks = K.pack_blocks(levels[depth])
+        b = torch.from_numpy(blocks).to(dev)
+        nb = torch.from_numpy(nblocks).to(dev)
+        got, want = K.keccak256_blocks(b, nb), \
+            K.keccak256_blocks_plain(b, nb)
+        sync()
+        if not torch.equal(got, want):
+            raise AssertionError(f"rehash: K3 differs from its plain "
+                                 f"version at depth {depth}")
+    if dev.type == "cuda":
+        bound_ms, bound_by = bound(
+            blocks.nbytes + nblocks.nbytes + got.numel() * 4,
+            KECCAK_OPS_PER_BLOCK * int(nblocks.sum()))
+        k3_level = {
+            "depth": depth, "messages": len(levels[depth]),
+            "blocks": int(nblocks.sum()),
+            "max_abs_err": max_abs_err([got], [want]),
+            "ms": round(cuda_ms(lambda: K.keccak256_blocks(b, nb)), 4),
+            "kernel_ms": kernel_ms(lambda: K.keccak256_blocks(b, nb),
+                                   "keccak256_blocks"),
+            "plain_ms": round(once_ms(
+                lambda: K.keccak256_blocks_plain(b, nb)), 2),
+            "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
+    cross = []
+    device_rehash(_rehash_trie(256, seed=1 << 30), min_batch=0, device=dev)
+    for n in crossover:
+        host, device, n_dirty = [], [], 0
+        for rep in range(2):
+            t = _rehash_trie(n, seed=(rep + 1) << 24)
+            t0 = time.perf_counter()
+            t.hash()
+            host.append(time.perf_counter() - t0)
+            t = _rehash_trie(n, seed=(rep + 1) << 24)
+            n_dirty = len(collect_dirty(t))
+            sync()
+            t0 = time.perf_counter()
+            device_rehash(t, min_batch=0, device=dev)
+            sync()
+            device.append(time.perf_counter() - t0)
+        cross.append({"keys": n, "dirty": n_dirty,
+                      "host_s": round(min(host), 4),
+                      "device_s": round(min(device), 4),
+                      "winner": "device" if min(device) < min(host)
+                      else "host"})
+    row = {"phase": "rehash", "keys": n_keys, "updated": n_update,
+           "k3_equal_messages": sum(len(v) for v in levels.values()),
+           "k3_largest_level": k3_level, "dirty_per_level": [
+               per_level[d] for d in sorted(per_level)],
+           "rounds": rounds, "crossover": cross, "card": smi}
+    emit(row)
+    return sum(r["k3_launches"] for r in rounds), k3_level
+
+
 def main() -> int:
     try:
         import torch
@@ -3210,12 +3452,30 @@ def main() -> int:
     # ---- 15. the exact host path: rewinds, a dirty block, serial blocks
     phase_host(dev, smi)
 
+    # ---- 16. the Avalanche-semantics segment (atomic imports and
+    # nativeAssetCall on the host path, transfers on K1 and K2)
+    t0 = time.monotonic()
+    phase_mixed(dev, smi)
+    # ---- 17. the batched trie rehash on K3's entry
+    rehash_launches, k3_rehash = phase_rehash(dev, smi)
+    emit({"phase": "mixed_rehash_seconds",
+          "seconds": round(time.monotonic() - t0, 2)})
+
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
     k5["launches"] = m_launches["step_machine"]
     k6["launches"] = w_launches["occ_window"]
     k7["launches"] = s_launches["occ_window_spec"]
-    k3["launches"] = k4["launches"] = "in K5, K6 and K7"
+    # K3's entry runs on the rehash path: its numbers at that path's
+    # largest launch (phase k3's 4096 messages stay in its own line)
+    k3.update({k: k3_rehash[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+    k3["shape"] = (f"rehash level {k3_rehash['depth']}: "
+                   f"{k3_rehash['messages']} messages, "
+                   f"{k3_rehash['blocks']} blocks")
+    k3["launches"] = rehash_launches
+    k3["launches_also"] = "in K5, K6 and K7"
+    k4["launches"] = "in K5, K6 and K7"
     k8["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_window"]
     k8r["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_recover"]
     k9["launches"] = sh_launches["occ_sharded"]

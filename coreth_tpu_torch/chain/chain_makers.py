@@ -15,6 +15,15 @@ replay engine.  Receipts carry the calls' logs and the bloom.
 
 Contract creation, access lists, and calls the native session cannot
 take (a host-only opcode, a precompile callee) raise ``InvalidTransfer``.
+
+``generate_chain(..., engine=)`` takes the reference's own path instead
+(chain_makers.go:57-140): each block's txs apply through the port's
+``processor.apply_transaction`` on a ``StateDB`` over the store, and
+the engine's callbacks finalize the block, so a chain may hold atomic
+ExtData blocks, multicoin balances and precompile calls
+(``nativeAssetCall``).  That path shares the ``Processor``'s state
+transition with the replay engine's host path, so it is a builder, not
+an independent reference.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from coreth_tpu_torch.consensus import calc_base_fee
 from coreth_tpu_torch.consensus.engine import DummyEngine
+from coreth_tpu_torch.evm import EVM, TxContext
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device.tables import fork_key
 from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
@@ -34,8 +44,12 @@ from coreth_tpu_torch.evm.precompiles import (
 )
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
-from coreth_tpu_torch.processor.state_transition import intrinsic_gas
-from coreth_tpu_torch.state import StateStore
+from coreth_tpu_torch.processor.message import tx_to_message
+from coreth_tpu_torch.processor.state_processor import (
+    apply_transaction, new_block_context,
+)
+from coreth_tpu_torch.processor.state_transition import GasPool, intrinsic_gas
+from coreth_tpu_torch.state import StateDB, StateStore
 from coreth_tpu_torch.types import (
     Block, Header, LatestSigner, Log, Receipt, StateAccount, Transaction,
 )
@@ -90,6 +104,11 @@ class _State:
                     and a.code_hash == EMPTY_CODE_HASH \
                     and not a.is_multi_coin:
                 self.accounts[addr] = None
+
+    def intermediate_root(self, _delete_empty_objects: bool) -> bytes:
+        """The post-block root ``finalize_and_assemble`` takes: the
+        overlay always deletes touched empty accounts (EIP-158)."""
+        return self.commit()
 
     def commit(self) -> bytes:
         for (addr, key), v in self.slots.items():
@@ -277,6 +296,48 @@ class BlockGen:
         return res.gas_left, 1, logs
 
 
+class StateDBBlockGen:
+    """Per-block context of the ``engine=`` path (reference
+    chain_makers.go:47): ``add_tx`` applies a tx at once through the
+    port's ``apply_transaction`` on the block's ``StateDB``; an invalid
+    tx raises."""
+
+    def __init__(self, index: int, parent: Block, statedb: StateDB,
+                 config: ChainConfig, gap: int):
+        self.index = index
+        self.parent = parent
+        self.statedb = statedb
+        self.config = config
+        self.header = _make_header(config, parent, gap)
+        self.txs: List[Transaction] = []
+        self.receipts: List[Receipt] = []
+        self.gas_pool = GasPool(self.header.gas_limit)
+        self.signer = LatestSigner(config.chain_id)
+        self._used_gas = [0]
+        self._evm: Optional[EVM] = None
+
+    @property
+    def base_fee(self):
+        return self.header.base_fee
+
+    @property
+    def used_gas(self) -> int:
+        return self._used_gas[0]
+
+    def add_tx(self, tx: Transaction) -> None:
+        if self._evm is None:
+            self._evm = EVM(new_block_context(self.header), TxContext(),
+                            self.statedb, self.config)
+        msg = tx_to_message(tx, self.signer, self.header.base_fee)
+        self.statedb.set_tx_context(tx.hash(), len(self.txs))
+        receipt = apply_transaction(
+            msg, self.gas_pool, self.statedb, self.header.number,
+            b"\x00" * 32, tx, self._used_gas, self._evm)
+        receipt.transaction_index = len(self.txs)
+        self.txs.append(tx)
+        self.receipts.append(receipt)
+
+
 def _make_header(config: ChainConfig, parent: Block, gap: int) -> Header:
     """makeHeader (chain_makers.go:380): fee fields per fork."""
     time = parent.time + gap
@@ -308,10 +369,17 @@ _EMPTY_PREDICATE_RESULTS = b"\x00" * 4
 def generate_chain(config: ChainConfig, parent: Block,
                    state: StateStore, n: int,
                    gen: Optional[Callable[[int, BlockGen], None]],
-                   gap: int = 10,
+                   gap: int = 10, engine: Optional[DummyEngine] = None,
                    ) -> Tuple[List[Block], List[List[Receipt]]]:
     """GenerateChain: ``state`` holds the state at ``parent.root`` and
-    is advanced block by block.  Returns (blocks, receipts)."""
+    is advanced block by block.  Without ``engine`` the txs apply on
+    the builder's own overlay (``BlockGen``); with it on a ``StateDB``
+    through the ``Processor``'s state transition
+    (``StateDBBlockGen``), finalized by ``engine``'s callbacks.
+    Returns (blocks, receipts)."""
+    if engine is not None:
+        return _generate_with_engine(config, parent, state, n, gen, gap,
+                                     engine)
     engine = DummyEngine()
     st = _State(state)
     calls = _Calls(config, st)
@@ -325,13 +393,34 @@ def generate_chain(config: ChainConfig, parent: Block,
             bg.header.gas_used = bg.used_gas
             if config.is_durango(bg.header.time):
                 bg.header.extra = bg.header.extra + _EMPTY_PREDICATE_RESULTS
-            root = st.commit()
             block = engine.finalize_and_assemble(
-                config, bg.header, parent.header, root, bg.txs,
-                bg.receipts)
+                config, bg.header, parent.header, st, bg.txs, bg.receipts)
             blocks.append(block)
             all_receipts.append(bg.receipts)
             parent = block
     finally:
         calls.close()
+    return blocks, all_receipts
+
+
+def _generate_with_engine(config, parent, state, n, gen, gap, engine):
+    """The ``engine=`` path of ``generate_chain`` (reference
+    chain_makers.go:245 over a StateDB)."""
+    engine.set_config(config)
+    blocks: List[Block] = []
+    all_receipts: List[List[Receipt]] = []
+    for i in range(n):
+        statedb = StateDB(state)
+        bg = StateDBBlockGen(i, parent, statedb, config, gap)
+        if gen is not None:
+            gen(i, bg)
+        bg.header.gas_used = bg.used_gas
+        if config.is_durango(bg.header.time):
+            bg.header.extra = bg.header.extra + _EMPTY_PREDICATE_RESULTS
+        block = engine.finalize_and_assemble(
+            config, bg.header, parent.header, statedb, bg.txs, bg.receipts)
+        statedb.commit(delete_empty_objects=True)
+        blocks.append(block)
+        all_receipts.append(bg.receipts)
+        parent = block
     return blocks, all_receipts

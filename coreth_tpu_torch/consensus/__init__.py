@@ -6,6 +6,7 @@ from coreth_tpu_torch.consensus.dynamic_fees import (  # noqa: F401
     calc_block_gas_cost,
 )
 from coreth_tpu_torch.consensus.engine import (  # noqa: F401
+    ConsensusCallbacks,
     ConsensusError,
     DummyEngine,
 )

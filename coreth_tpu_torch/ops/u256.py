@@ -26,8 +26,9 @@ def pack_np(values) -> np.ndarray:
         len(values), LIMBS).astype(np.int32)
 
 
-def from_ints(values, device="cpu") -> torch.Tensor:
-    """Python ints -> (n, 16) int32 limb tensor on ``device``."""
+def from_ints(values, *, device) -> torch.Tensor:
+    """Python ints -> (n, 16) int32 limb tensor on ``device`` (a
+    required keyword: no entry point picks the CPU unasked)."""
     return torch.from_numpy(pack_np(values)).to(device)
 
 

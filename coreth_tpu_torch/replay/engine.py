@@ -43,9 +43,11 @@ constant storage keys: the swap shape) skip the device and run on the
 native session.
 
 A block neither path takes — contract creation, host-only opcodes,
-precompile calls, a lane that escapes the machine — runs on the exact
-host path (``_fallback``: the ``Processor`` over a journaled
-``StateDB`` on the engine's store), and so does a transfer-window block
+precompile calls (``nativeAssetCall`` too), atomic ExtData, a sender or
+callee with multicoin balances, a lane that escapes the machine — runs
+on the exact host path (``_fallback``: the ``Processor`` over a
+journaled ``StateDB`` on the engine's store, finalized by the engine's
+callbacks), and so does a transfer-window block
 whose device ``ok`` flag is 0 or that fails a consensus check: the
 window rewinds to its start, re-applies its valid prefix on the device
 (``_recover_window``), and the block runs on the host path.  A block
@@ -726,7 +728,11 @@ class ReplayEngine:
     ``CORETH_SERIAL_SHORTCIRCUIT=1``) sends provably serial machine
     blocks (``MachineBlockExecutor._serial_eligible``) straight to the
     native host session.  A block no device path takes runs on the
-    exact host path (``Processor``).
+    exact host path (``Processor``), finalized by ``engine``: a
+    ``DummyEngine`` whose callbacks (``atomic.make_callbacks``) apply
+    ExtData blocks' atomic txs there (the reference's
+    onExtraStateChange, plugin/evm/vm.go:986); by default one without
+    callbacks, which refuses a block with ExtData gas.
 
     ``mesh`` (``parallel.make_mesh(n)``, n > 1) shards the state tables
     over n shards of the one card: transfer windows run on the sharded
@@ -762,7 +768,8 @@ class ReplayEngine:
                  keyrange: bool = True, keyrange_threshold: int = 16,
                  exchange_density: float = 0.25,
                  token_fastpath: bool = True,
-                 serial_shortcircuit: bool = True):
+                 serial_shortcircuit: bool = True,
+                 engine: Optional[DummyEngine] = None):
         self.device = default_device(device)
         self.token_fastpath = token_fastpath
         self.serial_shortcircuit = serial_shortcircuit
@@ -809,7 +816,8 @@ class ReplayEngine:
         self.state = DeviceState(capacity, slot_capacity, self.device,
                                  self.n_shards)
         self.signer = LatestSigner(config.chain_id)
-        self.engine = DummyEngine()
+        self.engine = engine or DummyEngine()
+        self.engine.set_config(config)
         self.processor = Processor(config, engine=self.engine)
         self.stats = ReplayStats(n_shards=self.n_shards)
         self.batch_pad = batch_pad

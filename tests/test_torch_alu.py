@@ -58,7 +58,7 @@ E = [0, 1, 2, 3, 5, 16, 255, 256, 257, 0xFFFF] + [
 
 
 def _both(vals):
-    return tu256.from_ints(vals), ju256.from_ints(vals)
+    return tu256.from_ints(vals, device="cpu"), ju256.from_ints(vals)
 
 
 def _signed(x):
@@ -187,9 +187,9 @@ def test_u256x_carry_ripple_regression():
     cases = [(U256, 1), (U256, U256), ((1 << 240) - 1, 1),
              (0xFFFF_FFFF_FFFF, 0xFFFF)]
     mods = [U256, 7, 13, U256 - 1]
-    ta = tu256.from_ints([a for a, _ in cases])
-    tb = tu256.from_ints([b for _, b in cases])
-    tn = tu256.from_ints(mods)
+    ta = tu256.from_ints([a for a, _ in cases], device="cpu")
+    tb = tu256.from_ints([b for _, b in cases], device="cpu")
+    tn = tu256.from_ints(mods, device="cpu")
     s = tu256.add(ta, tb)
     assert int(s.max()) <= 0xFFFF
     assert tu256.to_ints(s) == [(a + b) & U256 for a, b in cases]
@@ -203,7 +203,7 @@ def test_u256x_carry_ripple_regression():
 
 
 def test_u256x_rejects_malformed_operands():
-    a = tu256.from_ints([1, 2])
+    a = tu256.from_ints([1, 2], device="cpu")
     with pytest.raises(ValueError):
         tu256x.eval_ops("add", a, a[:1], a)
     with pytest.raises(ValueError):

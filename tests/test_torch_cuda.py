@@ -692,3 +692,42 @@ def test_token_fastpath_replay_on_the_card(cuda, n):
     assert eng.stats.blocks_device == 3 and eng._machine is None
     assert eng.storage_epoch == 3
     assert (SH.LAUNCHES - k8 if n > 1 else E.LAUNCHES - k1) == 2
+
+
+def test_device_rehash_on_the_card(cuda):
+    """The batched rehash on K3's entry (tests/test_replay.py:201's 3,000
+    keys, then 500 updated): equal to ``trie.hash()``, K3 launched."""
+    from coreth_tpu_torch.mpt import SecureTrie
+    from coreth_tpu_torch.mpt.rehash import device_rehash
+    from coreth_tpu_torch.ops import keccak as K
+    t1, t2 = SecureTrie(), SecureTrie()
+    for i in range(3000):
+        for t in (t1, t2):
+            t.update(i.to_bytes(20, "big"),
+                     (b"\x01" + i.to_bytes(8, "big")) * 4)
+    launches = K.LAUNCHES
+    assert device_rehash(t1, min_batch=64, device=cuda) == t2.hash()
+    assert K.LAUNCHES > launches
+    for i in range(500):
+        for t in (t1, t2):
+            t.update(i.to_bytes(20, "big"), b"\x99" * 40)
+    assert device_rehash(t1, min_batch=64, device=cuda) == t2.hash()
+
+
+def test_mixed_segment_replays_on_the_card(cuda):
+    """tests/test_mixed_segment.py's 8-block segment, built by the port
+    (``torch_mixed_cases``): the import and nativeAssetCall blocks on
+    the host path through the atomic callbacks, the transfer blocks on
+    K1, the root the last header's."""
+    import torch_mixed_cases as M
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.types import Block
+    _genesis, blocks = M.build_segment()
+    eng, store, backend = M.replay_engine(cuda)
+    k1 = E.LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root == store.trie.hash()
+    assert (eng.stats.blocks_fallback, eng.stats.blocks_device) == (4, 4)
+    assert E.LAUNCHES > k1
+    assert len(backend._pending) == 2

@@ -153,4 +153,14 @@ def test_entry_points_refuse_cpu_without_being_asked():
     from coreth_tpu_torch.evm.device.adapter import MachineWindowRunner
     with pytest.raises(RuntimeError, match="CUDA"):
         MachineWindowRunner("durango", lambda addr, key: 0)
+    from coreth_tpu_torch.mpt import SecureTrie
+    from coreth_tpu_torch.mpt.rehash import device_rehash
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_rehash(SecureTrie())
+    from coreth_tpu_torch.chain import Genesis
+    from coreth_tpu_torch.params import TEST_APRICOT_PHASE5_CONFIG
+    from coreth_tpu_torch.workloads import mixed
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mixed.replay_engine(Genesis(config=TEST_APRICOT_PHASE5_CONFIG,
+                                    gas_limit=8_000_000), 8, 0x7000)
     assert default_device("cpu").type == "cpu"

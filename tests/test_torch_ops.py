@@ -34,7 +34,7 @@ def _rand_ints(rng, n, bits=256):
 
 def test_u256_roundtrip():
     vals = [0, 1, 0xFFFF, 2**255 + 12345, 2**256 - 1, 10**24]
-    assert tu256.to_ints(tu256.from_ints(vals)) == vals
+    assert tu256.to_ints(tu256.from_ints(vals, device="cpu")) == vals
     assert np.array_equal(tu256.pack_np(vals), ju256.pack_np(vals))
 
 
@@ -65,7 +65,7 @@ def test_u256_add_sub_gte_match_jax(seed):
 
 def test_u256_segment_headroom():
     # sum 4096 maxed values then normalize — no overflow in int32 limbs
-    vals = tu256.from_ints([2**256 - 1] * 4096)
+    vals = tu256.from_ints([2**256 - 1] * 4096, device="cpu")
     norm = tu256.normalize(vals.sum(0, dtype=torch.int32)[None, :])
     assert tu256.to_ints(norm)[0] == (4096 * (2**256 - 1)) % 2**256
 
