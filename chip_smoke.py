@@ -1176,6 +1176,19 @@ def _read_launches() -> dict:
             "sharded_slot_step": PM.SLOT_STEP_LAUNCHES}
 
 
+def close_engine(eng) -> None:
+    """Close a replay engine and check that its supervisor never struck
+    nor demoted a scope: outside phase faults no path may have reached
+    the host by a fault."""
+    eng.close()
+    sup = eng.supervisor
+    if sup.strikes or sup.demotions:
+        caller = sys._getframe(1).f_code.co_name
+        raise AssertionError(f"{caller}: the supervisor struck "
+                             f"{sup.strikes} times, demoted "
+                             f"{sup.demotions}: {sup.snapshot()}")
+
+
 def _timed_folds(pipe, on_first=None) -> list:
     """Wrap a commit pipeline's flush to record (monotonic time, blocks
     folded) for every fold that folds blocks; ``on_first`` is called
@@ -1323,7 +1336,7 @@ def _replay_erc20(dev, genesis, blocks, txs: int, device_occ: bool,
             spans.close()
     dt = time.monotonic() - t0
     launches = _read_launches()
-    eng.close()
+    close_engine(eng)
     steady = _steady(folds, t0, txs)
     if spans is not None:
         steady["host_spans"] = spans.row()
@@ -1443,7 +1456,7 @@ def window_from_chain(dev, genesis, blocks, specialize: bool = False,
     if scache_cap:
         runner._hw["scache_cap"] = scache_cap
     pk = runner.pack(items)
-    eng.close()
+    close_engine(eng)
     return pk
 
 
@@ -2109,7 +2122,7 @@ def phase_shard(dev, smi, genesis, wire, txs: int, capacity: int):
         torch.cuda.synchronize()
         dt = time.monotonic() - t1
         launches = _read_launches()
-        eng.close()
+        close_engine(eng)
         if root != fresh[-1].header.root:
             raise AssertionError(f"shard n={n}: final root differs from "
                                  "the header")
@@ -2168,7 +2181,7 @@ def sharded_windows(dev, genesis, blocks):
                                     keyrange=keyrange)
             r.seed_window_hint(8)
             out[(n, keyrange)] = r.pack(items)
-    eng.close()
+    close_engine(eng)
     return out
 
 
@@ -2532,7 +2545,7 @@ def classified_step_inputs(dev, genesis, blocks, txs: int):
                          batch_pad=txs, slot_capacity=1 << 14, device=dev)
     eng.warm_senders(block)
     batch = eng._classify(block)
-    eng.close()
+    close_engine(eng)
     if batch is None or not any(batch["amounts"]):
         raise AssertionError("k8s: the chain's first block is not a token "
                              "fast-path block")
@@ -2683,7 +2696,8 @@ def phase_hot(dev, smi):
     shard and at n = 2 and 4: root equal to the header, every block on
     the machine path, no dirty block; on the mesh the token hot (key
     range), K9 launched (the flags of its last window equal to the plain
-    version's) and the single-chip K6/K7 not.  Returns {n: launches}."""
+    version's) and the single-chip K6/K7 not.  Returns ({n: launches},
+    (genesis, the blocks' encodings)) for phase faults."""
     import torch
     from coreth_tpu_torch.evm.device import adapter as A
     from coreth_tpu_torch.params import TEST_CHAIN_CONFIG as CFG
@@ -2716,7 +2730,7 @@ def phase_hot(dev, smi):
         torch.cuda.synchronize()
         dt = time.monotonic() - t1
         launches = _read_launches()
-        eng.close()
+        close_engine(eng)
         mc = eng.machine_counters()
         if root != fresh[-1].header.root:
             raise AssertionError(f"hot n={n}: final root differs from the "
@@ -2750,7 +2764,7 @@ def phase_hot(dev, smi):
               "last_window_flags": last_flags, "machine": mc,
               "stats": eng.stats.row(), "card": smi})
         out[n] = launches
-    return out
+    return out, (genesis, wire)
 
 
 # ------------------------------------------------------ the host path
@@ -2936,7 +2950,7 @@ def phase_host(dev, smi, sizes=None):
         sync()
         dt = time.monotonic() - t1
         launches = _read_launches()
-        eng.close()
+        close_engine(eng)
         st = eng.stats
         mc = eng.machine_counters() if eng._machine is not None else {}
         if root != blocks[-1].header.root or store.trie.hash() != root:
@@ -3037,7 +3051,7 @@ def phase_mixed(dev, smi, n_blocks=MIXED_BLOCKS, txs=MIXED_TXS,
     sync()
     dt = time.monotonic() - t1
     launches = _read_launches()
-    eng.close()
+    close_engine(eng)
     st = eng.stats
     asset = StateDB(eng.store).get_balance_multi_coin(MX.ASSET_RECIPIENT,
                                                       MX.ASSET)
@@ -3153,31 +3167,12 @@ def phase_rehash(dev, smi, n_keys=REHASH_KEYS, n_update=REHASH_UPDATES,
     # K3 against its plain version on every level the rehash hashed;
     # timed on the largest, the path's largest launch
     levels = _hashed_encodings(t1)
-    k3_level = {}
-    for depth in sorted(levels, key=lambda d: len(levels[d])):
-        blocks, nblocks = K.pack_blocks(levels[depth])
-        b = torch.from_numpy(blocks).to(dev)
-        nb = torch.from_numpy(nblocks).to(dev)
-        got, want = K.keccak256_blocks(b, nb), \
-            K.keccak256_blocks_plain(b, nb)
-        sync()
-        if not torch.equal(got, want):
-            raise AssertionError(f"rehash: K3 differs from its plain "
-                                 f"version at depth {depth}")
-    if dev.type == "cuda":
-        bound_ms, bound_by = bound(
-            blocks.nbytes + nblocks.nbytes + got.numel() * 4,
-            KECCAK_OPS_PER_BLOCK * int(nblocks.sum()))
-        k3_level = {
-            "depth": depth, "messages": len(levels[depth]),
-            "blocks": int(nblocks.sum()),
-            "max_abs_err": max_abs_err([got], [want]),
-            "ms": round(cuda_ms(lambda: K.keccak256_blocks(b, nb)), 4),
-            "kernel_ms": kernel_ms(lambda: K.keccak256_blocks(b, nb),
-                                   "keccak256_blocks"),
-            "plain_ms": round(once_ms(
-                lambda: K.keccak256_blocks_plain(b, nb)), 2),
-            "bound_ms": round(bound_ms, 5), "bound_by": bound_by}
+    largest = max(levels, key=lambda d: len(levels[d]))
+    for depth in levels:
+        row = k3_on_messages(dev, levels[depth], f"rehash depth {depth}",
+                             timed=depth == largest)
+        if depth == largest:
+            k3_level = dict(row, depth=depth)
     cross = []
     device_rehash(_rehash_trie(256, seed=1 << 30), min_batch=0, device=dev)
     for n in crossover:
@@ -3208,7 +3203,355 @@ def phase_rehash(dev, smi, n_keys=REHASH_KEYS, n_update=REHASH_UPDATES,
     return sum(r["k3_launches"] for r in rounds), k3_level
 
 
+def k3_on_messages(dev, msgs, what: str, timed: bool = True) -> dict:
+    """K3's entry against its plain version on ``msgs`` (one call each,
+    tolerance 0); on the card with ``timed`` also its ms (CUDA events),
+    kernel ms (``torch.profiler``), plain ms and bound."""
+    import torch
+    from coreth_tpu_torch.ops import keccak as K
+    blocks, nblocks = K.pack_blocks(msgs)
+    b = torch.from_numpy(blocks).to(dev)
+    nb = torch.from_numpy(nblocks).to(dev)
+    got, want = K.keccak256_blocks(b, nb), K.keccak256_blocks_plain(b, nb)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: K3 differs from its plain version")
+    row = {"messages": len(msgs), "blocks": int(nblocks.sum()),
+           "max_abs_err": max_abs_err([got], [want])}
+    if timed and dev.type == "cuda":
+        bound_ms, bound_by = bound(
+            blocks.nbytes + nblocks.nbytes + got.numel() * 4,
+            KECCAK_OPS_PER_BLOCK * int(nblocks.sum()))
+        row.update(
+            ms=round(cuda_ms(lambda: K.keccak256_blocks(b, nb)), 4),
+            kernel_ms=kernel_ms(lambda: K.keccak256_blocks(b, nb),
+                                "keccak256_blocks"),
+            plain_ms=round(once_ms(
+                lambda: K.keccak256_blocks_plain(b, nb)), 2),
+            bound_ms=round(bound_ms, 5), bound_by=bound_by)
+    return row
+
+
+# ------------------------------------------- the Python-trie fold (18)
+
+class LevelRecorder:
+    """Records, over one replay, every level ``mpt/rehash.py`` hashes on
+    K3's entry (``hash_on_device`` wrapped in place until ``close``):
+    the calls, messages, and the largest level's messages."""
+
+    def __init__(self):
+        from coreth_tpu_torch.mpt import rehash as R
+        self._mod, self._fn = R, R.hash_on_device
+        self.calls = self.messages = 0
+        self.largest: list = []
+
+        def recorded(msgs, device):
+            self.calls += 1
+            self.messages += len(msgs)
+            if len(msgs) > len(self.largest):
+                self.largest = list(msgs)
+            return self._fn(msgs, device)
+        R.hash_on_device = recorded
+
+    def close(self) -> None:
+        self._mod.hash_on_device = self._fn
+
+
+def replay_fresh(dev, genesis, wire, what: str, quiet: bool = True, **kw):
+    """``wire`` decoded afresh (no cached senders) and replayed through
+    ``ReplayEngine(**kw)`` on a fresh store of ``genesis``, the launch
+    counters zeroed just before the replay and read just after; the
+    final root must equal the last header's.  ``quiet``: the supervisor
+    must not have struck (``close_engine``).  Returns (engine, seconds,
+    launches)."""
+    import torch
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    fresh = [Block.decode(w) for w in wire]
+    store = StateStore(backend=kw.get("trie", "native"),
+                       check=kw.get("trie_check", False))
+    gblock = genesis.to_block(store)
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         device=dev, **kw)
+    A.RECIPES.clear()
+    _zero_launches()
+    t0 = time.monotonic()
+    root = eng.replay(fresh)
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    launches = _read_launches()
+    if quiet:
+        close_engine(eng)
+    else:
+        eng.close()
+    if root != fresh[-1].header.root or store.trie.hash() != root:
+        raise AssertionError(f"{what}: final root differs from the header")
+    return eng, dt, launches
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_trie(dev, smi, chains):
+    """The slice's main path: ``ReplayEngine(trie="py",
+    rehash_min_batch=64)`` — every window's storage and account tries
+    folded in Python and rehashed level by level on K3's entry — on the
+    transfer chain of phase main and the ERC-20 chain of phase window
+    (K6+K7, ``token_fastpath=False``), each beside the ``trie="native"``
+    replay of the same chain.  Per replay: txs/s, ``t_trie``, the
+    launches (K3's > 0 on the py fold), and K3 against its plain
+    version on the largest level the path hashed (ms, tolerance 0).
+    Then the transfer chain once more with ``trie_check=True`` over the
+    native fold (every window root re-derived on the Python twin; no
+    ``TrieOracleError``).  Returns (K3 launches over both py replays,
+    the largest level's row)."""
+    k3_launches, k3_row = 0, None
+    for label, (genesis, wire, txs, kw) in chains.items():
+        row = {"phase": "trie", "chain": label, "blocks": len(wire),
+               "txs_per_block": txs}
+        for backend in ("native", "py"):
+            extra = dict(kw, trie=backend)
+            rec = None
+            if backend == "py":
+                extra["rehash_min_batch"] = 64
+                rec = LevelRecorder()
+            try:
+                eng, dt, launches = replay_fresh(
+                    dev, genesis, wire, f"trie {label} {backend}", **extra)
+            finally:
+                if rec is not None:
+                    rec.close()
+            row[backend] = {
+                "txs_per_s": round(eng.stats.txs / dt, 1),
+                "replay_s": round(dt, 4),
+                "t_trie": round(eng.stats.t_trie, 4),
+                "folds": eng.commit_pipe.fold_calls,
+                "launches": _nonzero(launches)}
+            if rec is not None:
+                if launches["keccak256_blocks"] < 1:
+                    raise AssertionError(f"trie {label}: K3 never launched "
+                                         "on the py fold")
+                k3_launches += launches["keccak256_blocks"]
+                level = k3_on_messages(dev, rec.largest,
+                                       f"trie {label} largest level")
+                row[backend].update(rehash_levels_on_k3=rec.calls,
+                                    messages_on_k3=rec.messages,
+                                    k3_largest_level=level)
+                if k3_row is None or level["messages"] > k3_row["messages"]:
+                    k3_row = dict(level, chain=label)
+        row["roots_equal_headers"] = True
+        row["card"] = smi
+        emit(row)
+    genesis, wire, txs, kw = chains["transfer"]
+    eng, dt, launches = replay_fresh(dev, genesis, wire, "trie check",
+                                     trie_check=True, **kw)
+    emit({"phase": "trie_check", "chain": "transfer",
+          "windows_checked": eng.commit_pipe.fold_calls,
+          "ms": round(1000 * dt, 1),
+          "t_trie": round(eng.stats.t_trie, 4),
+          "oracle_divergences": 0, "roots_equal_headers": True,
+          "launches": _nonzero(launches), "card": smi})
+    return k3_launches, k3_row
+
+
+# ------------------------------------------------------- faults (19)
+FAULT_XFER_BLOCKS, FAULT_MACHINE_BLOCKS = 8, 4
+
+
+def phase_faults(dev, smi, transfer, erc20, hot):
+    """The supervisor's ladder on the card, on prefixes of the chains
+    already built (no new signing), each case with an armed
+    ``FaultPlan`` and a supervisor that demotes at the first strike
+    (``retries=1, strikes=1``; the transient cases ``strikes=3``), as
+    the reference's tests set it: (a) a transient ``device/dispatch``
+    on K1, retried with no demotion; (b) a persistent one, demoted
+    with every block on the host path; (c) re-promotion once the
+    cooldown is forced open; (d) ``device/dispatch`` on a K6+K7 window,
+    demoted; (e) ``device/key_exchange`` and (f)
+    ``device/shard_exchange`` on K9 at n = 4, struck and demoted; (g)
+    ``recover/fault`` on K2, degraded to per-tx recovery; (h) a
+    transient ``commit/flush_fail``, retried.  Every root equals the
+    header.  Prints each case's supervisor snapshot and launches."""
+    from coreth_tpu_torch import faults
+    from coreth_tpu_torch.faults import FaultPlan, FaultSpec
+    from coreth_tpu_torch.parallel import make_mesh
+    from coreth_tpu_torch.replay.supervisor import BackendSupervisor
+    xg, xwire, xkw = transfer
+    mg, mwire, mkw = erc20
+    hg, hwire, hkw = hot
+    xwire = xwire[:FAULT_XFER_BLOCKS]
+    mwire, hwire = mwire[:FAULT_MACHINE_BLOCKS], hwire[:FAULT_MACHINE_BLOCKS]
+    xkw = dict(xkw, window=4)
+
+    def sup(**kw):
+        return BackendSupervisor(**{"retries": 1, "backoff": 0.001,
+                                    "strikes": 1, **kw})
+
+    def case(name, chain, plan, check, sup_kw=None, **kw):
+        genesis, wire, base = chain
+        t0 = time.monotonic()
+        with faults.armed(FaultPlan(plan)) as armed:
+            eng, dt, launches = replay_fresh(
+                dev, genesis, wire, f"faults {name}", quiet=False,
+                supervisor=sup(**(sup_kw or {})), **dict(base, **kw))
+            fired = armed.fired()
+        st = eng.stats
+        if not check(eng, launches, fired):
+            raise AssertionError(f"faults {name}: supervisor "
+                                 f"{eng.supervisor.snapshot()}, fired "
+                                 f"{fired}, launches {launches}, stats "
+                                 f"{st.row()}")
+        emit({"phase": "faults", "case": name, "blocks": len(wire),
+              "fired": fired, "supervisor": eng.supervisor.snapshot(),
+              "blocks_device": st.blocks_device,
+              "blocks_fallback": st.blocks_fallback,
+              "sigs_device": st.sigs_device, "sigs_host": st.sigs_host,
+              "launches": _nonzero(launches), "root_matches_header": True,
+              "seconds": round(time.monotonic() - t0, 3), "card": smi})
+
+    X = (xg, xwire, xkw)
+    n = FAULT_XFER_BLOCKS
+    case("k1_dispatch_transient", X,
+         {"device/dispatch": FaultSpec(times=1, transient=True)},
+         lambda e, ln, f: (e.supervisor.retries >= 1
+                           and e.supervisor.demotions == 0
+                           and e.stats.blocks_device == n
+                           and ln["transfer_window"] >= 1),
+         sup_kw={"strikes": 3})
+    case("k1_dispatch_persistent", X, {"device/dispatch": FaultSpec()},
+         lambda e, ln, f: (e.supervisor.demoted("device")
+                           and e.stats.blocks_fallback == n
+                           and e.stats.blocks_device == 0
+                           and ln["transfer_window"] == 0))
+    case("k9_key_exchange", (hg, hwire, hkw),
+         {"device/key_exchange": FaultSpec()},
+         lambda e, ln, f: (f.get("device/key_exchange", 0) >= 1
+                           and e.supervisor.demotions >= 1
+                           and e.stats.blocks_fallback > 0),
+         mesh=make_mesh(4))
+    case("k9_shard_exchange", (mg, mwire, mkw),
+         {"device/shard_exchange": FaultSpec()},
+         lambda e, ln, f: (f.get("device/shard_exchange", 0) >= 1
+                           and ln["occ_sharded"] >= 1
+                           and e.supervisor.demotions >= 1
+                           and e.stats.blocks_fallback > 0),
+         mesh=make_mesh(4))
+    case("k6k7_dispatch", (mg, mwire, mkw), {"device/dispatch": FaultSpec()},
+         lambda e, ln, f: (e.supervisor.demoted("device")
+                           and e.stats.blocks_fallback == len(mwire)
+                           and ln["occ_window_spec"] + ln["occ_window"]
+                           == 0))
+    case("k2_recover", X, {"recover/fault": FaultSpec()},
+         lambda e, ln, f: (f.get("recover/fault", 0) >= 1
+                           and e.stats.sigs_device == e.stats.sigs_host == 0
+                           and ln["secp_recover"] == 0
+                           and e.supervisor.strikes == 0
+                           and e.stats.blocks_device == n))
+    case("commit_flush_transient", X,
+         {"commit/flush_fail": FaultSpec(times=2, transient=True)},
+         lambda e, ln, f: (e.supervisor.retries >= 2
+                           and e.supervisor.strikes == 0
+                           and e.stats.blocks_device == n),
+         sup_kw={"retries": 3, "strikes": 5})
+    # (c) a fault that clears: demoted on the first window, the cooldown
+    # forced open, then the probe promotes and the device path resumes
+    import torch
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    fresh = [Block.decode(w) for w in xwire]
+    store = StateStore()
+    gblock = xg.to_block(store)
+    eng = E.ReplayEngine(xg.config, store, parent_header=gblock.header,
+                         device=dev, supervisor=sup(), **xkw)
+    half = n // 2
+    _zero_launches()
+    t0 = time.monotonic()
+    with faults.armed(FaultPlan({"device/dispatch": FaultSpec(times=1)})):
+        eng.replay(fresh[:half])
+        demoted = eng.supervisor.demoted("device")
+        eng.supervisor._state["device"]["until"] = 0.0
+        root = eng.replay(fresh[half:])
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    eng.close()
+    sup_row = eng.supervisor.snapshot()
+    if not (demoted and root == fresh[-1].header.root
+            and eng.supervisor.promotions >= 1
+            and not eng.supervisor.demoted("device")
+            and eng.stats.blocks_fallback == half
+            and eng.stats.blocks_device == n - half):
+        raise AssertionError(f"faults k1_repromote: demoted {demoted}, "
+                             f"supervisor {sup_row}, {eng.stats.row()}")
+    emit({"phase": "faults", "case": "k1_repromote", "blocks": n,
+          "supervisor": sup_row, "blocks_device": eng.stats.blocks_device,
+          "blocks_fallback": eng.stats.blocks_fallback,
+          "launches": _nonzero(launches), "root_matches_header": True,
+          "seconds": round(time.monotonic() - t0, 3), "card": smi})
+
+
+# -------------------------------------------------------- trace (20)
+
+def phase_trace(dev, smi, genesis, wire, kw):
+    """The transfer chain of phase main four times, in the order off,
+    on, on, off: with no tracer, and with ``obs.install(device_spans=
+    True)`` (spans of the sender recovery, the window issue and
+    completion, the folds; ``torch.profiler`` labels on the launches).
+    Prints txs/s of each, the spans and instants by name of the traced
+    run, the export's size, and that it reloads with ``json.loads``;
+    then a 16-block prefix traced under ``torch.profiler``, where the
+    K1 launches' ``coreth/transfer_window`` labels must show."""
+    import collections
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from coreth_tpu_torch import obs
+    runs, doc = [], None
+    for traced in (False, True, True, False):
+        tracer = obs.install(device_spans=True) if traced else None
+        try:
+            eng, dt, _ln = replay_fresh(dev, genesis, wire, "trace", **kw)
+        finally:
+            obs.uninstall()
+        runs.append({"traced": traced,
+                     "txs_per_s": round(eng.stats.txs / dt, 1),
+                     "replay_s": round(dt, 4)})
+        if traced and doc is None:
+            text = json.dumps(tracer.export())
+            doc = json.loads(text)
+            dropped = tracer.dropped
+    spans = collections.Counter(e["name"] for e in doc["traceEvents"]
+                                if e["ph"] == "X")
+    instants = collections.Counter(e["name"] for e in doc["traceEvents"]
+                                   if e["ph"] == "i")
+    for need in ("replay/issue_window", "replay/complete_window",
+                 "commit/flush"):
+        if not spans.get(need):
+            raise AssertionError(f"trace: no {need} span in {spans}")
+    obs.install(device_spans=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            replay_fresh(dev, genesis, wire[:16], "trace profiled", **kw)
+    finally:
+        obs.uninstall()
+    labels = sum(ev.count for ev in prof.key_averages()
+                 if ev.key == "coreth/transfer_window")
+    if labels < 1:
+        raise AssertionError("trace: no coreth/transfer_window label in the "
+                             "profiler's trace")
+    emit({"phase": "trace", "order": ["off", "on", "on", "off"],
+          "runs": runs, "spans": dict(spans), "instants": dict(instants),
+          "events": len(doc["traceEvents"]), "dropped": dropped,
+          "export_bytes": len(text), "export_reloads": True,
+          "profiler_labels": {"coreth/transfer_window": labels},
+          "card": smi})
+
+
 def main() -> int:
+    t_start = time.monotonic()
     try:
         import torch
     except ImportError:
@@ -3361,7 +3704,7 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.monotonic() - t1
     launches = {"transfer_window": E.LAUNCHES, "secp_recover": S.LAUNCHES}
-    eng.close()
+    close_engine(eng)
     if root != blocks[-1].header.root:
         raise AssertionError("main path: final root differs from the header")
     if eng.stats.blocks_device != n_blocks:
@@ -3447,7 +3790,7 @@ def main() -> int:
                                for _so, _ln, st in ab]})
 
     # ---- 14. the hot-contract chain on one shard and on 2 and 4
-    phase_hot(dev, smi)
+    _hot, (h_genesis, h_wire) = phase_hot(dev, smi)
 
     # ---- 15. the exact host path: rewinds, a dirty block, serial blocks
     phase_host(dev, smi)
@@ -3461,19 +3804,41 @@ def main() -> int:
     emit({"phase": "mixed_rehash_seconds",
           "seconds": round(time.monotonic() - t0, 2)})
 
+    # ---- 18.-20. the Python-trie fold with K3 inside the replay (the
+    # slice's main path), the fault ladder, the span tracer
+    t0 = time.monotonic()
+    x_kw = dict(batch_pad=txs, capacity=capacity, window=128)
+    m_wire = [b.encode() for b in m_blocks]
+    m_kw = dict(batch_pad=m_txs, window=16, token_fastpath=False)
+    k3_launches, k3_path = phase_trie(dev, smi, {
+        "transfer": (genesis, wire, txs, x_kw),
+        "erc20": (m_genesis, m_wire, m_txs, m_kw)})
+    t_trie_phase = time.monotonic() - t0
+    phase_faults(dev, smi, (genesis, wire, x_kw), (m_genesis, m_wire, m_kw),
+                 (h_genesis, h_wire, dict(
+                     capacity=1 << 13, slot_capacity=1 << 13,
+                     batch_pad=HOT_TXS, window=16, token_fastpath=False)))
+    phase_trace(dev, smi, genesis, wire, x_kw)
+    emit({"phase": "trie_faults_trace_seconds",
+          "trie_s": round(t_trie_phase, 2),
+          "seconds": round(time.monotonic() - t0, 2)})
+
     k1["launches"] = launches["transfer_window"]
     k2["launches"] = launches["secp_recover"]
     k5["launches"] = m_launches["step_machine"]
     k6["launches"] = w_launches["occ_window"]
     k7["launches"] = s_launches["occ_window_spec"]
-    # K3's entry runs on the rehash path: its numbers at that path's
-    # largest launch (phase k3's 4096 messages stay in its own line)
-    k3.update({k: k3_rehash[k] for k in (
+    # K3's entry runs inside the replay on the py fold (phase trie, the
+    # slice's main path): its numbers at that path's largest launch;
+    # phase rehash's and phase k3's stay in their own lines
+    k3.update({k: k3_path[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
-    k3["shape"] = (f"rehash level {k3_rehash['depth']}: "
-                   f"{k3_rehash['messages']} messages, "
-                   f"{k3_rehash['blocks']} blocks")
-    k3["launches"] = rehash_launches
+    k3["shape"] = (f"py-fold level of the {k3_path['chain']} replay: "
+                   f"{k3_path['messages']} messages, "
+                   f"{k3_path['blocks']} blocks")
+    k3["launches"] = k3_launches
+    k3["launches_rehash_phase"] = rehash_launches
+    k3["rehash_phase_ms"] = k3_rehash.get("ms")
     k3["launches_also"] = "in K5, K6 and K7"
     k4["launches"] = "in K5, K6 and K7"
     k8["launches"] = shard_launches[HEADLINE_WIDTH]["sharded_window"]
@@ -3483,6 +3848,7 @@ def main() -> int:
     k9x["carried_by_k9"] = sh_launches["occ_sharded"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8, k8r, k9,
                                   k9x, k8s_t, k8s_s]}), flush=True)
+    emit({"phase": "total", "seconds": round(time.monotonic() - t_start, 1)})
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

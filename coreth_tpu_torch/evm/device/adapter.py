@@ -25,13 +25,20 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from coreth_tpu_torch import default_device
+from coreth_tpu_torch import default_device, faults, obs
 from coreth_tpu_torch.crypto import keccak256, keccak256_many
 from coreth_tpu_torch.evm.census import static_storage_keys
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import specialize as SP
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.ops import u256
+
+# The seam the transfer path's supervised window dispatch fires too
+# (replay/engine.py): a fused-OCC window dispatch raising mid-run.  Fired
+# BEFORE any packing mutates the runner, so a faulted issue() is safe to
+# retry.
+PT_DISPATCH = faults.declare(
+    "device/dispatch", "raise at window dispatch (transfer + fused OCC)")
 
 # miss-and-rerun rounds of one MachineRunner.run before a lane still
 # missing storage goes to the host (the reference's max_rounds default)
@@ -1256,13 +1263,17 @@ class MachineWindowRunner:
         """Pack and launch one window; returns a handle for complete().
         The launch is asynchronous and nothing here waits for the card:
         callers fold the previous window's tries while this one runs,
-        and block only in complete()'s fetch."""
+        and block only in complete()'s fetch.  The ``device/dispatch``
+        injection point fires first, before any packing."""
+        faults.fire(PT_DISPATCH)
         t0 = time.monotonic()
         handle = self.pack(items, discovered, attempt)
         t1 = time.monotonic()
-        handle["out"] = M.run_occ_window(
-            handle["p"], handle["occ"], handle.pop("table"),
-            handle.pop("key_tab"), handle.pop("inputs"), handle["spec"])
+        with obs.device_span("coreth/occ_window"):
+            handle["out"] = M.run_occ_window(
+                handle["p"], handle["occ"], handle.pop("table"),
+                handle.pop("key_tab"), handle.pop("inputs"),
+                handle["spec"])
         # the launch's output table (the post-window committed state)
         # replaces the resident one; the stream orders its later uses
         self.table = handle["out"]["table"]

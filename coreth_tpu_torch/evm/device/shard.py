@@ -43,28 +43,44 @@ sync set (or forced by ``exchange``).
 
 from __future__ import annotations
 
-import collections
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from coreth_tpu_torch import faults, obs
 from coreth_tpu_torch.crypto import keccak256
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device import tables as T
 from coreth_tpu_torch.evm.device.adapter import (
-    MachineWindowRunner, _pow2, _scatter_rows, _upload,
+    PT_DISPATCH, MachineWindowRunner, _pow2, _scatter_rows, _upload,
 )
 from coreth_tpu_torch.ops import u256
 from coreth_tpu_torch.parallel import (
     account_bucket, contract_bucket, exchange_mode, slot_bucket,
 )
 
+# Injection point: the cross-shard exchange fails (K9's flags reduce,
+# its epilogue).  Armed plans raise right after the window's launch;
+# the machine executor's fault containment invalidates the runner and
+# strikes the device scope.
+PT_EXCHANGE = faults.declare(
+    "device/shard_exchange", "cross-shard collective exchange failure")
+
+# Injection point: the INTRA-contract key-range exchange (the replica
+# sync K9 runs between blocks when the window has a sync set).  Fired at
+# the launch that carries the sync set; contained exactly like
+# PT_EXCHANGE.
+PT_KEY_EXCHANGE = faults.declare(
+    "device/key_exchange",
+    "intra-contract key-range exchange collective failure")
+
 # Dispatch / fetch order of the sharded windows: "dispatch:<seq>",
-# "exchange_fetch:<seq>", "result_fetch:<seq>", newest 512.  The
-# sequence is module-wide, so two runners in one process never collide.
-EVENT_LOG: collections.deque = collections.deque(maxlen=512)
+# "exchange_fetch:<seq>", "result_fetch:<seq>", newest 512, mirrored into
+# the span tracer as instants when one is installed.  The sequence is
+# module-wide, so two runners in one process never collide.
+EVENT_LOG = obs.EventRing("shard", maxlen=512)
 _SEQ = [0]
 
 
@@ -568,19 +584,26 @@ class ShardedWindowRunner(MachineWindowRunner):
     def issue(self, items, discovered=None, attempt: int = 1) -> dict:
         """Pack and launch one window (K9, its flags reduce inside);
         returns the handle for ``poll_clean`` and ``complete``.  Nothing
-        here waits for the card."""
+        here waits for the card.  Fault points: ``device/dispatch``
+        before any packing, ``device/key_exchange`` at a launch that
+        carries a sync set, ``device/shard_exchange`` after the launch."""
+        faults.fire(PT_DISPATCH)  # the base runner's seam
         t0 = time.monotonic()
         handle = self.pack(items, discovered, attempt)
         t1 = time.monotonic()
         seq = _next_seq()
         EVENT_LOG.append(f"dispatch:{seq}")
+        if handle["sync_rows"] is not None:
+            faults.fire(PT_KEY_EXCHANGE)
         inputs = handle.pop("inputs")
-        out = M.run_occ_sharded(
-            handle["p"], handle["occ"], handle.pop("table"),
-            handle.pop("key_tab"), inputs, handle["spec"], self.n_shards,
-            handle["sync_rows"], handle["xchg_mode"])
+        with obs.device_span("coreth/shard_occ_window"):
+            out = M.run_occ_sharded(
+                handle["p"], handle["occ"], handle.pop("table"),
+                handle.pop("key_tab"), inputs, handle["spec"],
+                self.n_shards, handle["sync_rows"], handle["xchg_mode"])
         self.table = out["table"]
         self.launches += 1
+        faults.fire(PT_EXCHANGE)
         handle["ex"] = out["flags"]
         handle.update(out=out, active=inputs["active"], attempt=attempt,
                       seq=seq)

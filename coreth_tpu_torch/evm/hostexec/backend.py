@@ -10,6 +10,12 @@ call's writes become the next call's committed base (``commit``): the
 chain builder and the serial short-circuit (``replay/machine_block``)
 carry state call by call, the StateDB bridge (``evm/hostexec/bridge``)
 takes a fresh view per tx unless nothing outside it moved the state.
+
+A session that cannot be had (the library missing, or without the
+session ABI, or the session not created) raises :class:`SessionError`:
+the fault the supervisor's ``native`` scope strikes on, with the
+injected ``native/error_rc`` point (``PT_ERROR_RC``, fired at every
+call).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from __future__ import annotations
 import ctypes
 from typing import Callable, Dict, List, Optional, Tuple
 
+from coreth_tpu_torch import faults
 from coreth_tpu_torch.crypto import native
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.hostexec.eligibility import (
@@ -31,14 +38,27 @@ _FETCH_CODE = ctypes.CFUNCTYPE(
 
 _declared = False
 
+# Injection point: the session returns an error rc mid-call (the ABI's
+# failure mode for a corrupted session).  Armed plans raise here; the
+# bridge and the serial short-circuit both treat it as a per-tx escape
+# plus a native-scope strike.
+PT_ERROR_RC = faults.declare(
+    "native/error_rc", "hostexec session call returns a fault rc")
+
+
+class SessionError(RuntimeError):
+    """The native hostexec session is unavailable or failed."""
+
 
 def _lib():
     """The native library with the hostexec ABI declared; raises when
     the library is missing or predates the session symbols."""
     global _declared
-    lib = native._require()
+    lib = native.load()
+    if lib is None:
+        raise SessionError("coreth native library unavailable")
     if not hasattr(lib, "coreth_hostexec_new"):
-        raise RuntimeError("native library lacks the hostexec session ABI")
+        raise SessionError("native library lacks the hostexec session ABI")
     if _declared:
         return lib
     P, C = ctypes.c_void_p, ctypes.c_char_p
@@ -146,6 +166,9 @@ class HostExecBackend:
         self._h = lib.coreth_hostexec_new(
             chain_id, self._fetch_cb, self._code_cb,
             native_optable(fork), 1 if fork in REFUND_FORKS else 0)
+        if not self._h:
+            self._h = None
+            raise SessionError("coreth_hostexec_new returned no session")
 
     def close(self) -> None:
         if self._h is not None:
@@ -199,6 +222,7 @@ class HostExecBackend:
     def call(self, caller: bytes, to: bytes, value: int, gas_price: int,
              data: bytes, gas: int, warm_addrs=(),
              warm_slots=()) -> NativeCallResult:
+        faults.fire(PT_ERROR_RC)
         lib = self._lib
         for a in warm_addrs:
             lib.coreth_hostexec_warm_addr(self._h, a)

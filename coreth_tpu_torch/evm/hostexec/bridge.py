@@ -16,21 +16,68 @@ This single seam serves every host execution site: the ReplayEngine's
 suffix (replay/machine_block._host_resolve builds EVM.call directly).
 The native engine is always the first choice (the reference's default
 ``CORETH_HOST_EXEC=native``).
+
+Faults on the native boundary go to the replay engine's supervisor
+(``replay/supervisor.py``), found through the StateDB's store
+(``store.fault_observer``, which the engine sets; ``set_fault_observer``
+installs a process-wide one for an EVM with no engine behind it): a
+demoted ``native`` scope sends every call to the interpreter, an
+injected session loss (``native/session_loss``), a session error or an
+error rc (``native/error_rc``) is a per-tx interpreter fallback plus a
+strike.  With ``store.host_exec_check`` (the engine's
+``host_exec_check=True``, the reference's ``CORETH_HOST_EXEC_CHECK=1``)
+the Python interpreter stays in the loop as a differential oracle:
+every native result is re-derived on a copy of the StateDB
+(``StateDB.copy``, which leaves the StateDB as it was) and compared
+(status, gas, return data, writes, logs, refund) before it is taken; a
+divergence hard-demotes ``native`` and the interpreter serves the tx,
+or, with no supervisor, raises.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+from coreth_tpu_torch import faults
 from coreth_tpu_torch.evm import vmerrs
 from coreth_tpu_torch.evm.device import machine as M
 from coreth_tpu_torch.evm.device.tables import fork_key
-from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
+from coreth_tpu_torch.evm.hostexec.backend import (
+    HostExecBackend, SessionError,
+)
 from coreth_tpu_torch.evm.hostexec.eligibility import native_eligible
+from coreth_tpu_torch.obs import span as _trace_span
 from coreth_tpu_torch.types.receipt import Log
 
 # which executor served depth-0 calls
 _COUNTERS: Dict[str, int] = {}
+
+# Injection points on the native boundary:
+PT_SESSION_LOSS = faults.declare(
+    "native/session_loss",
+    "hostexec session unavailable at bridge setup")
+PT_DIVERGE = faults.declare(
+    "native/oracle_divergence",
+    "armed differential oracle reports a native/interpreter divergence")
+
+# the process-wide fault observer, for EVMs whose store no engine set
+_OBSERVER = None
+
+
+def set_fault_observer(observer) -> None:
+    global _OBSERVER
+    _OBSERVER = observer
+
+
+def _store_of(evm):
+    return getattr(getattr(evm, "statedb", None), "store", None)
+
+
+def _observer_for(evm):
+    """The supervisor of THIS evm's engine (its store's), else the
+    process-wide one."""
+    observer = getattr(_store_of(evm), "fault_observer", None)
+    return observer if observer is not None else _OBSERVER
 
 
 def counters() -> Dict[str, int]:
@@ -82,6 +129,12 @@ def _backend_for(evm, fork: str) -> HostExecBackend:
 def try_call(evm, caller: bytes, addr: bytes, input_: bytes, gas: int,
              value: int, snapshot: int):
     """Native execution of one root call; None -> interpreter path."""
+    observer = _observer_for(evm)
+    if observer is not None and not observer.allows("native"):
+        # the supervisor demoted the native engine: the interpreter
+        # serves until the cooldown lapses (then the next call probes)
+        _bump("supervisor_demoted")
+        return None
     fork = fork_key(evm.rules)
     if fork is None:
         return None
@@ -95,7 +148,14 @@ def try_call(evm, caller: bytes, addr: bytes, input_: bytes, gas: int,
     if not eligible:
         _bump("py_ineligible")
         return None
-    be = _backend_for(evm, fork)
+    try:
+        faults.fire(PT_SESSION_LOSS)
+        be = _backend_for(evm, fork)
+    except (faults.FaultInjected, SessionError) as exc:
+        if observer is not None:
+            observer.strike("native", exc)
+        _bump("session_faults")
+        return None
     ctx = evm.block_ctx
     # Cross-tx cache reuse: resolved (contract, slot) values and
     # code/kind verdicts survive from the previous native tx of the
@@ -125,12 +185,39 @@ def try_call(evm, caller: bytes, addr: bytes, input_: bytes, gas: int,
     be.set_env(ctx.coinbase, ctx.time, ctx.number, ctx.gas_limit,
                ctx.base_fee or 0, ctx.difficulty)
     be.set_code(addr, code)
-    res = be.call(caller, addr, value, evm.tx_ctx.gas_price, input_, gas,
-                  warm_addrs=sorted(statedb.access_list_addresses),
-                  warm_slots=sorted(statedb.access_list_slots))
+    try:
+        with _trace_span("hostexec/native_call", gas=gas):
+            res = be.call(
+                caller, addr, value, evm.tx_ctx.gas_price, input_, gas,
+                warm_addrs=sorted(statedb.access_list_addresses),
+                warm_slots=sorted(statedb.access_list_slots))
+    except (faults.FaultInjected, SessionError) as exc:
+        # an error rc from the session: a per-tx interpreter fallback
+        # and a native strike (repeated ones demote the scope)
+        if observer is not None:
+            observer.strike("native", exc)
+        _bump("native_faults")
+        return None
     if res.needs_host:
         _bump("host_escapes")
         return None
+    if getattr(_store_of(evm), "host_exec_check", False):
+        try:
+            faults.fire(PT_DIVERGE)
+            _differential_check(evm, caller, addr, input_, gas, value,
+                                res)
+        except (faults.FaultInjected, AssertionError) as exc:
+            if observer is None:
+                raise  # unsupervised oracle mode: fail loudly
+            # a backend that DISAGREES with the interpreter is wrong,
+            # not slow: hard-demote at once; the interpreter (whose
+            # result is authoritative) serves the tx
+            observer.strike("native", exc, hard=True)
+            _bump("oracle_divergences")
+            return None
+        _bump("oracle_checks")
+    if observer is not None:
+        observer.note_ok("native")  # strike reset + probe success
     if res.status == M.ERR:
         # the outcome (all gas burned, status-0 receipt) is already
         # proven equal, but callers pin the exact error TAXONOMY
@@ -168,3 +255,50 @@ def try_call(evm, caller: bytes, addr: bytes, input_: bytes, gas: int,
     err = vmerrs.ErrExecutionReverted()
     err.data = res.ret
     return res.ret, res.gas_left, err
+
+
+def _differential_check(evm, caller, addr, input_, gas, value,
+                        res) -> None:
+    """Re-derive the call on the Python interpreter over a copy of the
+    StateDB and assert equality (raises AssertionError on the first
+    divergence).  The copy shares the store read-only and takes the
+    journaled overlay, so the StateDB itself is left as it was."""
+    from coreth_tpu_torch.evm.evm import EVM
+    copy = evm.statedb.copy()
+    evm2 = EVM(evm.block_ctx, evm.tx_ctx, copy, evm.chain_config,
+               evm.config)
+    snap2 = copy.snapshot()
+    n_logs0 = len(copy.logs)
+    refund0 = copy.refund
+    ret2, gas2, err2 = evm2._execute(
+        None, caller, addr, addr, input_, gas, value, False, snap2)
+    if err2 is None:
+        status2 = M.STOP
+    elif isinstance(err2, vmerrs.ErrExecutionReverted):
+        status2 = M.REVERT
+    else:
+        status2 = M.ERR
+    if (res.status, res.gas_left) != (status2, gas2):
+        raise AssertionError(
+            f"hostexec divergence: native (status={res.status}, "
+            f"gas={res.gas_left}) != py (status={status2}, gas={gas2})")
+    if res.status != M.ERR and res.ret != ret2:
+        raise AssertionError("hostexec divergence: return data")
+    if res.status == M.STOP:
+        for (contract, key), v in res.writes.items():
+            got = copy.get_state(contract, key)
+            if got != v:
+                raise AssertionError(
+                    f"hostexec divergence: write {key.hex()}: "
+                    f"native {v.hex()} != py {got.hex()}")
+        py_logs = copy.logs[n_logs0:]
+        if len(py_logs) != len(res.logs):
+            raise AssertionError("hostexec divergence: log count")
+        for lg, (la, topics, data) in zip(py_logs, res.logs):
+            if (bytes(lg.address), [bytes(t) for t in lg.topics],
+                    bytes(lg.data)) != (la, topics, data):
+                raise AssertionError("hostexec divergence: log body")
+        if copy.refund - refund0 != res.refund:
+            raise AssertionError(
+                f"hostexec divergence: refund native {res.refund} != "
+                f"py {copy.refund - refund0}")

@@ -1,13 +1,21 @@
 """C++-backed tries — the replay engine's commit-path backend.
 
-A cut of reference ``mpt/native_trie.py``: the secure (keccak-keyed)
+Port of reference ``mpt/native_trie.py``: the secure (keccak-keyed)
 account/storage trie over the C++ trie handle API of
 ``native/baseline.cc``, with the window-batched fold-and-root calls
 (``fold_storage``, ``fold_accounts_root``) that commit a whole deduped
-window in one ctypes crossing per trie, and the ordered trie that
-``derive_sha`` hashes tx and receipt lists into.  The port has no
-Python trie: roots are checked against the block headers, which is
-what keeps the C++ folds honest here.
+window in one ctypes crossing per trie, ``from_python_trie`` (a C++
+trie seeded from a Python trie's leaves), and the ordered trie that ``derive_sha`` hashes tx and receipt
+lists into.
+
+``CheckedSecureTrie`` is the reference's ``CORETH_TRIE_CHECK=1``
+oracle (the engine's ``trie_check=True``): a C++ trie with its Python
+twin (``mpt/trie.py``), every mutation applied to both and every root
+re-derived on the twin.  The reference's backend switch
+(``CORETH_TRIE``, ``backend()``) is the engine's ``trie=`` keyword, and
+``require()`` is what a ``trie="native"`` engine calls: unlike the
+reference, which quietly takes the Python trie when the library does
+not load, it raises.
 """
 
 from __future__ import annotations
@@ -15,10 +23,22 @@ from __future__ import annotations
 import ctypes
 from typing import List, Optional
 
+from coreth_tpu_torch import rlp
 from coreth_tpu_torch.crypto import keccak256
 from coreth_tpu_torch.crypto import native as _native
+from coreth_tpu_torch.mpt.trie import Trie, nibbles_to_key
+from coreth_tpu_torch.types.account import StateAccount
 
 _declared = False
+
+
+def require() -> None:
+    """Raise unless the C++ trie library loads."""
+    _lib()
+
+
+class TrieOracleError(AssertionError):
+    """``trie_check`` divergence: native and Python roots differ."""
 
 
 def _lib():
@@ -87,7 +107,10 @@ class NativeSecureTrie(_Handle):
         self.update_hashed(keccak256(key), value)
 
     def delete(self, key: bytes) -> None:
-        self._lib.coreth_trie_delete(self.h, keccak256(key))
+        self.delete_hashed(keccak256(key))
+
+    def delete_hashed(self, key32: bytes) -> None:
+        self._lib.coreth_trie_delete(self.h, key32)
 
     def get_hashed(self, key32: bytes) -> Optional[bytes]:
         cap = 4096
@@ -105,6 +128,15 @@ class NativeSecureTrie(_Handle):
     def update_hashed(self, key32: bytes, value: bytes) -> None:
         lens = (ctypes.c_uint32 * 1)(len(value))
         self._lib.coreth_trie_update_batch(self.h, key32, value, lens, 1)
+
+    @classmethod
+    def from_python_trie(cls, trie: Trie) -> "NativeSecureTrie":
+        """Seed from a Python Trie / SecureTrie (the keys it holds are
+        already keccak-hashed; ``items()`` yields their nibbles)."""
+        out = cls()
+        for nibs, value in trie.items():
+            out.update_hashed(nibbles_to_key(nibs), value)
+        return out
 
     def fold_storage(self, keys32: bytes, vals32: bytes, n: int) -> bytes:
         """Fold a deduped window of storage writes (pre-hashed keys,
@@ -166,3 +198,88 @@ class NativeOrderedTrie(_Handle):
 def derive_hasher() -> NativeOrderedTrie:
     """A fresh hasher for ``types.derive_sha``."""
     return NativeOrderedTrie()
+
+
+class CheckedSecureTrie:
+    """The ``trie_check`` differential oracle (reference
+    ``CORETH_TRIE_CHECK=1``).
+
+    Wraps a native trie and its Python ``SecureTrie`` twin: every
+    mutation (the window-batched folds included) applies to BOTH, and
+    every root derivation re-derives the root on the Python trie and
+    raises ``TrieOracleError`` on the first divergence.  A debug / test
+    mode: the twin costs the full Python fold the C++ trie exists to
+    avoid."""
+
+    def __init__(self, py_trie: Trie):
+        self.py = py_trie
+        self.native = NativeSecureTrie.from_python_trie(py_trie)
+        self._check(seed=True)
+
+    def _py_update_hashed(self, key32: bytes, value: bytes) -> None:
+        # Trie.update on the twin writes by PRE-HASHED key (SecureTrie
+        # would hash again)
+        Trie.update(self.py, key32, value)
+
+    def _check(self, seed: bool = False) -> bytes:
+        n = self.native.hash()
+        p = self.py.hash()
+        if n != p:
+            raise TrieOracleError(
+                f"trie oracle divergence{' at seed' if seed else ''}: "
+                f"native {n.hex()} != py {p.hex()}")
+        return n
+
+    # ------------------------------------------------------ secure ops
+    def get(self, key: bytes) -> Optional[bytes]:
+        return self.native.get(key)
+
+    def update(self, key: bytes, value: bytes) -> None:
+        self.native.update(key, value)
+        self.py.update(key, value)
+
+    def delete(self, key: bytes) -> None:
+        self.native.delete(key)
+        self.py.delete(key)
+
+    def hash(self) -> bytes:
+        return self._check()
+
+    # ----------------------------------------------- window fold-and-root
+    def fold_storage(self, keys32: bytes, vals32: bytes, n: int) -> bytes:
+        root = self.native.fold_storage(keys32, vals32, n)
+        for i in range(n):
+            v = vals32[32 * i:32 * i + 32].lstrip(b"\x00")
+            self._py_update_hashed(keys32[32 * i:32 * i + 32],
+                                   rlp.encode(v) if v else b"")
+        py_root = self.py.hash()
+        if root != py_root:
+            raise TrieOracleError(
+                f"storage fold divergence: native {root.hex()} != "
+                f"py {py_root.hex()}")
+        return root
+
+    def fold_accounts_root(self, keys32: bytes, balances32: bytes, nonces,
+                           roots32: bytes, code_hashes32: bytes, mc: bytes,
+                           deletes: bytes) -> bytes:
+        root = self.native.fold_accounts_root(
+            keys32, balances32, nonces, roots32, code_hashes32, mc,
+            deletes)
+        for i in range(len(deletes)):
+            key32 = keys32[32 * i:32 * i + 32]
+            if deletes[i]:
+                self._py_update_hashed(key32, b"")
+                continue
+            self._py_update_hashed(key32, StateAccount(
+                nonce=int(nonces[i]),
+                balance=int.from_bytes(balances32[32 * i:32 * i + 32],
+                                       "big"),
+                root=roots32[32 * i:32 * i + 32],
+                code_hash=code_hashes32[32 * i:32 * i + 32],
+                is_multi_coin=bool(mc[i])).rlp())
+        py_root = self.py.hash()
+        if root != py_root:
+            raise TrieOracleError(
+                f"account fold divergence: native {root.hex()} != "
+                f"py {py_root.hex()}")
+        return root

@@ -1,9 +1,9 @@
 """Merkle-Patricia trie — host structural engine with incremental hashing.
 
-Port of reference ``mpt/trie.py`` (the Python trie under the atomic
-trie and ``mpt/rehash.py``; the replay engine's state stays in the C++
-tries of ``mpt/native_trie.py``), without the copy and iteration
-helpers nothing in the port calls.
+Port of reference ``mpt/trie.py``: the Python trie under the atomic
+trie, ``mpt/rehash.py``, the replay engine's ``trie="py"`` state and
+the ``trie_check`` oracle's twin (``mpt/native_trie.py``), without the
+copy helper nothing in the port calls.
 
 Semantics per the Ethereum yellow-paper trie spec (reference trie/trie.go:
 insert :308, delete :413, Hash :573; hasher.go:69 collapse rules):
@@ -76,6 +76,15 @@ def key_to_nibbles(key: bytes) -> bytes:
         out.append(b >> 4)
         out.append(b & 0x0F)
     return bytes(out)
+
+
+def nibbles_to_key(nibbles: bytes) -> bytes:
+    """Inverse of key_to_nibbles for even-length nibble paths (reference
+    ``mpt/iterator.py``)."""
+    if len(nibbles) % 2:
+        raise ValueError("odd nibble path has no byte key")
+    return bytes((nibbles[i] << 4) | nibbles[i + 1]
+                 for i in range(0, len(nibbles), 2))
 
 
 def _common_prefix_len(a: bytes, b: bytes) -> int:
@@ -384,6 +393,30 @@ class Trie:
         for h, data in acc:
             self.db[h] = data
         return root_hash
+
+
+    # ------------------------------------------------------------- iterate
+    def items(self):
+        """Yield (key_nibbles, value) in lexicographic key order."""
+        yield from self._iter(self.root, b"")
+
+    def _iter(self, node, prefix: bytes):
+        if node is None:
+            return
+        node = self._resolve(node)
+        if node is None:
+            return
+        kind = node[0]
+        if kind == LEAF:
+            yield prefix + node[1], node[2]
+        elif kind == EXT:
+            yield from self._iter(node[2], prefix + node[1])
+        else:
+            if node[2]:
+                yield prefix, node[2]
+            for i, c in enumerate(node[1]):
+                if c is not None:
+                    yield from self._iter(c, prefix + bytes([i]))
 
 
 class SecureTrie(Trie):

@@ -1,15 +1,28 @@
 """Window-batched trie commit — state-root folding off the critical path.
 
-Port of reference ``replay/commit.py``, native backend only.  Finished
-blocks STAGE their effects: contract storage writes deduped to the last
-value per (contract, slot), account states to the last value per
-address, across the whole window.  ``flush()`` — once per window, after
-the next window's device launch is already queued on the transfer path,
-once per block on the machine path — folds each contract's writes into
-its storage trie in one fold-and-root call, puts the new storage roots
-into the account fold, folds the accounts, then checks the root against
-the last staged block's header.  Intermediate per-block roots are never
+Port of reference ``replay/commit.py``.  Finished blocks STAGE their
+effects: contract storage writes deduped to the last value per
+(contract, slot), account states to the last value per address, across
+the whole window.  ``flush()`` — once per window, after the next
+window's device launch is already queued on the transfer path, once
+per block on the machine path — folds each contract's writes into its
+storage trie, puts the new storage roots into the account fold, folds
+the accounts, then checks the root against the last staged block's
+header.  Intermediate per-block roots are never
 materialized; the window root must equal the chain's.
+
+The fold follows the store's backend (the engine's ``trie=``): on the
+C++ tries one fold-and-root call per trie; on Python tries
+(``trie="py"``, the reference's ``CORETH_TRIE=py``) the same deduped
+loop through ``mpt/trie.py``, each trie then rehashed level by level by
+``mpt/rehash.py device_rehash`` (K3's entry for the levels of at least
+``engine.rehash_min_batch`` encodings, the host below that).  With
+``trie_check`` the C++ folds run through ``CheckedSecureTrie``, which
+re-derives every root on the Python twin.
+
+A flush passes the ``commit/flush_fail`` injection point first,
+through the supervisor's retry policy (``retry_point``): a transient
+fault retries, a persistent one is fatal (no other commit backend).
 """
 
 from __future__ import annotations
@@ -17,8 +30,19 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
+from coreth_tpu_torch import faults, obs, rlp
 from coreth_tpu_torch.crypto import keccak256
-from coreth_tpu_torch.types.account import EMPTY_CODE_HASH, EMPTY_ROOT_HASH
+from coreth_tpu_torch.mpt.rehash import device_rehash
+from coreth_tpu_torch.types.account import (
+    EMPTY_CODE_HASH, EMPTY_ROOT_HASH, StateAccount,
+)
+
+# Injection point: the window fold fails (a device rehash hiccup, an
+# I/O error in the native trie).  Transient plans retry with the
+# supervisor's backoff; a persistent flush failure is fatal — there is
+# no alternative commit backend, so it surfaces to the caller.
+PT_FLUSH = faults.declare(
+    "commit/flush_fail", "window trie-fold flush failure")
 
 
 class CommitPipeline:
@@ -69,22 +93,38 @@ class CommitPipeline:
             h = self._key_hash[key] = keccak256(key)
         return h
 
+    def _rehash(self, trie) -> bytes:
+        e = self.e
+        return device_rehash(trie, min_batch=e.rehash_min_batch,
+                             device=e.device)
+
     def _fold_storage(self) -> None:
-        """One fold-and-root call per written contract; the new roots go
-        into ``state.roots`` for the account fold."""
+        """One fold per written contract; the new roots go into
+        ``state.roots`` for the account fold."""
         e = self.e
         by_contract: Dict[bytes, list] = {}
         for (contract, key), v in self.writes.items():
             by_contract.setdefault(contract, []).append((key, v))
         for contract, kvs in by_contract.items():
-            keys = b"".join(self._hash_key(k) for k, _v in kvs)
-            vals = b"".join(v.to_bytes(32, "big") for _k, v in kvs)
-            root = e._storage_trie(contract).fold_storage(keys, vals,
-                                                          len(kvs))
+            st = e._storage_trie(contract)
+            if e.trie_backend == "native":
+                keys = b"".join(self._hash_key(k) for k, _v in kvs)
+                vals = b"".join(v.to_bytes(32, "big") for _k, v in kvs)
+                root = st.fold_storage(keys, vals, len(kvs))
+            else:
+                for key, v in kvs:
+                    if v == 0:
+                        st.delete(key)
+                    else:
+                        st.update(key, rlp.encode(
+                            v.to_bytes(32, "big").lstrip(b"\x00")))
+                root = self._rehash(st)
             e.state.roots[e.state.index[contract]] = root
 
     def _fold_accounts(self) -> bytes:
         e = self.e
+        if e.trie_backend != "native":
+            return self._fold_accounts_py()
         state = e.state
         n = len(self.accounts)
         keys = bytearray()
@@ -113,14 +153,40 @@ class CommitPipeline:
             bytes(keys), bytes(bals), nlist, bytes(roots), bytes(hashes),
             bytes(mc), bytes(dels))
 
+    def _fold_accounts_py(self) -> bytes:
+        e = self.e
+        state = e.state
+        for addr, (balance, nonce) in self.accounts.items():
+            idx = state.index[addr]
+            code_hash = state.code_hashes[idx]
+            storage_root = state.roots[idx]
+            if (balance == 0 and nonce == 0
+                    and code_hash == EMPTY_CODE_HASH
+                    and storage_root == EMPTY_ROOT_HASH
+                    and not state.multicoin[idx]):
+                e.trie.delete(addr)  # EIP-158 touched-empty deletion
+            else:
+                e.trie.update(addr, StateAccount(
+                    nonce=nonce, balance=balance, root=storage_root,
+                    code_hash=code_hash,
+                    is_multi_coin=state.multicoin[idx]).rlp())
+        return self._rehash(e.trie)
+
     def flush(self) -> bytes:
         """Fold the staged window (storage first — the account fold
         consumes the fresh storage roots — then accounts), check the
         root against the last staged header, advance ``engine.root``."""
-        e = self.e
         if not self.staged_blocks:
-            return e.root
+            return self.e.root
+        with obs.span("commit/flush", blocks=self.staged_blocks):
+            return self._flush()
+
+    def _flush(self) -> bytes:
+        e = self.e
         from coreth_tpu_torch.replay.engine import ReplayError
+        # the injected gate retries transient faults with backoff BEFORE
+        # the fold runs (the fold itself must not re-run)
+        e.supervisor.retry_point("commit", PT_FLUSH)
         t0 = time.monotonic()
         self._fold_storage()
         root = self._fold_accounts()

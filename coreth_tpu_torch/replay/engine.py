@@ -25,8 +25,9 @@ The transfer path:
    segment sums over 16x16-bit limbs (ops/u256), with the nonce-sequence
    and solvency checks.  The solvency check ignores same-block credits,
    so ok implies the sequential result.
-4. **Commit** (host-native): one deduped account fold per window in the
-   C++ trie, root checked against the header (replay/commit.py).
+4. **Commit** (host): one deduped fold per window, in the C++ trie or
+   (``trie="py"``) in Python tries rehashed level by level on K3's
+   entry, root checked against the header (replay/commit.py).
 
 A block the transfer classifier rejects goes to the machine path:
 ``MachineBlockExecutor.classify`` takes it when every tx is a transfer
@@ -52,7 +53,20 @@ whose device ``ok`` flag is 0 or that fails a consensus check: the
 window rewinds to its start, re-applies its valid prefix on the device
 (``_recover_window``), and the block runs on the host path.  A block
 that fails there too raises ``ReplayError`` with ``.block`` set, the
-engine's root and the store's tries at the valid prefix.
+engine's root and the store's tries at the valid prefix
+(``quarantine_block`` applies such a block tolerantly instead and
+returns the checks it failed).
+
+Faults: the window launches go through the engine's
+``BackendSupervisor`` (``replay/supervisor.py``) at the
+``device/dispatch`` injection point, a run whose dispatch fails past
+its retries replays on the host path, and a demoted ``device`` scope
+sends every block there until its cooldown lapses; an injected
+``recover/fault`` degrades a sender segment to per-tx recovery.  Only
+injected faults (and the hostexec session's own errors) are caught: a
+kernel's build error or a CUDA error propagates out of ``replay``.
+Spans (``obs``) mark sender recovery, the window issue and completion,
+the folds and the host path, and with ``device_spans`` the launches.
 """
 
 from __future__ import annotations
@@ -66,7 +80,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from coreth_tpu_torch import default_device, kernels, rlp
+from coreth_tpu_torch import default_device, faults, kernels, obs, rlp
 from coreth_tpu_torch.consensus.engine import ConsensusError, DummyEngine
 from coreth_tpu_torch.crypto import keccak256, native
 from coreth_tpu_torch.crypto import secp_device
@@ -74,7 +88,8 @@ from coreth_tpu_torch.crypto.secp256k1 import N as SECP_N
 from coreth_tpu_torch.evm.precompiles import (
     is_prohibited, special_call_targets,
 )
-from coreth_tpu_torch.mpt import NativeSecureTrie, derive_hasher
+from coreth_tpu_torch.mpt import derive_hasher, native_trie
+from coreth_tpu_torch.mpt.rehash import DEFAULT_MIN_BATCH
 from coreth_tpu_torch.ops import u256
 from coreth_tpu_torch.parallel.mesh import gather_index, segment_sum
 from coreth_tpu_torch.parallel.shard import (
@@ -83,6 +98,7 @@ from coreth_tpu_torch.parallel.shard import (
 from coreth_tpu_torch.params import ChainConfig
 from coreth_tpu_torch.params import protocol as P
 from coreth_tpu_torch.processor import Processor
+from coreth_tpu_torch.replay.supervisor import BackendFault, BackendSupervisor
 from coreth_tpu_torch.state import StateDB, StateStore, normalize_state_key
 from coreth_tpu_torch.types import (
     Block, LatestSigner, Log, Receipt, StateAccount, derive_sha,
@@ -105,6 +121,14 @@ def _block_error(msg: str, block: Block) -> ReplayError:
     err = ReplayError(f"block {block.number}: {msg}")
     err.block = block
     return err
+
+
+# Injection points on the replay engine's failure seams (armed only by a
+# FaultPlan, coreth_tpu_torch/faults; one None check unarmed):
+PT_DISPATCH = faults.declare(
+    "device/dispatch", "raise at window dispatch (transfer + fused OCC)")
+PT_RECOVER = faults.declare(
+    "recover/fault", "batched sender recovery failure (device or host)")
 
 
 @dataclass
@@ -131,6 +155,8 @@ class ReplayStats:
     # max/mean lanes per shard of the sharded machine windows (1.0 flat,
     # n_shards all on one shard); 0.0 until such a window ran
     load_imbalance: float = 0.0
+    # blocks applied tolerantly by quarantine_block
+    blocks_quarantined: int = 0
 
     def row(self) -> dict:
         return dict(self.__dict__)
@@ -667,7 +693,15 @@ class _SenderPipeline:
 
     def _issue(self, s: int) -> None:
         eng = self.engine
+        obs.instant("replay/sender_issue", seg=s)
         t0 = time.monotonic()
+        try:
+            faults.fire(PT_RECOVER)
+        except faults.FaultInjected:
+            # degrade: the segment's senders recover per tx, lazily
+            self.issued.append({"todo": [], "kind": "empty"})
+            eng.stats.t_sender += time.monotonic() - t0
+            return
         todo, hashes, rs, ss, recids = eng._pack_sigs(self.segments[s])
         h = {"todo": todo, "kind": "empty"}
         n = len(recids)
@@ -751,7 +785,24 @@ class ReplayEngine:
     (``CORETH_KEYRANGE_THRESHOLD``) place its keys by key range, with
     the replica sync inside K9.  ``shard_recover``
     (``CORETH_SHARD_RECOVER``) sends every sender segment to the
-    sharded ladder, however small, on any device."""
+    sharded ladder, however small, on any device.
+
+    ``trie`` picks the state's tries (the reference's ``CORETH_TRIE``):
+    ``"native"`` (default) folds each window in the C++ trie, and raises
+    here when the library does not load; ``"py"`` folds it in Python
+    tries (``mpt/trie.py``) and rehashes each trie level by level with
+    ``mpt/rehash.py device_rehash`` — K3's entry on every level of at
+    least ``rehash_min_batch`` encodings (the reference's
+    ``CORETH_REHASH_MIN_BATCH``; the default keeps the host).  The
+    store must hold tries of that backend (``StateStore(backend=,
+    check=)``); another raises ``ValueError``.
+    ``trie_check`` (``CORETH_TRIE_CHECK``, native only) keeps a Python
+    twin of every C++ trie and re-derives each window root on it
+    (``TrieOracleError`` on a divergence).  ``supervisor`` is the
+    ``BackendSupervisor`` of the fault ladder (default: one with the
+    reference's settings).  ``host_exec_check``
+    (``CORETH_HOST_EXEC_CHECK``) re-runs every native hostexec call on
+    the interpreter and compares."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -769,7 +820,11 @@ class ReplayEngine:
                  exchange_density: float = 0.25,
                  token_fastpath: bool = True,
                  serial_shortcircuit: bool = True,
-                 engine: Optional[DummyEngine] = None):
+                 engine: Optional[DummyEngine] = None,
+                 trie: str = "native", trie_check: bool = False,
+                 rehash_min_batch: int = DEFAULT_MIN_BATCH,
+                 supervisor: Optional[BackendSupervisor] = None,
+                 host_exec_check: bool = False):
         self.device = default_device(device)
         self.token_fastpath = token_fastpath
         self.serial_shortcircuit = serial_shortcircuit
@@ -780,9 +835,30 @@ class ReplayEngine:
         self.keyrange_threshold = keyrange_threshold
         self.exchange_density = exchange_density
         self.config = config
+        if trie == "native":
+            native_trie.require()
+        if (state.backend, state.check) != (trie, trie_check):
+            raise ValueError(
+                f"engine trie={trie!r}, trie_check={trie_check} over a "
+                f"store of backend={state.backend!r}, "
+                f"check={state.check}: build the store with "
+                "StateStore(backend=, check=)")
+        self.trie_backend = trie
+        self.trie_check = trie_check
+        self.rehash_min_batch = rehash_min_batch
         self.store = state
         self.trie = self.store.trie
         self.root = self.trie.hash()
+        # CORETH_FAULT_PLAN / CORETH_TRACE arm the fault registry and the
+        # span tracer for this process if nothing armed them yet
+        faults.arm_from_env()
+        obs.arm_from_env()
+        self.supervisor = supervisor if supervisor is not None \
+            else BackendSupervisor(self)
+        # the hostexec bridge finds this engine's supervisor and oracle
+        # switch through the store its StateDBs share
+        state.fault_observer = self.supervisor
+        state.host_exec_check = host_exec_check
         slot_capacity = slot_capacity or capacity
         if exchange not in (None, "psum", "ppermute"):
             raise ValueError(f"exchange={exchange!r}: None, 'psum' or "
@@ -858,7 +934,7 @@ class ReplayEngine:
         account = StateAccount.from_rlp(raw) if raw is not None else None
         return self.state.ensure(addr, account)
 
-    def _storage_trie(self, contract: bytes) -> NativeSecureTrie:
+    def _storage_trie(self, contract: bytes):
         """The contract's storage trie in the engine's store (advanced in
         place by every fold, so it is at the account's current root)."""
         st = self.store.storage.get(contract)
@@ -937,9 +1013,19 @@ class ReplayEngine:
         return self._recover_pool
 
     def warm_senders(self, blocks) -> None:
-        """Synchronous batched sender recovery over a block or a list."""
+        """Synchronous batched sender recovery over a block or a list;
+        an injected ``recover/fault`` leaves the senders to per-tx
+        recovery."""
         if isinstance(blocks, Block):
             blocks = [blocks]
+        with obs.span("replay/sender_recover", blocks=len(blocks)):
+            try:
+                faults.fire(PT_RECOVER)
+            except faults.FaultInjected:
+                return
+            self._warm_senders_run(blocks)
+
+    def _warm_senders_run(self, blocks) -> None:
         t0 = time.monotonic()
         todo, hashes, rs, ss, recids = self._pack_sigs(blocks)
         n = len(recids)
@@ -969,6 +1055,11 @@ class ReplayEngine:
         slot half).  A block's slot simulation becomes visible to the
         next block's only once the whole block classified clean."""
         if block.ext_data():
+            return None
+        if not self.supervisor.allows("device"):
+            # the supervisor demoted the device scope: every block takes
+            # the host path until the cooldown lapses (the first allowed
+            # classify after that is the probe)
             return None
         base_fee = block.base_fee
         rules = self.config.rules(block.number, block.time)
@@ -1213,6 +1304,15 @@ class ReplayEngine:
         return (txds, t_idxs, s_idxs, acct_gids, slot_gids, touched_lists,
                 slot_lists, flushed)
 
+    def _issue_window(self, items: List[Tuple[Block, dict]]) -> dict:
+        """Supervised window dispatch at the ``device/dispatch`` point:
+        transient faults retry with backoff, persistent ones strike
+        toward device demotion and surface as ``BackendFault`` (replay
+        sends the run to the exact host path)."""
+        with obs.span("replay/issue_window", blocks=len(items)):
+            return self.supervisor.run("device", PT_DISPATCH,
+                                       self._issue_window_run, items)
+
     def _issue_window_run(self, items: List[Tuple[Block, dict]],
                           fetch: bool = True) -> Optional[dict]:
         """One kernel launch for a whole run of transfer blocks: upload
@@ -1231,8 +1331,9 @@ class ReplayEngine:
         prev = (st.balances, st.nonces, st.slot_vals)
         ups = [_upload(a, self.device)
                for a in (acct_gids, slot_gids, txds, t_idxs, s_idxs)]
-        st.balances, st.nonces, st.slot_vals, fetches = _transfer_window(
-            st.balances, st.nonces, st.slot_vals, *ups)
+        with obs.device_span("coreth/transfer_window"):
+            st.balances, st.nonces, st.slot_vals, fetches = \
+                _transfer_window(st.balances, st.nonces, st.slot_vals, *ups)
         if not fetch:
             self.stats.t_device += time.monotonic() - t0
             return None
@@ -1263,9 +1364,10 @@ class ReplayEngine:
         perm = interleave_txs(txds.shape[1], n)
         ups = [_upload(a, self.device) for a in
                (acct_rows, slot_rows, txds[:, perm], t_idxs, s_idxs)]
-        st.balances, st.nonces, st.slot_vals, fetches = \
-            sharded_transfer_window(st.balances, st.nonces, st.slot_vals,
-                                    *ups, n=n, mode=mode)
+        with obs.device_span("coreth/transfer_window"):
+            st.balances, st.nonces, st.slot_vals, fetches = \
+                sharded_transfer_window(st.balances, st.nonces,
+                                        st.slot_vals, *ups, n=n, mode=mode)
         if mode == "psum":
             self.stats.exchange_psum += 1
         else:
@@ -1314,6 +1416,11 @@ class ReplayEngine:
             st._staged.append((idx, acct.balance, acct.nonce))
         for sid, _v in fs:
             st._staged_slots.append((sid, st.slot_host[sid]))
+
+    def _complete_window(self, win: dict, blocks: List[Block],
+                         start_idx: int) -> Optional[int]:
+        with obs.span("replay/complete_window", blocks=len(win["items"])):
+            return self._complete_window_run(win, blocks, start_idx)
 
     def _complete_window_run(self, win: dict, blocks: List[Block],
                              start_idx: int) -> Optional[int]:
@@ -1480,6 +1587,9 @@ class ReplayEngine:
         Returns how many blocks were replayed (>= 1); block ``i`` runs on
         the exact host path when no machine run forms, or when
         ``execute_run`` hands it back (returns 0)."""
+        if not self.supervisor.allows("device"):
+            self._fallback(blocks[i])
+            return 1
         mx = self._machine_executor()
         lookahead = mx.LOOKAHEAD if self.device_occ else 1
         items = []
@@ -1506,7 +1616,15 @@ class ReplayEngine:
             self._fallback(blocks[i])
             return 1
         mx._fork = fork
-        consumed = mx.execute_run(items)
+        try:
+            consumed = self.supervisor.run("device", None, mx.execute_run,
+                                           items)
+        except BackendFault:
+            # a persistent device fault with no progress: the run's first
+            # block takes the exact host path, the rest re-enter the loop
+            # (and re-route while the scope is demoted)
+            self._fallback(blocks[i])
+            return 1
         if consumed == 0:
             self._fallback(blocks[i])
             consumed = 1
@@ -1521,8 +1639,11 @@ class ReplayEngine:
         if batch is None:
             self._machine_run([block], 0)
             return self.root
-        self._complete_window_run(self._issue_window_run([(block, batch)]),
-                                  [block], 0)
+        try:
+            win = self._issue_window([(block, batch)])
+        except BackendFault:
+            return self._fallback(block)
+        self._complete_window(win, [block], 0)
         return self.root
 
     def replay(self, blocks: List[Block],
@@ -1533,7 +1654,9 @@ class ReplayEngine:
         look-ahead segments alongside.  When window k rewinds (a block
         taken by the host path), the speculative window k+1, launched
         on a now-stale base, is discarded and its blocks classified
-        again from the resume point."""
+        again from the resume point.  A run whose launch fails past the
+        supervisor's retries (``BackendFault``) replays on the host
+        path."""
         window = window or self.window
         n = len(blocks)
         pipe = _SenderPipeline(self, blocks)
@@ -1553,19 +1676,31 @@ class ReplayEngine:
                     break
                 run.append((blocks[i], batch))
                 i += 1
-            win = self._issue_window_run(run) if run else None
+            win = failed_run = None
+            if run:
+                try:
+                    win = self._issue_window(run)
+                except BackendFault:
+                    # the supervisor struck (and maybe demoted) the device
+                    # scope: the run replays on the exact host path once
+                    # the pending window retires
+                    failed_run = run
             if pending is not None:
                 p_win, p_start = pending
                 pending = None
-                resume = self._complete_window_run(p_win, blocks, p_start)
+                resume = self._complete_window(p_win, blocks, p_start)
                 if resume is not None:
                     if win is not None:
                         self._discard_window(win)
-                    i = resume
+                    i = resume  # a failed run's blocks re-enter from here
                     continue
+            if failed_run is not None:
+                for b, _batch in failed_run:
+                    self._fallback(b)
+                continue
             if win is not None and refused:
                 # nothing may stay in flight past a machine or host block
-                resume = self._complete_window_run(win, blocks, run_start)
+                resume = self._complete_window(win, blocks, run_start)
                 if resume is not None:
                     i = resume
                     continue
@@ -1576,13 +1711,44 @@ class ReplayEngine:
         return self.root
 
     # ------------------------------------------------------------ host path
-    def _fallback(self, block: Block) -> bytes:
+    def quarantine_block(self, block: Block) -> List[str]:
+        """Tolerant host application of a poison block — one that fails
+        validation on every backend: the state transition still applies
+        (the computed post-state is the only base later blocks can build
+        on), but the failed consensus checks are returned instead of
+        raised.  The forensics bundle the reference freezes here is not
+        part of the port."""
+        reasons: List[str] = []
+        self._fallback(block, strict=False, reasons=reasons)
+        self.supervisor.note_quarantined()
+        self.stats.blocks_quarantined += 1
+        return reasons
+
+    def publish_metrics(self, registry=None, prefix: str = "replay") -> None:
+        """Feed the ``ReplayStats`` split into a metrics registry, one
+        gauge a field (the engine-side analog of the blockchain.go timer
+        metrics)."""
+        from coreth_tpu_torch.metrics import Gauge, get_or_register
+        for name, value in self.stats.row().items():
+            get_or_register(f"{prefix}/{name}", Gauge,
+                            registry).update(value)
+
+    def _fallback(self, block: Block, strict: bool = True,
+                  reasons: Optional[List[str]] = None) -> bytes:
         """The exact host path: the block runs on the ``Processor`` over
         a ``StateDB`` on the engine's store, its gas, receipts and root
         are checked against the header, and the device tables and the
         slot mirror are refreshed from what it wrote.  A check that
         fails (or an invalid tx) raises with the store restored, so the
-        engine's root and tries stay at the previous block."""
+        engine's root and tries stay at the previous block.
+        ``strict=False`` is the quarantine mode: a failed check is
+        appended to ``reasons`` and the computed state commits."""
+        with obs.span("replay/host_fallback", number=block.number,
+                      strict=strict):
+            return self._fallback_run(block, strict, reasons)
+
+    def _fallback_run(self, block: Block, strict: bool,
+                      reasons: Optional[List[str]]) -> bytes:
         self.commit_pipe.flush()  # staged windows precede this block
         t0 = time.monotonic()
         if (self.parent_header is None
@@ -1594,18 +1760,23 @@ class ReplayEngine:
                 "construct it with parent_header=...")
         parent = self.parent_header or _HeaderShim(block)
         statedb = StateDB(self.store)
+
+        def mismatch(what: str) -> None:
+            if strict:
+                raise _block_error(f"{what} (fallback)", block)
+            reasons.append(what)
+
         try:
             receipts, _logs, used_gas = self.processor.process(
                 block, parent, statedb)
             if used_gas != block.header.gas_used:
-                raise _block_error("gas used mismatch (fallback)", block)
+                mismatch("gas used mismatch")
             if derive_sha(receipts, derive_hasher()) \
                     != block.header.receipt_hash:
-                raise _block_error("receipt root mismatch (fallback)",
-                                   block)
+                mismatch("receipt root mismatch")
             root = statedb.intermediate_root(True)
             if root != block.header.root:
-                raise _block_error("state root mismatch (fallback)", block)
+                mismatch("state root mismatch")
         except BaseException:
             statedb.restore()
             raise

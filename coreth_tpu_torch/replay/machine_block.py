@@ -48,6 +48,15 @@ sweep over Python ints, O(txs).  A block this executor cannot finish —
 a lane that escapes the machine (``HOST``) — goes back to the engine's
 exact host path (``ReplayEngine._fallback``).  Reference semantics:
 core/state_processor.go:95, core/state_transition.go TransitionDb.
+
+Faults: the serial short-circuit needs the engine's supervisor to allow
+the ``native`` scope, and an injected error rc or a session error on a
+serial call strikes it and sends that block to the per-block path.  A
+FAULT injected in the middle of a windowed run (at a later window's
+dispatch or a shard exchange) keeps the blocks already finished, folds
+them, strikes ``device`` and hands the rest of the run back; at the
+first dispatch it propagates to the engine's supervised call.  Any
+other exception propagates unchanged.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
-from coreth_tpu_torch import vmerrs
+from coreth_tpu_torch import faults, obs, vmerrs
 from coreth_tpu_torch.consensus.engine import ConsensusError
 from coreth_tpu_torch.crypto import native
 from coreth_tpu_torch.evm import EVM, BlockContext, Config, TxContext
@@ -67,7 +76,7 @@ from coreth_tpu_torch.evm.device.adapter import (
     BlockEnv, MachineRunner, MachineWindowRunner, TxResult, TxSpec,
 )
 from coreth_tpu_torch.evm.hostexec import bridge
-from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend
+from coreth_tpu_torch.evm.hostexec.backend import HostExecBackend, SessionError
 from coreth_tpu_torch.evm.hostexec.eligibility import (
     COINBASE_WARM_FORKS, native_eligible,
 )
@@ -145,6 +154,9 @@ class MachineBlockExecutor:
         self._runner_fork: Optional[str] = None
         self._runner_epoch = 0
         self._runner_totals = dict.fromkeys(_RUNNER_COUNTERS, 0)
+        # blocks of the current windowed run finished and staged (what a
+        # mid-run fault keeps)
+        self._inflight_consumed = 0
 
     def counters(self) -> dict:
         """The machine path's counters.  ``launches`` / ``steps`` are K5's
@@ -546,6 +558,8 @@ class MachineBlockExecutor:
         slots) keep their real independence and stay on device OCC."""
         if not self.e.serial_shortcircuit:
             return False
+        if not self.e.supervisor.allows("native"):
+            return False  # the supervisor demoted the native session
         calls = [pl for pl in plans if pl.kind == "call"]
         if len(calls) < 2:
             return False
@@ -593,9 +607,16 @@ class MachineBlockExecutor:
                     warm = [pl.sender, pl.to]
                     if warm_coinbase:
                         warm.append(block.header.coinbase)
-                    res = be.call(pl.sender, pl.to, pl.value, pl.price,
-                                  pl.data, pl.gas_limit - pl.intrinsic,
-                                  warm_addrs=warm)
+                    try:
+                        res = be.call(pl.sender, pl.to, pl.value, pl.price,
+                                      pl.data, pl.gas_limit - pl.intrinsic,
+                                      warm_addrs=warm)
+                    except (faults.FaultInjected, SessionError) as exc:
+                        # a native boundary fault: strike the native
+                        # scope and take this block off the serial path
+                        e.supervisor.strike("native", exc)
+                        escaped = True
+                        break
                     if res.needs_host or any(
                             c != pl.to for c, _k in res.writes):
                         escaped = True
@@ -702,12 +723,17 @@ class MachineBlockExecutor:
         re-runs through ``execute``, and the run stops after it so the
         engine re-classifies against the repaired state.  Without
         ``device_occ`` the first block runs through ``execute`` alone."""
+        with obs.span("machine/execute_run", blocks=len(items)):
+            return self._execute_run(items)
+
+    def _execute_run(self, items) -> int:
         e = self.e
         if self._serial_eligible(items[0][1]):
             k = 1
             while k < len(items) and self._serial_eligible(items[k][1]):
                 k += 1
-            return self._execute_serial_run(items[:k])
+            with obs.span("machine/serial_run", blocks=k):
+                return self._execute_serial_run(items[:k])
         for n in range(1, len(items)):
             if self._serial_eligible(items[n][1]):
                 items = items[:n]
@@ -719,9 +745,32 @@ class MachineBlockExecutor:
         chunks = [items[k:k + self.WINDOW]
                   for k in range(0, len(items), self.WINDOW)]
         t0 = time.monotonic()
-        inflight = runner.issue(self._window_items(chunks[0]))
+        # the FIRST dispatch propagates faults: nothing is staged yet, so
+        # the engine's supervised call can retry or strike
+        with obs.span("machine/window_issue", blocks=len(chunks[0])):
+            inflight = runner.issue(self._window_items(chunks[0]))
         e.stats.t_device += time.monotonic() - t0
-        return self._chunk_loop(runner, chunks, inflight)
+        self._inflight_consumed = 0
+        try:
+            return self._chunk_loop(runner, chunks, inflight)
+        except faults.FaultInjected as exc:
+            # a fault mid-run: keep the finished prefix, hand the rest
+            # back for re-classification (a persistent fault then fires
+            # again at the next run's first dispatch, where the
+            # supervisor retries or demotes)
+            consumed = self._inflight_consumed
+            e.supervisor.strike("device", exc)
+            e.commit_pipe.flush()  # finished blocks stay committed
+            # the runner's host mirror may already hold the writes of a
+            # window whose blocks were not finished (the mirror learns a
+            # clean window's writes before the next window's launch):
+            # the next run takes a fresh runner, seeded from the folded
+            # tries, not a table rebuilt from that mirror
+            runner.invalidate()
+            e.storage_epoch += 1
+            if not consumed:
+                raise
+            return consumed
 
     def _chunk_loop(self, runner: MachineWindowRunner, chunks,
                     inflight) -> int:
@@ -742,7 +791,8 @@ class MachineBlockExecutor:
                         early = runner.issue(next_items)
                 e.stats.t_device += time.monotonic() - t0
             t0 = time.monotonic()
-            wres = runner.complete(inflight)
+            with obs.span("machine/window_complete", blocks=len(chunk)):
+                wres = runner.complete(inflight)
             e.stats.t_device += time.monotonic() - t0
             self.windows += 1
             self.window_attempts += wres.attempts
@@ -795,6 +845,7 @@ class MachineBlockExecutor:
                     if not pre_committed:
                         runner.commit_block(self.last_writes)
                     consumed += 1
+                    self._inflight_consumed = consumed
                     continue
                 # dirty: partial commits may sit in the device table and
                 # every later block of the window ran on a speculative
@@ -802,6 +853,7 @@ class MachineBlockExecutor:
                 # lane escapes there too, the host path), the rest back
                 # to the engine (execute() folds the clean prefix)
                 self.dirty_blocks += 1
+                obs.instant("machine/dirty_block", number=block.number)
                 runner.invalidate()
                 if self.execute(block, plans) is None:
                     if consumed == 0:

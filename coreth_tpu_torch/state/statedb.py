@@ -2,16 +2,20 @@
 
 Port of reference ``state/statedb.py`` with the reference's ``Database``
 (Python tries + node store) replaced by the engine's ``StateStore``
-(C++ tries advanced in place): reads fall through to ``store.trie``,
-the contracts' storage tries and the code store; ``intermediate_root``
-writes the accounts and storage into those tries directly, remembering
-every key's prior raw value and every storage trie it replaced, so
-``restore()`` puts the store back exactly where this StateDB found it
-(a block that fails its checks leaves no trace).  ``commit`` adds the
-block's new code to the store and makes the writes final.  There is
-no ``copy()``: the C++ tries cannot be copied, and the host path never
-needs one.  The flat-state, snapshot and prefetcher read paths of the
-reference are not part of the port.
+(tries advanced in place, C++ or Python by the store's backend): reads
+fall through to ``store.trie``, the contracts' storage tries and the
+code store; ``intermediate_root`` writes the accounts and storage into
+those tries directly (a new storage trie comes from
+``store.new_trie()``), remembering every key's prior raw value and
+every storage trie it replaced, so ``restore()`` puts the store back
+exactly where this StateDB found it, whatever the backend (a block
+that fails its checks leaves no trace).  ``commit`` adds the block's
+new code to the store and makes the writes final.  ``copy()`` gives a
+view for speculative execution: the journaled overlay copied, the
+store shared and only read (a copy cannot write the store: its
+``intermediate_root``, ``commit`` and ``restore`` raise).  The
+flat-state, snapshot and prefetcher read paths of the reference are
+not part of the port.
 
 Semantic twin of reference core/state/statedb.go + state_object.go +
 journal.go:
@@ -47,7 +51,6 @@ from typing import Dict, List, Optional, Set, Tuple
 
 from coreth_tpu_torch import rlp
 from coreth_tpu_torch.crypto import keccak256
-from coreth_tpu_torch.mpt import NativeSecureTrie
 from coreth_tpu_torch.state.store import StateStore
 from coreth_tpu_torch.types.account import (
     EMPTY_CODE_HASH, EMPTY_ROOT_HASH as EMPTY_ROOT, StateAccount,
@@ -120,14 +123,14 @@ class StateDB:
         self.access_list_slots: Set[Tuple[bytes, bytes]] = set()
         self.transient: Dict[Tuple[bytes, bytes], bytes] = {}
         self.predicate_storage_slots: Dict[bytes, List[bytes]] = {}
-        self._storage_tries: Dict[bytes, NativeSecureTrie] = {}
+        self._storage_tries: Dict[bytes, object] = {}
         # the store as this StateDB found it: each account key's prior
         # raw value, each storage-trie entry it replaced (None: none
         # was there), and each in-place storage write's prior raw value
         self._undo_accounts: Dict[bytes, Optional[bytes]] = {}
-        self._undo_tries: Dict[bytes, Optional[NativeSecureTrie]] = {}
+        self._undo_tries: Dict[bytes, object] = {}
         self._undo_slots: Dict[Tuple[int, bytes],
-                               Tuple[NativeSecureTrie, Optional[bytes]]] = {}
+                               Tuple[object, Optional[bytes]]] = {}
         # monotone counter bumped on every mutation that can change
         # what a (contract, slot) or code resolution returns (storage
         # writes, deploys, journal reverts, suicides).  The hostexec
@@ -141,6 +144,8 @@ class StateDB:
         # journal reverts).  The hostexec bridge keeps its cached EOA
         # verdicts alive across txs only while BOTH generations hold.
         self.account_gen = 0
+        # a copy() reads the store it shares and never writes it
+        self._shared = False
 
     # ------------------------------------------------------------- journal
     def _append_journal(self, undo, addr: Optional[bytes] = None) -> None:
@@ -355,7 +360,7 @@ class StateDB:
         obj.origin_storage[key] = value
         return value
 
-    def _read_trie(self, obj: StateObject) -> Optional[NativeSecureTrie]:
+    def _read_trie(self, obj: StateObject):
         """The storage trie a pre-existing account's reads fall through
         to (None: it has no storage); reading installs nothing."""
         trie = self._storage_tries.get(obj.address)
@@ -367,7 +372,7 @@ class StateDB:
                     f"{obj.initial_root.hex()}) is not in the store")
         return trie
 
-    def _open_storage_trie(self, obj: StateObject) -> NativeSecureTrie:
+    def _open_storage_trie(self, obj: StateObject):
         """The object's storage trie for writing: the store's own
         (written in place) for an account that existed before this
         StateDB, a new empty trie put in the store's place for one
@@ -376,13 +381,12 @@ class StateDB:
         if trie is None:
             trie = None if obj.fresh else self._read_trie(obj)
             if trie is None:
-                trie = NativeSecureTrie()
+                trie = self.store.new_trie()
                 self._swap_store_trie(obj.address, trie)
             self._storage_tries[obj.address] = trie
         return trie
 
-    def _swap_store_trie(self, addr: bytes,
-                         trie: Optional[NativeSecureTrie]) -> None:
+    def _swap_store_trie(self, addr: bytes, trie) -> None:
         """Put ``trie`` (None: no trie) in the store for ``addr``,
         remembering the entry it replaces the first time."""
         if addr not in self._undo_tries:
@@ -627,7 +631,13 @@ class StateDB:
         elif prior is not None:
             self._trie.delete(addr)
 
+    def _writes_store(self) -> None:
+        if self._shared:
+            raise RuntimeError("a StateDB copy shares its store and cannot "
+                               "write it")
+
     def intermediate_root(self, delete_empty_objects: bool) -> bytes:
+        self._writes_store()
         self.finalise(delete_empty_objects)
         for addr in sorted(self._pending):
             obj = self._objects.get(addr)
@@ -664,6 +674,7 @@ class StateDB:
     def commit(self, delete_empty_objects: bool = True) -> bytes:
         """Hash, add the new code to the store and make the writes final
         (``restore`` no longer applies); returns the root."""
+        self._writes_store()
         root = self.intermediate_root(delete_empty_objects)
         for obj in self._objects.values():
             if obj.dirty_code and obj.code is not None:
@@ -678,6 +689,7 @@ class StateDB:
         """Undo every write ``intermediate_root`` made to the store since
         this StateDB opened (or last committed): the storage tries'
         keys, the store's storage-trie entries, then the accounts."""
+        self._writes_store()
         for (_tid, key), (trie, raw) in self._undo_slots.items():
             if raw is None:
                 trie.delete(key)
@@ -697,6 +709,50 @@ class StateDB:
         self._undo_tries = {}
         self._undo_slots = {}
         self._storage_tries = {}
+
+
+    def copy(self) -> "StateDB":
+        """A view for speculative execution (statedb.go:809 Copy): the
+        objects, logs, refund, access lists, transient storage and tx
+        context copied, the store shared.  The copy only reads the store
+        (its tries, and the storage tries this StateDB opened), so its
+        ``intermediate_root``, ``commit`` and ``restore`` raise.  The
+        undo journal does not carry over (its thunks close over this
+        StateDB's objects): snapshots of the copy start fresh."""
+        new = StateDB(self.store)
+        new._shared = True
+        new._trie = self._trie
+        new.original_root = self.original_root
+        new._dirty_counts = dict(self._dirty_counts)
+        for addr, obj in self._objects.items():
+            cp = StateObject(addr, obj.account.copy(), obj.fresh)
+            cp.code = obj.code
+            cp.origin_storage = dict(obj.origin_storage)
+            cp.dirty_storage = dict(obj.dirty_storage)
+            cp.pending_storage = dict(obj.pending_storage)
+            cp.written_storage = dict(obj.written_storage)
+            cp.suicided = obj.suicided
+            cp.deleted = obj.deleted
+            cp.dirty_code = obj.dirty_code
+            cp.initial_root = obj.initial_root
+            new._objects[addr] = cp
+        new._destructed = set(self._destructed)
+        new._mutated = set(self._mutated)
+        new._pending = set(self._pending)
+        new.refund = self.refund
+        new.logs = [Log(l.address, list(l.topics), l.data, l.block_number,
+                        l.tx_hash, l.tx_index, l.block_hash, l.index,
+                        l.removed) for l in self.logs]
+        new._log_index = self._log_index
+        new._tx_hash, new._tx_index = self._tx_hash, self._tx_index
+        new.created_this_tx = set(self.created_this_tx)
+        new.access_list_addresses = set(self.access_list_addresses)
+        new.access_list_slots = set(self.access_list_slots)
+        new.transient = dict(self.transient)
+        new.predicate_storage_slots = dict(self.predicate_storage_slots)
+        new._storage_tries = dict(self._storage_tries)
+        new.storage_gen, new.account_gen = self.storage_gen, self.account_gen
+        return new
 
 
 def _prepare_predicate_slots(rules, access_list) -> Dict[bytes, List[bytes]]:

@@ -731,3 +731,54 @@ def test_mixed_segment_replays_on_the_card(cuda):
     assert (eng.stats.blocks_fallback, eng.stats.blocks_device) == (4, 4)
     assert E.LAUNCHES > k1
     assert len(backend._pending) == 2
+
+
+def test_py_fold_replay_launches_k3(cuda):
+    """The engine's ``trie="py"`` fold on the card: every window's tries
+    folded in Python and rehashed level by level, the levels of at
+    least ``rehash_min_batch`` (16 here) encodings on K3's entry; the
+    root the last header's and K3 launched inside the replay."""
+    from coreth_tpu_torch.mpt.trie import SecureTrie
+    from coreth_tpu_torch.ops import keccak as K
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_chain(4, 64, 64)
+    store = StateStore(backend="py")
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=64, capacity=1024, window=2, device=cuda,
+                       trie="py", rehash_min_batch=16)
+    launches = K.LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root == store.trie.hash()
+    assert isinstance(store.trie, SecureTrie)
+    assert K.LAUNCHES > launches
+    assert eng.supervisor.strikes == 0
+
+
+def test_transient_dispatch_fault_retried_on_k1(cuda):
+    """A transient ``device/dispatch`` fault at K1's window launch:
+    retried once, no strike, every block on the device, K1 launched."""
+    from coreth_tpu_torch import faults
+    from coreth_tpu_torch.faults import FaultPlan, FaultSpec
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay.supervisor import BackendSupervisor
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_chain(4, 32, 32)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=32, capacity=1024, window=2, device=cuda,
+                       supervisor=BackendSupervisor(backoff=0.001))
+    k1 = E.LAUNCHES
+    with faults.armed(FaultPlan({"device/dispatch":
+                                 FaultSpec(times=1, transient=True)})):
+        root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root
+    assert (eng.supervisor.retries, eng.supervisor.strikes) == (1, 0)
+    assert eng.stats.blocks_device == 4 and E.LAUNCHES - k1 == 2

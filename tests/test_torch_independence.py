@@ -22,6 +22,7 @@ def _port_sources():
             if fn.endswith(".py"):
                 yield os.path.join(dirpath, fn)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "main_ab.py")
 
 
 def _imported_modules(path):
@@ -41,6 +42,10 @@ def _imported_modules(path):
 def test_no_file_imports_jax_or_the_reference():
     files = list(_port_sources())
     assert len(files) > 20
+    # the fault, metrics and span layer is scanned with the rest
+    scanned = {os.path.relpath(os.path.dirname(p), REPO) for p in files}
+    assert {os.path.join("coreth_tpu_torch", d)
+            for d in ("faults", "metrics", "obs")} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):
@@ -95,6 +100,13 @@ root = engine.replay([Block.decode(b.encode()) for b in blocks])
 engine.close()
 assert root == blocks[-1].header.root
 assert engine.stats.blocks_device == 4
+if len(sys.argv) > 1:
+    # armed from the environment at the engine's construction
+    from coreth_tpu_torch import faults, obs
+    assert faults.fired() == {"device/dispatch": 1}, faults.fired()
+    assert engine.supervisor.retries == 1
+    spans = {e["name"] for e in obs.tracer().export()["traceEvents"]}
+    assert {"replay/issue_window", "commit/flush"} <= spans, spans
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "coreth_tpu"))
 assert not bad, bad
@@ -107,6 +119,24 @@ def test_cpu_replay_subprocess_loads_no_jax():
            "PYTHONPATH": REPO, "HOME": os.environ.get("HOME", "/tmp")}
     proc = subprocess.run([sys.executable, "-c", _REPLAY_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_traced_faulted_replay_subprocess_loads_no_jax():
+    """The same replay with the span tracer installed and a fault plan
+    armed (both through the environment, ``CORETH_TRACE`` and
+    ``CORETH_FAULT_PLAN``, as the engine's constructor reads them): the
+    transient dispatch fault retried, the spans recorded, and still no
+    JAX and nothing of the reference loaded."""
+    env = {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+           "PYTHONPATH": REPO, "HOME": os.environ.get("HOME", "/tmp"),
+           "CORETH_TRACE": "1",
+           "CORETH_FAULT_PLAN": '{"points": {"device/dispatch": '
+                                '{"times": 1, "transient": true}}}'}
+    proc = subprocess.run([sys.executable, "-c", _REPLAY_SCRIPT, "armed"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("OK")

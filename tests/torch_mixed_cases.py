@@ -114,16 +114,17 @@ def build_segment(n_blocks: int = 8):
     return gen_, blocks
 
 
-def replay_engine(device, window: int = 4):
+def replay_engine(device, window: int = 4, **kw):
     """The port's engine over a fresh store of the segment's genesis,
-    its host path finalized by callbacks over a freshly seeded hub:
-    (engine, store, backend)."""
+    its host path finalized by callbacks over a freshly seeded hub
+    (``kw``: more ``ReplayEngine`` keywords): (engine, store, backend)."""
     memory, _ = seed_memory()
-    store = StateStore()
+    store = StateStore(backend=kw.get("trie", "native"),
+                       check=kw.get("trie_check", False))
     gblock = genesis().to_block(store)
     backend = AtomicBackend(CTX, memory.new_shared_memory(CTX.chain_id))
     cb = make_callbacks(backend, CFG, pending_atomic_txs=lambda: [])
     eng = ReplayEngine(CFG, store, parent_header=gblock.header,
                        engine=DummyEngine(cb=cb), window=window,
-                       capacity=256, batch_pad=64, device=device)
+                       capacity=256, batch_pad=64, device=device, **kw)
     return eng, store, backend
