@@ -214,6 +214,27 @@ the one card):
    1,024, 4,096, 16,384 and 65,536 keys.  K3's ``launches`` in the
    kernels line are this phase's (its device functions also run inside
    K5, K6 and K7).
+18.-20. trie, faults, trace — the Python-trie fold with K3 inside the
+   replay, the fault ladder, the span tracer (see each phase's
+   docstring).
+21. flat   — the flat-state layer, on by default in every phase above
+   (``ReplayEngine(flat=True)``, the reference's ``CORETH_FLAT=1``),
+   on the chains already signed: (a) phase main's transfer chain and
+   the ERC-20 window chain each replayed with ``flat=False`` and with
+   ``flat=True`` (roots the headers', K1/K2 and K6+K7 launched, counters
+   zeroed before each replay; txs/s, ``t_classify``, ``t_device`` and
+   the flat snapshot: fills, hits, generations); (b) the ERC-20 chain
+   with ``flat_check=True``, its second half on an engine resumed from
+   a checkpoint at the halfway block (one engine's cold reads only fill
+   the layer; the resumed one's hit the loaded base), every flat hit
+   re-derived from the tries, no divergence, hits > 0; (c) a 16-block prefix of the transfer chain: a block
+   whose last tx was dropped quarantined, ``rollback_block``, then the
+   true tail to the header's root; (d) the transfer chain over a
+   ``FileDB`` in a temporary directory with a background
+   ``CheckpointManager``, the record written halfway and the store
+   closed, ``resume_engine`` on the card from it and the rest replayed
+   to the last header's root (the record's number, the stamp cost, the
+   exporter's counters, the resume's seconds).
 
 Phases machine, window, spec, shard_erc20 and hot measure the machine
 path, so their engines take ``token_fastpath=False`` (``bench.py``'s
@@ -3550,6 +3571,201 @@ def phase_trace(dev, smi, genesis, wire, kw):
           "card": smi})
 
 
+# ---------------------------------------------------------- flat (21)
+FLAT_PREFIX_BLOCKS, FLAT_QUARANTINE_AT = 16, 8
+FLAT_CHECKPOINT_EVERY = 64
+
+
+def _flat_row(eng, dt: float, launches: dict) -> dict:
+    row = {"txs_per_s": round(eng.stats.txs / dt, 1),
+           "replay_s": round(dt, 4),
+           "t_classify": round(eng.stats.t_classify, 4),
+           "t_device": round(eng.stats.t_device, 4),
+           "t_sender": round(eng.stats.t_sender, 4),
+           "launches": _nonzero(launches)}
+    if eng.flat is not None:
+        row["flat"] = eng.flat.snapshot()
+    return row
+
+
+def _need_launches(what: str, launches: dict, names) -> None:
+    missing = [n for n in names if launches.get(n, 0) < 1]
+    if missing:
+        raise AssertionError(f"{what}: never launched {missing}: "
+                             f"{_nonzero(launches)}")
+
+
+def phase_flat(dev, smi, transfer, erc20):
+    """Phase 21: the flat-state layer on the chains phases main and
+    window signed (``transfer`` and ``erc20`` are (genesis, wire, txs,
+    engine keywords)); see the module docstring.  Returns the launches
+    of the flat-on replays."""
+    import tempfile
+    import torch
+    from coreth_tpu_torch.evm.device import adapter as A
+    from coreth_tpu_torch.rawdb import FileDB, MemDB
+    from coreth_tpu_torch.replay import engine as E
+    from coreth_tpu_torch.replay.checkpoint import (
+        CheckpointManager, resume_engine)
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    kernels_of = {"transfer": ("transfer_window", "secp_recover"),
+                  "erc20": ("occ_window_spec", "secp_recover")}
+    on_launches = {}
+    # (a) the layer on against off, off first
+    for label, (genesis, wire, txs, kw) in (("transfer", transfer),
+                                            ("erc20", erc20)):
+        row = {"phase": "flat", "case": "on_off", "chain": label,
+               "blocks": len(wire), "txs_per_block": txs}
+        for flat in (False, True):
+            eng, dt, launches = replay_fresh(
+                dev, genesis, wire, f"flat {label} flat={flat}", flat=flat,
+                **kw)
+            _need_launches(f"flat {label} flat={flat}", launches,
+                           kernels_of[label])
+            row["on" if flat else "off"] = _flat_row(eng, dt, launches)
+            if flat:
+                on_launches[label] = launches
+                snap = eng.flat.snapshot()
+                if snap["generations"] < 1 or snap["fills"] < 1:
+                    raise AssertionError(f"flat {label}: the layer sealed "
+                                         f"or filled nothing: {snap}")
+        row["roots_equal_headers"] = True
+        row["card"] = smi
+        emit(row)
+    # (b) the oracle over the ERC-20 window chain: one engine's cold
+    # reads each fill the layer once and never hit it, so the second half
+    # runs on an engine resumed from a checkpoint at the halfway block,
+    # whose loaded flat base serves hits for the oracle to re-derive
+    genesis, wire, txs, kw = erc20
+    half = len(wire) // 2
+    kv = MemDB()
+    store = StateStore(kv=kv)
+    gblock = genesis.to_block(store)
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         device=dev, flat_check=True, **kw)
+    mgr = CheckpointManager(eng, kv, every=half)
+    halves = []
+    for lo, hi in ((0, half), (half, len(wire))):
+        if lo:
+            eng, _ck = resume_engine(genesis.config, kv, device=dev,
+                                     flat_check=True, **kw)
+        A.RECIPES.clear()
+        _zero_launches()
+        t0 = time.monotonic()
+        root = eng.replay([Block.decode(w) for w in wire[lo:hi]])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches = _read_launches()
+        if not lo:
+            mgr.on_committed(half)
+            mgr.write()
+            mgr.close()
+        close_engine(eng)
+        if root != Block.decode(wire[hi - 1]).header.root:
+            raise AssertionError("flat check: a root differs from the "
+                                 "header's")
+        _need_launches("flat check", launches, kernels_of["erc20"])
+        halves.append(_flat_row(eng, dt, launches))
+    snap = halves[1]["flat"]
+    checked = snap["account_hits"] + snap["storage_hits"]
+    if checked < 1:
+        raise AssertionError(f"flat check: no flat hit to check: {snap}")
+    emit({"phase": "flat", "case": "oracle", "chain": "erc20",
+          "checked_hits": checked, "oracle_divergences": 0,
+          "roots_equal_headers": True, "halves": halves, "card": smi})
+    # (c) quarantine, rollback, the true tail
+    genesis, wire, txs, kw = transfer
+    blocks = [Block.decode(w) for w in wire[:FLAT_PREFIX_BLOCKS]]
+    bad = Block.decode(wire[FLAT_QUARANTINE_AT])
+    bad.transactions.pop()
+    store = StateStore()
+    gblock = genesis.to_block(store)
+    eng = E.ReplayEngine(genesis.config, store, parent_header=gblock.header,
+                         device=dev, **kw)
+    _zero_launches()
+    eng.replay(blocks[:FLAT_QUARANTINE_AT])
+    pre_root = eng.root
+    reasons = eng.quarantine_block(bad)
+    if not reasons or eng.root == blocks[FLAT_QUARANTINE_AT].header.root:
+        raise AssertionError(f"flat rollback: the poison block did not "
+                             f"diverge: {reasons}")
+    t0 = time.monotonic()
+    if eng.rollback_block(bad) != pre_root or store.trie.hash() != pre_root:
+        raise AssertionError("flat rollback: not back at the pre-block root")
+    t_rollback = time.monotonic() - t0
+    root = eng.replay(blocks[FLAT_QUARANTINE_AT:])
+    torch.cuda.synchronize()
+    launches = _read_launches()
+    close_engine(eng)
+    if root != blocks[-1].header.root:
+        raise AssertionError("flat rollback: the true tail missed the "
+                             "header's root")
+    _need_launches("flat rollback", launches, kernels_of["transfer"])
+    emit({"phase": "flat", "case": "rollback", "blocks": len(blocks),
+          "quarantined": bad.number, "reasons": reasons,
+          "rollback_ms": round(1000 * t_rollback, 3),
+          "blocks_rolled_back": eng.stats.blocks_rolled_back,
+          "root_equals_header": True, "launches": _nonzero(launches),
+          "card": smi})
+    # (d) checkpoint halfway in background mode, close, resume, the rest
+    half = len(wire) // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "chain.db")
+        kv = FileDB(path)
+        store = StateStore(kv=kv)
+        gblock = genesis.to_block(store)
+        eng = E.ReplayEngine(genesis.config, store,
+                             parent_header=gblock.header, device=dev, **kw)
+        mgr = CheckpointManager(eng, kv, every=FLAT_CHECKPOINT_EVERY)
+        t0 = time.monotonic()
+        for i in range(0, half, FLAT_CHECKPOINT_EVERY):
+            chunk = [Block.decode(w)
+                     for w in wire[i:min(i + FLAT_CHECKPOINT_EVERY, half)]]
+            eng.replay(chunk)
+            mgr.on_committed(len(chunk))
+        t_first = time.monotonic() - t0
+        t0 = time.monotonic()
+        ckpt = mgr.write()
+        t_drain = time.monotonic() - t0
+        ck = mgr.snapshot()
+        mgr.close()
+        close_engine(eng)
+        kv.close()
+        if ckpt is None or ckpt.number != half \
+                or ckpt.root != Block.decode(wire[half - 1]).header.root:
+            raise AssertionError(f"flat checkpoint: record {ckpt} is not "
+                                 f"block {half}'s")
+        kv2 = FileDB(path)
+        t0 = time.monotonic()
+        eng2, ckpt2 = resume_engine(genesis.config, kv2, device=dev, **kw)
+        t_resume = time.monotonic() - t0
+        _zero_launches()
+        t0 = time.monotonic()
+        root = eng2.replay([Block.decode(w) for w in wire[half:]])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        launches = _read_launches()
+        close_engine(eng2)
+        kv2.close()
+        db_bytes = os.path.getsize(path)
+    if ckpt2.number != half or root != Block.decode(wire[-1]).header.root:
+        raise AssertionError("flat resume: the resumed engine missed the "
+                             "last header's root")
+    _need_launches("flat resume", launches, kernels_of["transfer"])
+    emit({"phase": "flat", "case": "checkpoint_resume",
+          "record_number": ckpt.number, "every": FLAT_CHECKPOINT_EVERY,
+          "stamp_us": ck["stamp_us"], "written": ck["written"],
+          "exporter": ck["exporter"],
+          "first_half_s": round(t_first, 3), "drain_s": round(t_drain, 3),
+          "resume_s": round(t_resume, 3),
+          "loaded_entries": eng2.flat.loaded_entries,
+          "db_bytes": db_bytes, "tail_blocks": len(wire) - half,
+          **_flat_row(eng2, dt, launches),
+          "root_equals_header": True, "card": smi})
+    return on_launches
+
+
 def main() -> int:
     t_start = time.monotonic()
     try:
@@ -3821,6 +4037,14 @@ def main() -> int:
     phase_trace(dev, smi, genesis, wire, x_kw)
     emit({"phase": "trie_faults_trace_seconds",
           "trie_s": round(t_trie_phase, 2),
+          "seconds": round(time.monotonic() - t0, 2)})
+
+    # ---- 21. the flat-state layer: on against off, its oracle, the
+    # quarantine rollback, a checkpoint and the resume from it
+    t0 = time.monotonic()
+    phase_flat(dev, smi, (genesis, wire, txs, x_kw),
+               (m_genesis, m_wire, m_txs, m_kw))
+    emit({"phase": "flat_seconds",
           "seconds": round(time.monotonic() - t0, 2)})
 
     k1["launches"] = launches["transfer_window"]

@@ -5,7 +5,8 @@ account/storage trie over the C++ trie handle API of
 ``native/baseline.cc``, with the window-batched fold-and-root calls
 (``fold_storage``, ``fold_accounts_root``) that commit a whole deduped
 window in one ctypes crossing per trie, ``from_python_trie`` (a C++
-trie seeded from a Python trie's leaves), and the ordered trie that ``derive_sha`` hashes tx and receipt
+trie seeded from a Python trie's leaves), ``commit_into`` (the trie's
+hashed nodes exported into a node store), and the ordered trie that ``derive_sha`` hashes tx and receipt
 lists into.
 
 ``CheckedSecureTrie`` is the reference's ``CORETH_TRIE_CHECK=1``
@@ -77,6 +78,9 @@ def _lib():
             ctypes.POINTER(ctypes.c_uint32), ctypes.c_char_p,
             ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint64]
         lib.coreth_trie_update_ordered.restype = None
+        lib.coreth_trie_export.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_uint64]
+        lib.coreth_trie_export.restype = ctypes.c_uint64
         _declared = True
     return lib
 
@@ -137,6 +141,21 @@ class NativeSecureTrie(_Handle):
         for nibs, value in trie.items():
             out.update_hashed(nibbles_to_key(nibs), value)
         return out
+
+    def commit_into(self, node_db) -> bytes:
+        """Export every hashed node changed since the last export into
+        ``node_db`` (hash -> node RLP); returns the root."""
+        need = self._lib.coreth_trie_export(self.h, None, 0)
+        if need:
+            buf = ctypes.create_string_buffer(int(need))
+            self._lib.coreth_trie_export(self.h, buf, need)
+            raw = buf.raw
+            off = 0
+            while off < need:
+                ln = int.from_bytes(raw[off + 32:off + 36], "little")
+                node_db[raw[off:off + 32]] = raw[off + 36:off + 36 + ln]
+                off += 36 + ln
+        return self.hash()
 
     def fold_storage(self, keys32: bytes, vals32: bytes, n: int) -> bytes:
         """Fold a deduped window of storage writes (pre-hashed keys,
@@ -244,6 +263,17 @@ class CheckedSecureTrie:
 
     def hash(self) -> bytes:
         return self._check()
+
+    def commit_into(self, node_db) -> bytes:
+        """Export the C++ trie's nodes into ``node_db`` and commit the
+        twin into its own node store; the two roots must agree."""
+        root = self.native.commit_into(node_db)
+        py_root = self.py.commit()
+        if root != py_root:
+            raise TrieOracleError(
+                f"trie oracle divergence at commit: native "
+                f"{root.hex()} != py {py_root.hex()}")
+        return root
 
     # ----------------------------------------------- window fold-and-root
     def fold_storage(self, keys32: bytes, vals32: bytes, n: int) -> bytes:

@@ -20,6 +20,12 @@ loop through ``mpt/trie.py``, each trie then rehashed level by level by
 ``trie_check`` the C++ folds run through ``CheckedSecureTrie``, which
 re-derives every root on the Python twin.
 
+With the engine's flat layer, a flush that lands on its header's root
+seals the window as ONE flat generation (``FlatStore.apply_generation``,
+reference ``commit.py:241-263``): each staged account's tuple with its
+fresh storage root, an EIP-158 deletion as ``DELETED``, and the deduped
+slot writes.
+
 A flush passes the ``commit/flush_fail`` injection point first,
 through the supervisor's retry policy (``retry_point``): a transient
 fault retries, a persistent one is fatal (no other commit backend).
@@ -33,6 +39,7 @@ from typing import Dict, Optional, Tuple
 from coreth_tpu_torch import faults, obs, rlp
 from coreth_tpu_torch.crypto import keccak256
 from coreth_tpu_torch.mpt.rehash import device_rehash
+from coreth_tpu_torch.state.flat import DELETED as FLAT_DELETED
 from coreth_tpu_torch.types.account import (
     EMPTY_CODE_HASH, EMPTY_ROOT_HASH, StateAccount,
 )
@@ -56,6 +63,7 @@ class CommitPipeline:
         self.accounts: Dict[bytes, Tuple[int, int]] = {}
         self.expected_root: Optional[bytes] = None
         self.expected_number: Optional[int] = None
+        self.expected_header = None
         self.staged_blocks = 0
         self.fold_s = 0.0
         self.fold_calls = 0
@@ -74,6 +82,7 @@ class CommitPipeline:
             self.writes.update(writes)
         self.expected_root = header.root
         self.expected_number = header.number
+        self.expected_header = header
         self.staged_blocks += 1
 
     def pending(self) -> bool:
@@ -187,6 +196,7 @@ class CommitPipeline:
         # the injected gate retries transient faults with backoff BEFORE
         # the fold runs (the fold itself must not re-run)
         e.supervisor.retry_point("commit", PT_FLUSH)
+        prev_root = e.root
         t0 = time.monotonic()
         self._fold_storage()
         root = self._fold_accounts()
@@ -196,16 +206,47 @@ class CommitPipeline:
         self.fold_calls += 1
         self.fold_blocks += self.staged_blocks
         expected, number = self.expected_root, self.expected_number
+        header = self.expected_header
         n_blocks = self.staged_blocks
+        writes, accounts = self.writes, self.accounts
         self.writes = {}
         self.accounts = {}
         self.staged_blocks = 0
         self.expected_root = None
         self.expected_number = None
+        self.expected_header = None
         if root != expected:
             raise ReplayError(
                 f"state root mismatch at block {number} "
                 f"(commit window of {n_blocks}): {root.hex()} != "
                 f"{expected.hex()}")
         e.root = root
+        if e.flat is not None:
+            self._seal_generation(header, prev_root, root, accounts, writes)
         return root
+
+    def _seal_generation(self, header, prev_root: bytes, root: bytes,
+                         accounts, writes) -> None:
+        """The folded window as one flat generation: the post-fold
+        storage roots are in ``state.roots``, so the account tuples are
+        complete (the checkpoint exporter re-derives and root-checks
+        the tries from exactly this diff)."""
+        state = self.e.state
+        gen_accounts: Dict[bytes, object] = {}
+        for addr, (balance, nonce) in accounts.items():
+            idx = state.index[addr]
+            code_hash = state.code_hashes[idx]
+            storage_root = state.roots[idx]
+            multicoin = bool(state.multicoin[idx])
+            if (balance == 0 and nonce == 0
+                    and code_hash == EMPTY_CODE_HASH
+                    and storage_root == EMPTY_ROOT_HASH
+                    and not multicoin):
+                gen_accounts[addr] = FLAT_DELETED  # EIP-158 deletion
+            else:
+                gen_accounts[addr] = (balance, nonce, storage_root,
+                                      code_hash, multicoin)
+        self.e.flat.apply_generation(
+            number=header.number, block_hash=header.hash(), root=root,
+            header=header, prev_root=prev_root, accounts=gen_accounts,
+            storage=writes, kind="window")

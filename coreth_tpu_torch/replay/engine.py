@@ -57,6 +57,16 @@ engine's root and the store's tries at the valid prefix
 (``quarantine_block`` applies such a block tolerantly instead and
 returns the checks it failed).
 
+The flat-state layer (``state/flat``, ``flat=True``, the reference's
+default ``CORETH_FLAT=1``) serves the cold reads: an account's row and
+a slot's value are read from its raw-keyed dicts before the tries, and
+filled on a miss; every flushed window and every host-path block seals
+one generation of it, with its undo, so ``rollback_block`` can pop a
+quarantined block again, and the checkpoint exporter
+(``replay/checkpoint.py``) re-derives the tries from the generations
+off the execute thread.  ``flat_check`` re-derives every flat hit from
+the tries (``ReplayError("flat oracle ...")`` on a divergence).
+
 Faults: the window launches go through the engine's
 ``BackendSupervisor`` (``replay/supervisor.py``) at the
 ``device/dispatch`` injection point, a run whose dispatch fails past
@@ -100,6 +110,9 @@ from coreth_tpu_torch.params import protocol as P
 from coreth_tpu_torch.processor import Processor
 from coreth_tpu_torch.replay.supervisor import BackendFault, BackendSupervisor
 from coreth_tpu_torch.state import StateDB, StateStore, normalize_state_key
+from coreth_tpu_torch.state.flat import (
+    FlatStateView, FlatStore, flat_diff_from_statedb,
+)
 from coreth_tpu_torch.types import (
     Block, LatestSigner, Log, Receipt, StateAccount, derive_sha,
 )
@@ -155,8 +168,10 @@ class ReplayStats:
     # max/mean lanes per shard of the sharded machine windows (1.0 flat,
     # n_shards all on one shard); 0.0 until such a window ran
     load_imbalance: float = 0.0
-    # blocks applied tolerantly by quarantine_block
+    # blocks applied tolerantly by quarantine_block, and popped again
+    # by rollback_block
     blocks_quarantined: int = 0
+    blocks_rolled_back: int = 0
 
     def row(self) -> dict:
         return dict(self.__dict__)
@@ -802,7 +817,14 @@ class ReplayEngine:
     ``BackendSupervisor`` of the fault ladder (default: one with the
     reference's settings).  ``host_exec_check``
     (``CORETH_HOST_EXEC_CHECK``) re-runs every native hostexec call on
-    the interpreter and compares."""
+    the interpreter and compares.
+
+    ``flat`` (default on, the reference's ``CORETH_FLAT=1``) keeps the
+    flat-state layer (``self.flat``, a ``FlatStore``): the account and
+    slot cold reads that fill the device rows and the slot table, and
+    every host StateDB, read it before the tries; off, they walk the
+    tries only.  ``flat_check`` (``CORETH_FLAT_CHECK``) re-derives every
+    flat hit from the tries and raises on a divergence."""
 
     # Below this many signatures a segment recovers on the native C++
     # batch instead of the device ladder.
@@ -824,7 +846,8 @@ class ReplayEngine:
                  trie: str = "native", trie_check: bool = False,
                  rehash_min_batch: int = DEFAULT_MIN_BATCH,
                  supervisor: Optional[BackendSupervisor] = None,
-                 host_exec_check: bool = False):
+                 host_exec_check: bool = False, flat: bool = True,
+                 flat_check: bool = False):
         self.device = default_device(device)
         self.token_fastpath = token_fastpath
         self.serial_shortcircuit = serial_shortcircuit
@@ -918,6 +941,14 @@ class ReplayEngine:
         # machine executor's window runner rebuilds when it sees a bump
         # (its mirror and device table can no longer be trusted)
         self.storage_epoch = 0
+        # the flat-state layer: O(1) cold reads, one generation per
+        # commit unit (the rollback and checkpoint-export unit)
+        self.flat = FlatStore() if flat else None
+        self._flat_check = flat_check
+        self._flat_view_memo = None
+        # the StateDB of the newest quarantined block, its undo log kept
+        # for rollback_block
+        self._quarantine_sdb = None
 
     def close(self) -> None:
         """Stop the recovery worker thread."""
@@ -926,12 +957,33 @@ class ReplayEngine:
             self._recover_pool = None
 
     # ---------------------------------------------------------------- index
+    def _flat_view(self) -> Optional[FlatStateView]:
+        """The StateDB-facing flat adapter (the host path's and the
+        machine executor's scratch StateDBs read flat-first too); None
+        when the layer is off."""
+        if self.flat is None:
+            return None
+        if self._flat_view_memo is None:
+            self._flat_view_memo = FlatStateView(self.flat,
+                                                 self._flat_check)
+        return self._flat_view_memo
+
+    def _flat_oracle_fail(self, what: str, addr: bytes, got, want) -> None:
+        raise ReplayError(
+            f"flat oracle divergence ({what}) at {addr.hex()}: "
+            f"flat={got!r} trie={want!r}")
+
     def _account(self, addr: bytes) -> int:
         idx = self.state.index.get(addr)
         if idx is not None:
             return idx
-        raw = self.trie.get(addr)
-        account = StateAccount.from_rlp(raw) if raw is not None else None
+        view = self._flat_view()
+        if view is None:
+            raw = self.trie.get(addr)
+            account = StateAccount.from_rlp(raw) if raw is not None \
+                else None
+        else:
+            account = view.load_account(addr, self.trie, ReplayError)
         return self.state.ensure(addr, account)
 
     def _storage_trie(self, contract: bytes):
@@ -952,18 +1004,39 @@ class ReplayEngine:
         raw = self._storage_trie(contract).get(key)
         return int.from_bytes(rlp.decode(raw), "big") if raw else 0
 
+    def committed_value(self, contract: bytes, key: bytes,
+                        what: str = "slot") -> int:
+        """Committed value of (normalized) slot ``key``: staged-but-
+        unfolded writes first (they have not folded yet), then the flat
+        layer (``what`` names the reader in an oracle failure), then the
+        storage trie, whose value fills the flat layer."""
+        value = self.commit_pipe.base_value(contract, key)
+        if value is not None:
+            return value
+        flat = self.flat
+        if flat is not None:
+            value = flat.storage_value(contract, key)
+            if value is not None:
+                if self._flat_check:
+                    want = self.storage_value(contract, key)
+                    if want != value:
+                        self._flat_oracle_fail(what, contract, value, want)
+                return value
+        value = self.storage_value(contract, key)
+        if flat is not None:
+            flat.fill_storage(contract, key, value)
+        return value
+
     def _slot(self, contract: bytes, key: bytes) -> int:
         """Slot index of (contract, EVM storage key), loading its current
-        value on first touch: staged-but-unfolded writes first, then the
-        storage trie.  Keys are normalized as the state writes them."""
+        value on first touch (``committed_value``).  Keys are normalized
+        as the state writes them."""
         key = normalize_state_key(key)
         sid = self.state.slot_index.get((contract, key))
         if sid is not None:
             return sid
-        value = self.commit_pipe.base_value(contract, key)
-        if value is None:
-            value = self.storage_value(contract, key)
-        return self.state.ensure_slot(contract, key, value)
+        return self.state.ensure_slot(contract, key,
+                                      self.committed_value(contract, key))
 
     # -------------------------------------------------------------- senders
     def _pack_sigs(self, blocks):
@@ -1724,6 +1797,48 @@ class ReplayEngine:
         self.stats.blocks_quarantined += 1
         return reasons
 
+    def rollback_block(self, block: Block) -> bytes:
+        """Reorg primitive: pop a quarantined block's generation and
+        re-converge the engine to the pre-block (strict-mode) state.
+
+        The flat layer's undo log restores the flat view; the store's
+        tries, advanced in place by the quarantined block's StateDB, are
+        put back by that StateDB's kept undo log (the reference reopens
+        them at the generation's ``prev_root`` instead) and must hash to
+        it; the device rows, the account metadata and the slot mirror
+        are refreshed from them for the accounts the block touched.
+        Only the NEWEST generation, a quarantined block, is revertible:
+        strict blocks validated against their headers."""
+        if self.flat is None:
+            raise ReplayError("rollback requires the flat layer (flat=True)")
+        if self.commit_pipe.pending():
+            raise ReplayError(
+                "rollback with staged commits pending (flush first)")
+        # checkpoint markers stamped on the doomed tip carry no diff;
+        # discard them so the quarantine generation is the target
+        gen = self.flat.last_generation()
+        while gen is not None and gen.kind == "checkpoint" \
+                and not gen.exported:
+            self.flat.rollback_last()
+            gen = self.flat.last_generation()
+        sdb = self._quarantine_sdb
+        if gen is None or gen.kind != "quarantine" \
+                or gen.number != block.number \
+                or gen.block_hash != block.hash() or sdb is None:
+            raise ReplayError(
+                "rollback target is not the newest quarantined generation")
+        gen = self.flat.rollback_last()
+        self._quarantine_sdb = None
+        sdb.restore()
+        if self.trie.hash() != gen.prev_root:
+            raise ReplayError(
+                "rollback: trie did not re-converge to the pre-block root")
+        self._refresh_from_host(sdb)
+        self.root = gen.prev_root
+        self.parent_header = gen.prev_header
+        self.stats.blocks_rolled_back += 1
+        return gen.prev_root
+
     def publish_metrics(self, registry=None, prefix: str = "replay") -> None:
         """Feed the ``ReplayStats`` split into a metrics registry, one
         gauge a field (the engine-side analog of the blockchain.go timer
@@ -1732,6 +1847,10 @@ class ReplayEngine:
         for name, value in self.stats.row().items():
             get_or_register(f"{prefix}/{name}", Gauge,
                             registry).update(value)
+        if self.flat is not None:
+            for name, value in self.flat.snapshot().items():
+                get_or_register(f"flat/{name}", Gauge,
+                                registry).update(value)
 
     def _fallback(self, block: Block, strict: bool = True,
                   reasons: Optional[List[str]] = None) -> bytes:
@@ -1742,7 +1861,10 @@ class ReplayEngine:
         fails (or an invalid tx) raises with the store restored, so the
         engine's root and tries stay at the previous block.
         ``strict=False`` is the quarantine mode: a failed check is
-        appended to ``reasons`` and the computed state commits."""
+        appended to ``reasons`` and the computed state commits.  With the
+        flat layer the block reads flat-first and seals one generation
+        (a quarantined block's held, its StateDB's undo log kept for
+        ``rollback_block``)."""
         with obs.span("replay/host_fallback", number=block.number,
                       strict=strict):
             return self._fallback_run(block, strict, reasons)
@@ -1750,6 +1872,9 @@ class ReplayEngine:
     def _fallback_run(self, block: Block, strict: bool,
                       reasons: Optional[List[str]]) -> bytes:
         self.commit_pipe.flush()  # staged windows precede this block
+        self._quarantine_sdb = None
+        prev_root = self.root
+        prev_header = self.parent_header
         t0 = time.monotonic()
         if (self.parent_header is None
                 and self.config.is_apricot_phase4(block.time)):
@@ -1759,7 +1884,7 @@ class ReplayEngine:
                 "ReplayEngine needs parent_header for AP4+ blocks; "
                 "construct it with parent_header=...")
         parent = self.parent_header or _HeaderShim(block)
-        statedb = StateDB(self.store)
+        statedb = StateDB(self.store, flat=self._flat_view())
 
         def mismatch(what: str) -> None:
             if strict:
@@ -1780,8 +1905,23 @@ class ReplayEngine:
         except BaseException:
             statedb.restore()
             raise
-        statedb.commit(delete_empty_objects=True)
+        statedb.commit(delete_empty_objects=True, keep_undo=not strict)
         self._refresh_from_host(statedb)
+        if self.flat is not None:
+            # one generation per host-path block: the flat view learns
+            # the block's diff, and its undo makes a QUARANTINED block
+            # revertible (held, so the exporter cannot make it durable
+            # before the chain accepts past it)
+            accounts, storage, destructs = flat_diff_from_statedb(statedb)
+            self.flat.apply_generation(
+                number=block.number, block_hash=block.hash(), root=root,
+                header=block.header, prev_root=prev_root,
+                prev_header=prev_header, accounts=accounts,
+                storage=storage, destructs=destructs,
+                kind="fallback" if strict else "quarantine",
+                hold=not strict)
+            if not strict:
+                self._quarantine_sdb = statedb
         self.root = root
         self.parent_header = block.header
         self.stats.blocks_fallback += 1
@@ -1823,9 +1963,11 @@ class ReplayEngine:
         st.flush_staged()
 
     def commit(self) -> bytes:
-        """Fold anything staged; returns the state root."""
+        """Fold anything staged and write the tries' nodes into the
+        store's node store (a store over ``kv``; an in-memory store has
+        none); returns the state root."""
         self.commit_pipe.flush()
-        return self.trie.hash()
+        return self.store.commit()
 
 
 class _HeaderShim:

@@ -256,7 +256,7 @@ class MachineBlockExecutor:
         hx0 = bridge.counters().get("native_calls", 0)
         rules = e.config.rules(block.number, block.time)
         e.commit_pipe.flush()   # the scratch StateDB reads the folded store
-        scratch = StateDB(e.store)
+        scratch = StateDB(e.store, flat=e._flat_view())
         block_ctx = BlockContext(
             coinbase=block.header.coinbase, number=block.number,
             time=block.time, gas_limit=block.header.gas_limit,
@@ -319,12 +319,11 @@ class MachineBlockExecutor:
     # ------------------------------------------------------------- storage
     def _base_value(self, contract: bytes, key: bytes) -> int:
         """Committed value at block start: staged-but-unfolded writes
-        first, then the contract's storage trie."""
-        e = self.e
-        v = e.commit_pipe.base_value(contract, key)
-        if v is not None:
-            return v
-        return e.storage_value(contract, key)
+        first, then the flat layer (the window runner's table fills and
+        the serial session's reads hit a dict; checked under the
+        engine's ``flat_check``), then the storage trie, which fills the
+        flat layer."""
+        return self.e.committed_value(contract, key, "machine-slot")
 
     # ------------------------------------------------------------- execute
     def execute(self, block: Block,

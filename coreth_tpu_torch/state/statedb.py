@@ -13,9 +13,13 @@ that fails its checks leaves no trace).  ``commit`` adds the block's
 new code to the store and makes the writes final.  ``copy()`` gives a
 view for speculative execution: the journaled overlay copied, the
 store shared and only read (a copy cannot write the store: its
-``intermediate_root``, ``commit`` and ``restore`` raise).  The
-flat-state, snapshot and prefetcher read paths of the reference are
-not part of the port.
+``intermediate_root``, ``commit`` and ``restore`` raise).  ``flat``
+is the flat-state read path (``state/flat``'s ``FlatStateView``,
+consulted duck-typed): account and slot reads go to it before the
+tries and fill it on a miss, and with its ``check`` flag every hit is
+re-derived from the trie (``ValueError("flat oracle ...")`` on a
+divergence).  The snapshot and prefetcher read paths of the reference
+are not part of the port.
 
 Semantic twin of reference core/state/statedb.go + state_object.go +
 journal.go:
@@ -99,10 +103,12 @@ class StateObject:
 
 
 class StateDB:
-    def __init__(self, store: StateStore):
+    def __init__(self, store: StateStore, flat=None):
         """A block's (or a tx's) journaled view of ``store``, whose
-        account trie stands at the state to execute on."""
+        account trie stands at the state to execute on; ``flat``: the
+        flat-state view read before the tries (None: the tries only)."""
         self.store = store
+        self.flat = flat
         self._trie = store.trie
         self.original_root = self._trie.hash()
         self._objects: Dict[bytes, StateObject] = {}
@@ -173,6 +179,9 @@ class StateDB:
 
     # ------------------------------------------------------------- objects
     def _load_account(self, addr: bytes) -> Optional[StateAccount]:
+        if self.flat is not None:
+            return self.flat.load_account(addr, self._trie,
+                                          what="statedb account")
         data = self._trie.get(addr)
         return StateAccount.from_rlp(data) if data is not None else None
 
@@ -353,12 +362,32 @@ class StateDB:
     def _origin_value(self, obj: StateObject, key: bytes) -> bytes:
         if key in obj.origin_storage:
             return obj.origin_storage[key]
-        trie = None if obj.fresh else self._read_trie(obj)
-        raw = trie.get(key) if trie is not None else None
-        value = rlp.decode(raw).rjust(32, b"\x00") \
-            if raw is not None else HASH_ZERO
+        fl = self.flat
+        if obj.fresh:
+            value = HASH_ZERO
+        elif fl is not None \
+                and (v := fl.storage_value(obj.address, key)) is not None:
+            value = v.to_bytes(32, "big")
+            if fl.check:
+                want = self._trie_value(obj, key)
+                if want != value:
+                    raise ValueError(
+                        f"flat oracle divergence (statedb slot) at "
+                        f"{obj.address.hex()}/{key.hex()}: "
+                        f"flat={value.hex()} trie={want.hex()}")
+        else:
+            value = self._trie_value(obj, key)
+            if fl is not None:
+                fl.fill_storage(obj.address, key,
+                                int.from_bytes(value, "big"))
         obj.origin_storage[key] = value
         return value
+
+    def _trie_value(self, obj: StateObject, key: bytes) -> bytes:
+        trie = self._read_trie(obj)
+        raw = trie.get(key) if trie is not None else None
+        return rlp.decode(raw).rjust(32, b"\x00") \
+            if raw is not None else HASH_ZERO
 
     def _read_trie(self, obj: StateObject):
         """The storage trie a pre-existing account's reads fall through
@@ -671,18 +700,22 @@ class StateDB:
         self._pending.clear()
         return self._trie.hash()
 
-    def commit(self, delete_empty_objects: bool = True) -> bytes:
+    def commit(self, delete_empty_objects: bool = True,
+               keep_undo: bool = False) -> bytes:
         """Hash, add the new code to the store and make the writes final
-        (``restore`` no longer applies); returns the root."""
+        (``restore`` no longer applies); returns the root.  With
+        ``keep_undo`` the undo log stays, so ``restore()`` can still put
+        the store back (the rollback of a quarantined block)."""
         self._writes_store()
         root = self.intermediate_root(delete_empty_objects)
         for obj in self._objects.values():
             if obj.dirty_code and obj.code is not None:
                 self.store.codes[obj.account.code_hash] = obj.code
                 obj.dirty_code = False
-        self._undo_accounts = {}
-        self._undo_tries = {}
-        self._undo_slots = {}
+        if not keep_undo:
+            self._undo_accounts = {}
+            self._undo_tries = {}
+            self._undo_slots = {}
         return root
 
     def restore(self) -> None:
@@ -719,7 +752,7 @@ class StateDB:
         ``intermediate_root``, ``commit`` and ``restore`` raise.  The
         undo journal does not carry over (its thunks close over this
         StateDB's objects): snapshots of the copy start fresh."""
-        new = StateDB(self.store)
+        new = StateDB(self.store, flat=self.flat)
         new._shared = True
         new._trie = self._trie
         new.original_root = self.original_root

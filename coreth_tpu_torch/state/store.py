@@ -21,19 +21,34 @@ is not the engine's ``trie=`` / ``trie_check=``.
 supervisor and oracle switch, read by the hostexec bridge through the
 StateDB of the store (the reference stamps its ``Database`` the same
 way), so engines in one process keep separate ladders.
+
+Over a key-value store (``kv=``, ``rawdb``), the store is the
+reference's ``Database(node_db=PersistentNodeDict(kv),
+code_db=PersistentCodeDict(kv))``: ``commit()`` writes every trie's
+hashed nodes into the node store (``commit_into`` on the C++ tries,
+``commit`` on the Python ones), the code store writes through, and
+``root=`` opens the tries at a state root from the nodes, for either
+backend (``open_trie``).  A contract's storage trie is then opened at
+its account's root the first time it is asked for.  Nodes reach the
+key-value store only when a checkpoint flushes them
+(``replay/checkpoint.py``), under the reference's keys, so either
+package opens a store the other wrote.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Optional
 
 from coreth_tpu_torch import rlp
 from coreth_tpu_torch.crypto import keccak256
 from coreth_tpu_torch.mpt.native_trie import (
     CheckedSecureTrie, NativeSecureTrie,
 )
-from coreth_tpu_torch.mpt.trie import SecureTrie
-from coreth_tpu_torch.types.account import EMPTY_CODE_HASH
+from coreth_tpu_torch.mpt.trie import MissingNodeError, SecureTrie
+from coreth_tpu_torch.rawdb import PersistentCodeDict, PersistentNodeDict
+from coreth_tpu_torch.types.account import (
+    EMPTY_CODE_HASH, EMPTY_ROOT_HASH, StateAccount,
+)
 
 BACKENDS = ("native", "py")
 
@@ -52,26 +67,111 @@ def _check_backend(backend: str, check: bool) -> None:
                          "on the Python trie: it needs backend 'native'")
 
 
+class _StorageTries(dict):
+    """addr -> the contract's storage trie.  Over a node store, a trie
+    missing here opens at its account's root the first time it is asked
+    for (a store opened at a root holds the account trie only); a root
+    whose node is not in the node store raises ``MissingNodeError``, as
+    the reference's first read of such a trie does."""
+
+    def __init__(self, store: "StateStore"):
+        super().__init__()
+        self._store = store
+
+    def _open(self, addr: bytes):
+        store = self._store
+        if store.kv is None:
+            return None
+        raw = store.trie.get(addr)
+        root = StateAccount.from_rlp(raw).root if raw is not None \
+            else EMPTY_ROOT_HASH
+        if root == EMPTY_ROOT_HASH:
+            return None
+        if root not in store.node_db:
+            # a missing node closure must not read as empty storage
+            raise MissingNodeError(
+                f"storage trie of {addr.hex()} (root {root.hex()}) is "
+                "not in the node store")
+        trie = store.open_trie(root)
+        dict.__setitem__(self, addr, trie)
+        return trie
+
+    def get(self, addr: bytes, default=None):
+        trie = dict.get(self, addr)
+        if trie is None:
+            trie = self._open(addr)
+        return default if trie is None else trie
+
+    def __contains__(self, addr) -> bool:
+        return self.get(addr) is not None
+
+    def __getitem__(self, addr: bytes):
+        trie = self.get(addr)
+        if trie is None:
+            raise KeyError(addr.hex())
+        return trie
+
+
 class StateStore:
-    """Account trie + per-contract storage tries + code store."""
+    """Account trie + per-contract storage tries + code store, in memory
+    or (``kv=``) over a key-value store's node and code records, opened
+    at ``root`` when one is given."""
 
     def __init__(self, trie=None, backend: str = "native",
-                 check: bool = False):
+                 check: bool = False, kv=None,
+                 root: Optional[bytes] = None):
         _check_backend(backend, check)
+        if root is not None and (kv is None or trie is not None):
+            raise ValueError("root= opens the tries from a kv= store")
         self.backend = backend
         self.check = check
+        self.kv = kv
+        if kv is None:
+            self.node_db = {}
+            self.codes = {}
+        else:
+            self.node_db = PersistentNodeDict(kv)
+            self.codes = PersistentCodeDict(kv)
+        dict.__setitem__(self.codes, EMPTY_CODE_HASH, b"")
+        if root is not None:
+            trie = self.open_trie(root)
         self.trie = trie if trie is not None else self.new_trie()
-        self.storage: Dict[bytes, object] = {}
-        self.codes: Dict[bytes, bytes] = {EMPTY_CODE_HASH: b""}
+        self.storage = _StorageTries(self)
         self.fault_observer = None
         self.host_exec_check = False
 
     def new_trie(self):
         """An empty secure trie of the store's backend."""
         if self.backend == "py":
-            return SecureTrie()
-        return CheckedSecureTrie(SecureTrie()) if self.check \
-            else NativeSecureTrie()
+            return SecureTrie(db=self.node_db)
+        return CheckedSecureTrie(SecureTrie(db=self.node_db)) \
+            if self.check else NativeSecureTrie()
+
+    def open_trie(self, root: bytes):
+        """A secure trie of the store's backend at ``root``, read from
+        the node store (a C++ trie is seeded from the Python one)."""
+        base = SecureTrie(root_hash=root, db=self.node_db)
+        if self.backend == "py":
+            return base
+        return CheckedSecureTrie(base) if self.check \
+            else NativeSecureTrie.from_python_trie(base)
+
+    def commit_trie(self, trie) -> bytes:
+        """Write ``trie``'s hashed nodes into the node store; returns its
+        root."""
+        if self.backend == "py":
+            return trie.commit()
+        return trie.commit_into(self.node_db)
+
+    def commit(self) -> bytes:
+        """Write every trie's hashed nodes into the node store (not yet
+        into the key-value store: a checkpoint flushes them) and return
+        the state root.  An in-memory store has nothing to write."""
+        if self.kv is None:
+            return self.trie.hash()
+        for st in dict.values(self.storage):
+            self.commit_trie(st)
+        return self.commit_trie(self.trie)
 
     def storage_trie(self, addr: bytes):
         """The contract's storage trie (an empty one on first use)."""

@@ -782,3 +782,29 @@ def test_transient_dispatch_fault_retried_on_k1(cuda):
     assert root == blocks[-1].header.root
     assert (eng.supervisor.retries, eng.supervisor.strikes) == (1, 0)
     assert eng.stats.blocks_device == 4 and E.LAUNCHES - k1 == 2
+
+
+def test_flat_checked_erc20_replay_on_the_card(cuda):
+    """The ERC-20 window chain with ``flat_check=True`` on the card: every
+    flat hit re-derived from the tries with no divergence, the root the
+    header's, K6+K7 launched, and the flat layer sealed one generation a
+    fold."""
+    from coreth_tpu_torch.evm.device import machine as M
+    from coreth_tpu_torch.replay import ReplayEngine
+    from coreth_tpu_torch.state import StateStore
+    from coreth_tpu_torch.types import Block
+    genesis, blocks = chip_smoke.build_erc20_chain(4, 32, 16)
+    store = StateStore()
+    gb = genesis.to_block(store)
+    eng = ReplayEngine(genesis.config, store, parent_header=gb.header,
+                       batch_pad=32, capacity=256, device=cuda,
+                       token_fastpath=False, flat_check=True)
+    spec = M.SPEC_LAUNCHES
+    root = eng.replay([Block.decode(b.encode()) for b in blocks])
+    eng.close()
+    assert root == blocks[-1].header.root == store.trie.hash()
+    assert M.SPEC_LAUNCHES - spec >= 1
+    snap = eng.flat.snapshot()
+    assert snap["generations"] == eng.commit_pipe.fold_calls >= 1
+    assert snap["fills"] > 0
+    assert eng.supervisor.strikes == 0

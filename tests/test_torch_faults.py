@@ -172,6 +172,11 @@ COVERAGE = {
                          "retries",
     "recover/fault": "test_torch_faults::test_recover_fault_degrades",
     "obs/export_fail": "test_torch_obs::test_export_fail_fault_counted",
+    "flat/torn_write": "test_torch_checkpoint::test_torn_flat_write_retries",
+    "flat/stale_generation": "test_torch_checkpoint::test_stale_generation_"
+                             "handout_skipped",
+    "checkpoint/crash_gap": "test_torch_checkpoint::test_torn_checkpoint_"
+                            "keeps_previous",
 }
 
 
@@ -181,7 +186,8 @@ def test_declared_points_all_covered():
     import importlib
     for mod in ("evm.device.adapter", "evm.device.shard",
                 "evm.hostexec.backend", "evm.hostexec.bridge", "obs.trace",
-                "replay.commit", "replay.engine"):
+                "replay.commit", "replay.engine", "state.flat.store",
+                "state.flat.exporter", "replay.checkpoint"):
         importlib.import_module(f"coreth_tpu_torch.{mod}")
         importlib.import_module(f"coreth_tpu.{mod}")
     assert set(faults.declared()) == set(COVERAGE)
@@ -476,6 +482,34 @@ def swaps():
     return SR._build_chain(3, SR._gen_swap)
 
 
+def _warm_token_probe(blocks):
+    """Run the token fast path's exec-gas probe for ``blocks``' rules
+    before a plan is armed: ``measure_transfer_exec_gas`` makes bridge
+    calls of its own the first time a process sees a fork schedule (it
+    caches per process), and those calls would take the plan's hits,
+    with no observer to strike, ahead of the replay's own."""
+    for b in blocks:
+        for variant in ("noop", "set", "reset"):
+            terc20.measure_transfer_exec_gas(CFG, b.number, b.time, variant)
+
+
+def _hits_inside(monkeypatch, obj, name: str, point: str) -> list:
+    """Wrap ``obj.name`` to record, per call, how many hits of ``point``
+    fired inside it."""
+    inside = []
+    real = getattr(obj, name)
+
+    def spy(*a, **kw):
+        before = faults.fired(point)
+        try:
+            return real(*a, **kw)
+        finally:
+            inside.append(faults.fired(point) - before)
+
+    monkeypatch.setattr(obj, name, spy)
+    return inside
+
+
 def _host_engine(strikes, **kw):
     """An engine whose device scope is demoted for good: every block on
     the host path, every contract call through the hostexec bridge (the
@@ -486,49 +520,67 @@ def _host_engine(strikes, **kw):
     return eng
 
 
-def test_native_session_loss(swaps):
+def test_native_session_loss(swaps, monkeypatch):
     eng = _host_engine(1)
+    _warm_token_probe(swaps)
+    inside = _hits_inside(monkeypatch, eng, "_fallback",
+                          "native/session_loss")
     bridge.reset_counters()
     with faults.armed(FaultPlan({"native/session_loss":
                                  FaultSpec()})) as plan:
         assert eng.replay(_fresh(swaps)) == swaps[-1].header.root
         assert plan.fired()["native/session_loss"] >= 1
+        # every hit came from the replay's host path
+        assert sum(inside) == plan.fired()["native/session_loss"]
     assert bridge.counters()["session_faults"] >= 1
     assert eng.supervisor.demoted("native")
 
 
-def test_native_error_rc(swaps):
+def test_native_error_rc(swaps, monkeypatch):
     eng = _host_engine(2)
+    _warm_token_probe(swaps)
+    inside = _hits_inside(monkeypatch, eng, "_fallback", "native/error_rc")
     bridge.reset_counters()
     with faults.armed(FaultPlan({"native/error_rc": FaultSpec()})) as plan:
         assert eng.replay(_fresh(swaps)) == swaps[-1].header.root
         assert plan.fired()["native/error_rc"] >= 2
+        assert sum(inside) == plan.fired()["native/error_rc"]
     assert bridge.counters()["native_faults"] >= 2
     assert eng.supervisor.demoted("native")
 
 
-def test_serial_shortcircuit_error_rc_strikes_native(swaps):
+def test_serial_shortcircuit_error_rc_strikes_native(swaps, monkeypatch):
     """The serial short-circuit's session under an error rc: the native
     scope struck, the block on the per-block path (K5's plain version),
-    its root exact."""
+    its root exact.  The token gas probe is warm before the plan is
+    armed, so its one hit lands inside the serial session, whatever ran
+    earlier in the process."""
     eng, _store = _engine(supervisor=_fast(strikes=1), device_occ=False)
+    _warm_token_probe(swaps[:1])
+    inside = _hits_inside(monkeypatch, eng._machine_executor(),
+                          "_execute_serial_run", "native/error_rc")
     with faults.armed(FaultPlan({"native/error_rc":
                                  FaultSpec(times=1)})) as plan:
         assert eng.replay(_fresh(swaps[:1])) == swaps[0].header.root
         assert plan.fired()["native/error_rc"] == 1
+        assert inside == [1]
     assert eng.supervisor.demoted("native")
     assert eng._machine.serial_blocks == 0
 
 
-def test_oracle_divergence_hard_demotes(swaps):
+def test_oracle_divergence_hard_demotes(swaps, monkeypatch):
     """An armed-oracle divergence hard-demotes ``native`` at once; the
     interpreter's result is authoritative and the replay exact."""
     eng = _host_engine(99, host_exec_check=True)
+    _warm_token_probe(swaps)
+    inside = _hits_inside(monkeypatch, eng, "_fallback",
+                          "native/oracle_divergence")
     bridge.reset_counters()
     with faults.armed(FaultPlan({"native/oracle_divergence":
                                  FaultSpec(times=1)})) as plan:
         assert eng.replay(_fresh(swaps)) == swaps[-1].header.root
         assert plan.fired()["native/oracle_divergence"] == 1
+        assert sum(inside) == 1
     assert eng.supervisor.demoted("native")
     assert bridge.counters()["oracle_divergences"] == 1
 
